@@ -1,0 +1,58 @@
+"""Ray generation from camera intrinsics and camera-to-world poses.
+
+Convention: OpenGL/NeRF camera -- x right, y up, camera looks along -z. A
+pixel (i, j) (column i, row j) maps to the camera-space direction
+``[(i - cx)/fl_x, -(j - cy)/fl_y, -1]``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def undistort_normalized(xd, yd, k1, k2, p1, p2, iters: int = 8):
+    """Invert the OpenCV lens model by fixed-point iteration:
+    x <- (xd - tangential(x)) / radial(x)."""
+    x, y = xd, yd
+    for _ in range(iters):
+        r2 = x * x + y * y
+        radial = 1.0 + r2 * (k1 + r2 * k2)
+        dx = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+        dy = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+        x = (xd - dx) / radial
+        y = (yd - dy) / radial
+    return x, y
+
+
+def pixel_dirs(i, j, fl_x, fl_y, cx, cy, dist=None) -> torch.Tensor:
+    """Camera-space direction(s) for pixel coords (column ``i``, row ``j``).
+    With ``dist`` = (k1, k2, p1, p2) the pixel grid is treated as distorted
+    observations and undistorted first (OpenCV coords are y-down, so the y
+    flip happens after)."""
+    x = (i - cx) / fl_x
+    y = (j - cy) / fl_y  # y-down (OpenCV) at this point
+    if dist is not None:
+        x, y = undistort_normalized(x, y, *dist)
+    x, y = torch.broadcast_tensors(x, y)
+    return torch.stack([x, -y, -torch.ones_like(x)], dim=-1)
+
+
+def get_rays(H: int, W: int, focal, c2w, cx=None, cy=None, focal_y=None,
+             dist=None):
+    """Per-pixel ray origins and directions for a full image.
+
+    ``c2w``: (4, 4) or (3, 4) camera-to-world tensor; the rays live on its
+    device. Returns ``rays_o, rays_d``, each (H, W, 3); directions are not
+    normalized (z-depth parameterization along -z)."""
+    c2w = torch.as_tensor(c2w, dtype=torch.float32)
+    dev = c2w.device
+    cx = W * 0.5 if cx is None else cx
+    cy = H * 0.5 if cy is None else cy
+    fy = focal if focal_y is None else focal_y
+
+    i = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
+    j = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
+    dirs = pixel_dirs(i, j, focal, fy, cx, cy, dist=dist)
+    rays_d = dirs @ c2w[:3, :3].T
+    rays_o = c2w[:3, 3].expand(rays_d.shape)
+    return rays_o, rays_d

@@ -1,0 +1,47 @@
+"""Visual-hull occupancy lookup: the CUDA kernel's wrapper and its plain
+PyTorch version.
+
+Replaces ``nerf_kinematics_tpu/ops/occupancy_pallas.py::
+occupancy_at_hull_pallas``. Kernel source: ``csrc/occupancy_hull.cu``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import cuda_lib
+
+
+def occupancy_at_hull_cuda_ref(proj2: torch.Tensor,
+                               xt: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: ``min(Pxy[x,y], Pxz[x,z], Pyz[y,z])`` at cell
+    ``floor(clip(u*R, 0, R-1))``, the projections rounded to bf16."""
+    R = proj2.shape[-1]
+    idx = torch.floor(torch.clamp(xt * float(R), 0.0, float(R - 1))).to(torch.int64)
+    ix, iy, iz = idx[0], idx[1], idx[2]
+    p2 = proj2.to(torch.bfloat16).to(torch.float32)
+    return torch.minimum(
+        p2[0][ix, iy], torch.minimum(p2[1][ix, iz], p2[2][iy, iz])
+    )
+
+
+def occupancy_at_hull_cuda(proj2: torch.Tensor, xt: torch.Tensor) -> torch.Tensor:
+    """``proj2``: (3, R, R) pair-projections; ``xt``: (3, N) unit coords.
+    Returns (N,) hull occupancy. A CUDA tensor goes through the kernel; a
+    CPU tensor through the plain version."""
+    if not xt.is_cuda:
+        return occupancy_at_hull_cuda_ref(proj2, xt)
+    R = proj2.shape[-1]
+    cuda_lib.check_tensor(xt, "xt", (3, None))
+    cuda_lib.check_tensor(proj2, "proj2", (3, R, R), xt.device)
+    n = xt.shape[1]
+    out = torch.empty((n,), dtype=torch.float32, device=xt.device)
+    if n:
+        lib = cuda_lib.load_library()
+        code = lib.nkt_occupancy_at_hull(
+            xt.data_ptr(), proj2.data_ptr(), out.data_ptr(), n, R,
+            cuda_lib.sm_count(xt.device), cuda_lib.current_stream(xt.device),
+        )
+        cuda_lib.LAUNCHES["occupancy_at_hull"] += 1
+        cuda_lib.raise_on_error(code, "occupancy_at_hull")
+    return out
