@@ -83,3 +83,57 @@ __device__ __forceinline__ NktTaps nkt_taps(float x, const CPLevels& cp, int l,
   }
   return t;
 }
+
+// Encoder backward of one point, level l and channel c: the cotangent gl of
+// the encoding's channel (l, c) goes to the two tapped rows of each of the
+// level's three line tables, dlines += w * bf16(gl * product of the other
+// two axes' line features). dlines has the parameter layout (L, 3, T, C) and
+// is accumulated with atomicAdd (the order of the sum over points is not
+// fixed). A wrap tap of a periodic folded level arrives with r1 = 0, so it
+// adds into row 0 and a row F < T receives nothing from its own level; a
+// hash fold that sends both cells to one row arrives with w1 = 0.
+__device__ __forceinline__ void nkt_enc_bwd_channel(
+    const float* __restrict__ lines, float* __restrict__ dlines,
+    const CPLevels& cp, int l, int c, const NktTaps& tx, const NktTaps& ty,
+    const NktTaps& tz, float gl) {
+  const int C = cp.n_comp;
+  const long long T = cp.table;
+  const long long bx = ((long long)(l * 3 + 0) * T) * C + c;
+  const long long by = ((long long)(l * 3 + 1) * T) * C + c;
+  const long long bz = ((long long)(l * 3 + 2) * T) * C + c;
+  float x0 = __ldg(lines + bx + (long long)tx.r0 * C);
+  float x1 = __ldg(lines + bx + (long long)tx.r1 * C);
+  float y0 = __ldg(lines + by + (long long)ty.r0 * C);
+  float y1 = __ldg(lines + by + (long long)ty.r1 * C);
+  float z0 = __ldg(lines + bz + (long long)tz.r0 * C);
+  float z1 = __ldg(lines + bz + (long long)tz.r1 * C);
+  const bool bf = cp.use_bf16 != 0;
+  if (bf) {
+    x0 = nkt_bf16r(x0); x1 = nkt_bf16r(x1);
+    y0 = nkt_bf16r(y0); y1 = nkt_bf16r(y1);
+    z0 = nkt_bf16r(z0); z1 = nkt_bf16r(z1);
+  }
+  const float ux = tx.w0 * x0 + tx.w1 * x1;
+  const float uy = ty.w0 * y0 + ty.w1 * y1;
+  const float uz = tz.w0 * z0 + tz.w1 * z1;
+  float gx = gl * (uy * uz);
+  float gy = gl * (ux * uz);
+  float gz = gl * (ux * uy);
+  if (bf) {
+    gx = nkt_bf16r(gx);
+    gy = nkt_bf16r(gy);
+    gz = nkt_bf16r(gz);
+  }
+  if (gx != 0.0f) {
+    atomicAdd(dlines + bx + (long long)tx.r0 * C, tx.w0 * gx);
+    if (tx.w1 != 0.0f) atomicAdd(dlines + bx + (long long)tx.r1 * C, tx.w1 * gx);
+  }
+  if (gy != 0.0f) {
+    atomicAdd(dlines + by + (long long)ty.r0 * C, ty.w0 * gy);
+    if (ty.w1 != 0.0f) atomicAdd(dlines + by + (long long)ty.r1 * C, ty.w1 * gy);
+  }
+  if (gz != 0.0f) {
+    atomicAdd(dlines + bz + (long long)tz.r0 * C, tz.w0 * gz);
+    if (tz.w1 != 0.0f) atomicAdd(dlines + bz + (long long)tz.r1 * C, tz.w1 * gz);
+  }
+}

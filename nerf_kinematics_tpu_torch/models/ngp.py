@@ -6,8 +6,8 @@
 Density sigma = exp(clamped first channel); RGB = sigmoid of the returned
 logits (applied by the compositing).
 
-This module is the unfused path: the occupancy sweep and ``density_grid``
-use it. The render path goes through the fused kernels
+This module is the unfused path: the occupancy sweep, ``density_grid`` and
+the ``ngp.fused: off`` train step use it. The render path goes through the fused kernels
 (``ops/ngp_fused_cuda.py``). The two differ numerically on purpose, as in
 the reference: here every ``Dense`` layer with a bf16 compute type rounds
 its output to bf16; the fused kernels keep f32 accumulators.
@@ -80,7 +80,10 @@ class NGPConfig:
     # active; "on" / "off" force it.
     fused: str = "auto"
     fused_block: int = 0  # a tile size of the reference's kernels; unused here
-    fused_train: str = "auto"  # training is ported in a later slice
+    # One-call train objective (ops/ngp_fused_cuda.py::ngp_fused_train_cf):
+    # "auto" = on whenever the step shape is eligible, "on" = require it,
+    # "off" = always autograd, "full" = the whole-step kernel (not ported).
+    fused_train: str = "auto"
 
     @classmethod
     def from_cfg(cls, d: dict) -> "NGPConfig":
@@ -125,14 +128,18 @@ class Dense(nn.Module):
     bf16, the products summed in f32, and both the product and the sum with
     the bias are rounded to bf16, as a bf16 dense layer does."""
 
-    def __init__(self, in_features: int, out_features: int, bf16: bool = False):
+    def __init__(self, in_features: int, out_features: int, bf16: bool = False,
+                 generator=None):
         super().__init__()
         self.bf16 = bf16
         self.kernel = nn.Parameter(torch.empty(in_features, out_features))
         self.bias = nn.Parameter(torch.zeros(out_features))
-        # lecun-normal fan-in scaling, the reference layer's default
-        nn.init.trunc_normal_(self.kernel, std=in_features**-0.5,
-                              a=-2 * in_features**-0.5, b=2 * in_features**-0.5)
+        # lecun-normal, the reference layer's default: a normal truncated at
+        # +-2 sigma and rescaled so that its standard deviation is in^-1/2
+        # (0.8796... is the standard deviation of the unit normal so cut).
+        sigma = in_features**-0.5 / 0.87962566103423978
+        nn.init.trunc_normal_(self.kernel, std=sigma, a=-2 * sigma, b=2 * sigma,
+                              generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.bf16:
@@ -166,14 +173,14 @@ class NGPModel(nn.Module):
         self.density_names.append("density_out")
         outs = widths[1:] + [cfg.density_out]
         for name, i, o in zip(self.density_names, widths, outs):
-            self.add_module(name, Dense(i, o, bf16))
+            self.add_module(name, Dense(i, o, bf16, generator))
         c_in = cfg.density_out + cfg.sh_degree**2
         widths = [c_in] + [cfg.color_width] * (cfg.color_layers - 1)
         self.color_names = [f"color_{i}" for i in range(cfg.color_layers - 1)]
         self.color_names.append("color_out")
         outs = widths[1:] + [3]
         for name, i, o in zip(self.color_names, widths, outs):
-            self.add_module(name, Dense(i, o, bf16))
+            self.add_module(name, Dense(i, o, bf16, generator))
 
     def encode(self, xyz: torch.Tensor) -> torch.Tensor:
         return cp_encode_cuda(self.cp_lines, xyz, self.config.cp)

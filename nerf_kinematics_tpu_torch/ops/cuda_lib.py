@@ -25,7 +25,7 @@ from .cp_grid import CPGridConfig, fold_salt, level_clip_max
 
 MAX_LEVELS = 8
 MAX_LAYERS = 8
-MAX_WIDTH = 64  # NKT_W of csrc/ngp_fused.cu
+MAX_WIDTH = 64  # NKT_W of csrc/ngp_fused.cuh
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 
 NVCC_FLAGS = [
@@ -39,6 +39,9 @@ LAUNCHES = {
     "ngp_fused_sigma_cf": 0,
     "ngp_fused_apply_cf": 0,
     "cp_encode": 0,
+    "cp_encode_bwd": 0,
+    "ngp_fused_apply_cf_bwd": 0,
+    "ngp_fused_train_cf": 0,
 }
 
 
@@ -64,7 +67,7 @@ class CPLevels(ctypes.Structure):
 
 
 class FusedArgs(ctypes.Structure):
-    """Mirrors ``struct FusedArgs`` of csrc/ngp_fused.cu."""
+    """Mirrors ``struct FusedArgs`` of csrc/ngp_fused.cuh."""
 
     _fields_ = [
         ("xt", ctypes.c_void_p),
@@ -83,6 +86,29 @@ class FusedArgs(ctypes.Structure):
         ("c_in", ctypes.c_int * MAX_LAYERS),
         ("c_out", ctypes.c_int * MAX_LAYERS),
         ("cp", CPLevels),
+    ]
+
+
+class BwdArgs(ctypes.Structure):
+    """Mirrors ``struct BwdArgs`` of csrc/ngp_fused_bwd.cu."""
+
+    _fields_ = [
+        ("f", FusedArgs),
+        ("g", ctypes.c_void_p),
+        ("act", ctypes.c_void_p),
+        ("gs", ctypes.c_void_p),
+        ("partial", ctypes.c_void_p),
+        ("flat", ctypes.c_void_p),
+        ("dlines", ctypes.c_void_p),
+        ("dists", ctypes.c_void_p),
+        ("tgt", ctypes.c_void_p),
+        ("err", ctypes.c_void_p),
+        ("maps", ctypes.c_void_p),
+        ("gbuf", ctypes.c_void_p),
+        ("S", ctypes.c_int),
+        ("white_bg", ctypes.c_int),
+        ("inv_denom", ctypes.c_float),
+        ("n_part", ctypes.c_int),
     ]
 
 
@@ -210,6 +236,15 @@ def load_library(verbose: bool = False):
     lib.nkt_fused_forward.restype = ci
     lib.nkt_fused_smem_bytes.argtypes = [ctypes.POINTER(FusedArgs), ci]
     lib.nkt_fused_smem_bytes.restype = ll
+    lib.nkt_cp_encode_bwd.argtypes = [
+        vp, vp, vp, vp, ll, ctypes.POINTER(CPLevels), ci, vp]
+    lib.nkt_cp_encode_bwd.restype = ci
+    lib.nkt_fused_bwd_sizes.argtypes = [
+        ctypes.POINTER(FusedArgs), ctypes.POINTER(ll)]
+    lib.nkt_fused_bwd_sizes.restype = None
+    for fn in (lib.nkt_fused_backward, lib.nkt_fused_train):
+        fn.argtypes = [ctypes.POINTER(BwdArgs), ci, vp]
+        fn.restype = ci
     _LIB = lib
     return lib
 

@@ -4,9 +4,9 @@ A maintained EMA occupancy volume reweights each ray's uniform depth bins and
 resamples them through the inverse CDF, so samples concentrate in occupied
 space while every shape stays static.
 
-Ported: the full-sweep update (:func:`update_grid`) and the visual-hull
-proposal (``mode="hull"``). The ``grid`` / ``projected`` proposals and the
-incremental update are not ported yet.
+Ported: the full-sweep update (:func:`update_grid`), the incremental update
+(:func:`update_grid_incremental`) and the visual-hull proposal
+(``mode="hull"``). The ``grid`` / ``projected`` proposals are not ported yet.
 
 The grid is stored ``density[x, y, z]`` (axis 0 = x).
 """
@@ -82,6 +82,41 @@ def update_grid(
     return grid._replace(density=new)
 
 
+def update_grid_incremental(
+    grid: OccupancyGrid,
+    density_fn: Callable[[torch.Tensor], torch.Tensor],
+    generator: Optional[torch.Generator] = None,
+    n_cells: int = 65536,
+    decay: float = 0.95,
+    from_unit: Optional[Callable] = None,
+    idx: Optional[torch.Tensor] = None,
+    u: Optional[torch.Tensor] = None,
+) -> OccupancyGrid:
+    """Steady-state maintenance between full sweeps: decay every cell,
+    re-query ``n_cells`` uniformly random cells at one jittered point each and
+    scatter-max the fresh densities in. Draw order from ``generator``: the
+    cell indices, then the jitter; ``idx`` (n_cells,) int64 flat indices
+    (x * R^2 + y * R + z) and ``u`` (n_cells, 3) uniforms replace them."""
+    from_unit = from_unit or _linear_from_unit(grid)
+    R = grid.resolution
+    dev = grid.density.device
+    if idx is None:
+        gdev = generator.device if generator is not None else dev
+        idx = torch.randint(0, R * R * R, (n_cells,), generator=generator,
+                            device=gdev)
+    idx = torch.as_tensor(idx, dtype=torch.int64, device=dev)
+    ix, rem = idx // (R * R), idx % (R * R)
+    iy, iz = rem // R, rem % R
+    centers = (torch.stack([ix, iy, iz], -1).to(torch.float32) + 0.5) / R
+    jitter = (_uniform(centers.shape, u, generator, dev, torch.float32) - 0.5) / R
+    pts = from_unit(torch.clamp(centers + jitter, 0.0, 1.0))
+    with torch.no_grad():
+        sigmas = density_fn(pts).to(torch.float32)
+    new = (grid.density * decay).reshape(-1).scatter_reduce(
+        0, idx, sigmas, reduce="amax", include_self=True)
+    return grid._replace(density=new.reshape(R, R, R))
+
+
 def pair_projections(grid: OccupancyGrid) -> torch.Tensor:
     """(3, R, R) per-axis-pair max-projections: Pxy (max over z), Pxz (max
     over y), Pyz (max over x): the visual-hull factorization of the grid."""
@@ -150,8 +185,7 @@ def occupancy_sample(
         if mode in ("grid", "projected"):
             raise NotImplementedError(
                 f"occupancy proposal mode {mode!r} is not ported yet "
-                "(ROADMAP: update_grid_incremental and the grid / projected "
-                "proposals)"
+                "(ROADMAP A.6: the grid / projected proposals)"
             )
         raise ValueError(
             f"unknown occupancy proposal mode {mode!r}; expected one of "

@@ -1,4 +1,5 @@
-"""Hierarchical coarse->fine volume rendering over the fused kernels.
+"""Hierarchical coarse->fine volume rendering, over the fused kernels
+(channels-first entries) or the unfused model (channels-last entries).
 
 Stratified or proposal-placed coarse samples -> coarse pass -> compositing ->
 importance samples -> fine pass -> compositing. Full-image rendering is a
@@ -13,7 +14,7 @@ from typing import Callable, Optional
 import torch
 
 from ..ops.sampling import hierarchical_sample, stratified_sample
-from ..ops.volume_render import raw2outputs_cf
+from ..ops.volume_render import raw2outputs, raw2outputs_cf
 
 
 @dataclass(frozen=True)
@@ -42,19 +43,23 @@ class RenderSettings:
         return cls(**{k: v for k, v in d.items() if k in keys})
 
 
-def _composite(apply_cf, pts, viewdirs, z, rays_d, settings: RenderSettings,
-               generator):
-    """Query the channels-first entry ((pts, vd) -> (4, N)) and composite."""
+def _composite(apply_fn, apply_cf, pts, viewdirs, z, rays_d,
+               settings: RenderSettings, generator):
+    """Query one pass and composite it. With ``apply_cf`` (the channels-first
+    fused entry, (pts, vd) -> (4, N)) the result goes to ``raw2outputs_cf``;
+    otherwise ``apply_fn`` ((pts, vd) -> (rgb logits (..., S, 3), sigma
+    (..., S))) and the classic channels-last ``raw2outputs``."""
     vd = viewdirs[..., None, :].expand(pts.shape) if viewdirs is not None else None
-    raw4 = apply_cf(pts, vd)
-    return raw2outputs_cf(
-        raw4, z, rays_d, noise_std=settings.radiance_field_noise_std,
-        white_background=settings.white_background, generator=generator,
-    )
+    kw = dict(noise_std=settings.radiance_field_noise_std,
+              white_background=settings.white_background, generator=generator)
+    if apply_cf is not None:
+        return raw2outputs_cf(apply_cf(pts, vd), z, rays_d, **kw)
+    raw_rgb, raw_sigma = apply_fn(pts, vd)
+    return raw2outputs(raw_rgb, raw_sigma, z, rays_d, **kw)
 
 
 def render_rays(
-    apply_coarse_cf: Callable,
+    apply_coarse_cf: Optional[Callable],
     rays_o: torch.Tensor,
     rays_d: torch.Tensor,
     near,
@@ -65,14 +70,28 @@ def render_rays(
     use_viewdirs: bool = True,
     viewdirs=None,
     proposal_fn=None,
+    apply_coarse: Optional[Callable] = None,
+    apply_fine: Optional[Callable] = None,
+    u_coarse=None,
+    u_fine=None,
+    coarse_no_grad: bool = False,
 ):
     """Render a batch of rays. Returns (coarse, fine | None) RenderOutputs.
 
-    ``apply_*_cf``: channels-first entries ((pts (..., 3), vd) -> (4, N)).
-    ``near`` / ``far``: scalars or (N,) per-ray tensors. ``viewdirs``
-    overrides the default normalize(rays_d). ``proposal_fn`` (rays_o,
-    rays_d) -> (N, num_coarse) depths replaces the stratified coarse
-    sampler (occupancy-guided placement)."""
+    ``apply_*_cf``: channels-first entries ((pts (..., 3), vd) -> (4, N));
+    where one is None the channels-last ``apply_coarse`` / ``apply_fine``
+    ((pts, vd) -> (rgb logits, sigma)) is used. ``near`` / ``far``: scalars
+    or (N,) per-ray tensors. ``viewdirs`` overrides the default
+    normalize(rays_d). ``proposal_fn`` (rays_o, rays_d, u=None) ->
+    (N, num_coarse) depths replaces the stratified coarse sampler
+    (occupancy-guided placement).
+
+    Differentiable in whatever the entries close over. The coarse weights
+    that place the fine samples are detached, as in the reference. Random
+    draws come from ``generator`` in the order coarse jitter, fine jitter,
+    or are given as ``u_coarse`` (N, num_coarse) / ``u_fine`` (N, num_fine).
+    ``coarse_no_grad`` runs the coarse pass outside autograd (a coarse pass
+    that only places the fine samples needs no graph)."""
     n_rays = rays_o.shape[0]
     deterministic = not settings.perturb
 
@@ -82,27 +101,30 @@ def render_rays(
         viewdirs = None
 
     if proposal_fn is not None:
-        z_coarse = proposal_fn(rays_o, rays_d)
+        z_coarse = (proposal_fn(rays_o, rays_d) if u_coarse is None
+                    else proposal_fn(rays_o, rays_d, u_coarse))
     else:
         z_coarse = stratified_sample(
             n_rays, settings.num_coarse, near, far, perturb=settings.perturb,
-            lindisp=settings.lindisp, generator=generator,
+            lindisp=settings.lindisp, generator=generator, u=u_coarse,
             device=rays_o.device,
         )
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_coarse[..., :, None]
-    coarse = _composite(apply_coarse_cf, pts, viewdirs, z_coarse, rays_d,
-                        settings, generator)
+    with torch.set_grad_enabled(torch.is_grad_enabled() and not coarse_no_grad):
+        coarse = _composite(apply_coarse, apply_coarse_cf, pts, viewdirs,
+                            z_coarse, rays_d, settings, generator)
 
     fine = None
     if settings.num_fine > 0:
+        af = apply_fine if apply_fine is not None else apply_coarse
         af_cf = apply_fine_cf if apply_fine_cf is not None else apply_coarse_cf
         z_all = hierarchical_sample(
             z_coarse, coarse.weights.detach(), settings.num_fine,
             deterministic=deterministic, merge=settings.merge_hierarchical,
-            generator=generator,
+            generator=generator, u=u_fine,
         )
         pts_f = rays_o[..., None, :] + rays_d[..., None, :] * z_all[..., :, None]
-        fine = _composite(af_cf, pts_f, viewdirs, z_all, rays_d, settings,
+        fine = _composite(af, af_cf, pts_f, viewdirs, z_all, rays_d, settings,
                           generator)
 
     return coarse, fine
@@ -120,6 +142,8 @@ def render_image(
     chunk_rays: Optional[int] = None,
     viewdirs=None,
     proposal_fn=None,
+    apply_coarse: Optional[Callable] = None,
+    apply_fine: Optional[Callable] = None,
 ):
     """Render an (H, W) image by looping ``render_rays`` over fixed-size ray
     chunks. The pixel count is padded up to a whole number of chunks with
@@ -155,6 +179,7 @@ def render_image(
                 use_viewdirs=use_viewdirs,
                 viewdirs=chunks_vd[c] if chunks_vd is not None else None,
                 proposal_fn=proposal_fn,
+                apply_coarse=apply_coarse, apply_fine=apply_fine,
             )
             out = fine if fine is not None else coarse
             outs.append((out.rgb, out.disp, out.acc, out.depth))

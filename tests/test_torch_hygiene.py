@@ -22,8 +22,13 @@ FORBIDDEN = [
 
 
 def _port_files():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 20
+    files = sorted(PORT.rglob("*.py")) + sorted((PORT / "csrc").glob("*.cu*"))
+    files += [ROOT / "chip_smoke.py"]
+    assert len(files) > 30
+    names = {str(f.relative_to(ROOT)) for f in files}
+    for new in ("train/loop.py", "train/trainer.py", "io/checkpoint.py",
+                "metrics/writer.py", "csrc/ngp_fused_bwd.cu", "csrc/ngp_fused.cuh"):
+        assert f"nerf_kinematics_tpu_torch/{new}" in names
     return files
 
 
@@ -52,9 +57,11 @@ def test_entry_points_ask_for_the_gpu(monkeypatch):
 def test_cpu_tensors_never_touch_the_library_loader(monkeypatch):
     from nerf_kinematics_tpu_torch.ops import cuda_lib
     from nerf_kinematics_tpu_torch.ops.cp_grid import CPGridConfig, init_stacked_lines
-    from nerf_kinematics_tpu_torch.ops.cp_grid_cuda import cp_encode_cuda
+    from nerf_kinematics_tpu_torch.ops.cp_grid_cuda import (
+        cp_encode_cuda, cp_encode_cuda_bwd)
     from nerf_kinematics_tpu_torch.ops.ngp_fused_cuda import (
-        ngp_fused_apply_cf, ngp_fused_sigma_cf)
+        ngp_fused_apply_cf, ngp_fused_apply_cf_bwd, ngp_fused_sigma_cf,
+        ngp_fused_train_cf)
     from nerf_kinematics_tpu_torch.ops.occupancy_cuda import occupancy_at_hull_cuda
 
     def boom(*a, **k):
@@ -81,6 +88,21 @@ def test_cpu_tensors_never_touch_the_library_loader(monkeypatch):
     assert ngp_fused_sigma_cf(params, x.T.contiguous(), cfg).shape == (4, 50)
     proj = torch.rand((3, 16, 16), generator=g)
     assert occupancy_at_hull_cuda(proj, x.T.contiguous()).shape == (50,)
+    # the gradient wrappers too, directly and through autograd
+    xt = x.T.contiguous()
+    assert cp_encode_cuda_bwd(lines, x, torch.ones(50, 16), cfg).shape == lines.shape
+    d = ngp_fused_apply_cf_bwd(params, xt, vd, torch.ones(4, 50), cfg)
+    assert d["lines"].shape == lines.shape and d["db"][0].shape == (16, 1)
+    err, maps, d = ngp_fused_train_cf(params, xt, vd, torch.full((1, 50), 0.1),
+                                      torch.rand(3, 10, generator=g), cfg, 5, True, 1 / 30)
+    assert err.shape == (1, 10) and maps.shape == (4, 10) and len(d["cW"]) == 2
+    live = {k: (v.clone().requires_grad_() if k == "lines"
+                else [t.clone().requires_grad_() for t in v]) for k, v in params.items()}
+    xg = xt.clone().requires_grad_()
+    ngp_fused_apply_cf(live, xg, vd, cfg).sum().backward()
+    cp_encode_cuda(live["lines"], xg.T, cfg).sum().backward()
+    assert live["lines"].grad is not None and live["cb"][1].grad is not None
+    assert xg.grad is None  # positions get no gradient, on the CPU either
     # launches are counted where a kernel is launched, and nowhere else
     assert all(v == 0 for v in cuda_lib.LAUNCHES.values())
 
@@ -97,6 +119,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     ("nkt_fused_sigma_kernel", "ngp_fused.cu"),
     ("nkt_fused_apply_kernel", "ngp_fused.cu"),
     ("nkt_cp_encode_kernel", "cp_encode.cu"),
+    ("nkt_cp_encode_bwd_kernel", "cp_encode.cu"),
+    ("nkt_fused_apply_save_kernel", "ngp_fused_bwd.cu"),
+    ("nkt_train_rays_kernel", "ngp_fused_bwd.cu"),
+    ("nkt_fused_point_bwd_kernel", "ngp_fused_bwd.cu"),
+    ("nkt_wgrad_kernel", "ngp_fused_bwd.cu"),
+    ("nkt_reduce_partials_kernel", "ngp_fused_bwd.cu"),
 ])
 def test_every_ported_kernel_has_cuda_source(kernel, source):
     text = (PORT / "csrc" / source).read_text()
@@ -124,9 +152,40 @@ def test_ctypes_structs_mirror_the_cuda_structs():
         return names
 
     common = (PORT / "csrc" / "nkt_common.cuh").read_text()
-    fused = (PORT / "csrc" / "ngp_fused.cu").read_text()
+    fused = (PORT / "csrc" / "ngp_fused.cuh").read_text()
+    bwd = (PORT / "csrc" / "ngp_fused_bwd.cu").read_text()
     assert c_fields(common, "CPLevels") == [f[0] for f in cuda_lib.CPLevels._fields_]
     assert c_fields(fused, "FusedArgs") == [f[0] for f in cuda_lib.FusedArgs._fields_]
+    assert c_fields(bwd, "BwdArgs") == [f[0] for f in cuda_lib.BwdArgs._fields_]
     assert f"#define NKT_MAX_LEVELS {cuda_lib.MAX_LEVELS}" in common
     assert f"#define NKT_MAX_LAYERS {cuda_lib.MAX_LAYERS}" in fused
     assert f"#define NKT_W {cuda_lib.MAX_WIDTH}" in fused
+
+
+@pytest.mark.parametrize(
+    "path", sorted((PORT / "ops").glob("*_cuda.py")) + [PORT / "ops" / "cuda_lib.py"],
+    ids=lambda p: p.name)
+def test_no_wrapper_catches_a_build_or_a_launch(path):
+    """For a CUDA tensor a wrapper launches its kernel or raises: nothing in
+    the wrappers' modules or the loader catches an exception."""
+    assert path.exists()
+    text = path.read_text()
+    assert re.search(r"^\s*(try\s*:|except\b)", text, re.M) is None
+
+
+def test_flat_gradient_layout_matches_the_cuda_source():
+    """``_grad_layout`` (host) and ``make_rows`` (device side) order the MLP
+    leaves the same way: per density layer W then b, then the color layers."""
+    from nerf_kinematics_tpu_torch.ops.ngp_fused_cuda import _grad_layout
+
+    params = {"dW": [torch.zeros(6, 4), torch.zeros(4, 2)],
+              "db": [torch.zeros(4, 1), torch.zeros(2, 1)],
+              "cW": [torch.zeros(5, 3)], "cb": [torch.zeros(3, 1)]}
+    assert [(k, i) for k, i, _ in _grad_layout(params)] == [
+        ("dW", 0), ("db", 0), ("dW", 1), ("db", 1), ("cW", 0), ("cb", 0)]
+    text = (PORT / "csrc" / "ngp_fused.cuh").read_text()
+    body = text[text.index("static SaveRows make_rows"):]
+    d = body.index("a.nd; ++li")
+    c = body.index("a.nc; ++li")
+    assert d < body.index("r.dw_off[li] = flat") < body.index("r.db_off[li] = flat") < c
+    assert c < body.index("r.cw_off[li] = flat") < body.index("r.cb_off[li] = flat")

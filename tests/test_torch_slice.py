@@ -1,4 +1,4 @@
-"""The serving slice as a whole: the same random-init flax parameters and a
+"""The serving slice as a whole (training: tests/test_torch_train_step.py): the same random-init flax parameters and a
 hand-made occupancy grid go through ``NGPEngine`` of the JAX package (Pallas
 kernels in interpret mode) and of the port (plain versions on the CPU) --
 fast render with and without foreground compaction, the standard evaluation
@@ -160,13 +160,28 @@ def test_density_grid_matches(sl):
 
 
 def test_training_entry_points_wait(sl):
-    for name in ("init_state", "make_train_step", "make_train_many", "fused_objective_fn"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            getattr(sl.te, name)()
-    with pytest.raises(NotImplementedError):
-        sl.te.update_occupancy(sl.taux, full=False)
-    with pytest.raises(NotImplementedError):
+    """The training entry points exist now; what still waits for a later
+    slice says so and names its place in the queue."""
+    state = sl.te.init_state(seed=1, keep_weights=True)
+    assert int(state.step) == 0 and state.params.numel() == sl.te.layout.total
+    for make in (sl.te.make_train_step, sl.te.make_train_many):
+        assert callable(make(sl.tintr, 2.0, 6.0, False))
+    assert callable(sl.te.fused_objective_fn(2.0, 6.0, sl.te.cfg.nerf.train))
+    new = sl.te.update_occupancy(sl.taux, full=False,
+                                 generator=torch.Generator().manual_seed(0))
+    assert new.density.shape == sl.taux.density.shape
+    import dataclasses
+    full = dataclasses.replace(sl.te.ngp_config, fused_train="full")
+    with pytest.raises(NotImplementedError, match="row 8"):
+        NGPEngine(sl.te.cfg.replace(ngp=full), device="cpu").fused_objective_fn(
+            2.0, 6.0, sl.te.cfg.nerf.train)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         NGPEngine(sl.te.cfg, scene_bound=4.0, device="cpu")  # contracted scene
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        hashed = dataclasses.replace(sl.te.ngp_config, encoder="hash")
+        NGPEngine(sl.te.cfg.replace(ngp=hashed), device="cpu")
+    with pytest.raises(NotImplementedError, match="NDC"):
+        sl.te.make_train_step(sl.tintr, 2.0, 6.0, True)
     assert sl.te.fused and sl.te.resolved_coarse_loss_weight() == 0.0
     coarse, fine = sl.te.cf_apply_fns()
     assert coarse == sl.te.apply_sigma_cf and fine == sl.te.apply_cf
