@@ -717,6 +717,7 @@ def phase_train(fx, dev, quick: bool, dataset, profile: bool):
             (back.step, res.state.step),
             (back.aux.density, res.state.aux.density),
             (back.generator.get_state(), res.state.generator.get_state())))
+        parts = time_step_parts(trainer, res.state)
         prof = profile_steps(trainer, res.state) if profile else None
         trainer.close()
 
@@ -735,7 +736,7 @@ def phase_train(fx, dev, quick: bool, dataset, profile: bool):
         "ms_per_step": ms_per_step, "rays_per_s": n_rays / ms_per_step * 1e3,
         "fit_seconds": fit_s, "chunks": [[k, s] for k, s in res.chunk_seconds],
         "occupancy_refreshes_ms": refreshes, "launches": counts,
-        "checkpoint_round_trip": same, "peak_memory_gib": peak_gb,
+        "checkpoint_round_trip": same, "peak_memory_gib": peak_gb, **parts,
     }
     if prof is not None:
         report["profile"] = prof
@@ -767,6 +768,28 @@ def phase_train(fx, dev, quick: bool, dataset, profile: bool):
     if not same:
         raise AssertionError("train: the restored state differs from the saved one")
     return counts
+
+
+def time_step_parts(trainer, state):
+    """CUDA-event medians of two parts of the step that a profile by kernel
+    name cannot tell from the other PyTorch ops: the coarse proposal (pair
+    projections, hull kernel, inverse CDF) and the Adam update."""
+    from nerf_kinematics_tpu_torch.train.loop import adam_update, lr_schedule
+
+    eng, cfg, ds = trainer.engine, trainer.cfg, trainer.dataset
+    n = cfg.nerf.num_random_rays
+    rays_o, rays_d = trainer.ray_buf["rays_o"][:n], trainer.ray_buf["rays_d"][:n]
+    prop = eng.proposal_for(state.aux, ds.near, ds.far, cfg.nerf.train,
+                            state.generator)
+    with torch.no_grad():
+        proposal_ms = time_ms(lambda: prop(rays_o, rays_d), 20, 3)
+        st = state.clone()
+        grads = torch.randn_like(st.params) * 1e-3
+        mask = eng.layout.decay_mask(st.params.device)
+        sched = lr_schedule(cfg)
+        adam_ms = time_ms(
+            lambda: adam_update(st.params, grads, st.opt_state, sched, mask), 20, 3)
+    return {"coarse_proposal_ms": proposal_ms, "adam_ms": adam_ms}
 
 
 def profile_steps(trainer, state, n_steps: int = 10):
