@@ -6,18 +6,22 @@
 
 Builds the CUDA kernels from ``nerf_kinematics_tpu_torch/csrc`` (first use),
 holds each kernel against its plain PyTorch version on the card at the shapes
-the main paths give it, and drives both main paths of the ``machina_ngp``
-model at full width through the entry points a user calls:
+the main paths give it, and drives the main paths of both engines at full
+width through the entry points a user calls:
 
-  * serving: 400x400 frames from the fixture's trained weights (fast
-    renderer, the compacted recipe, the evaluation renderer, a full occupancy
-    sweep, the density grid), held against the golden renders the JAX package
-    produced from the same weights;
-  * training: ``Trainer.fit`` for 768 steps of the flagship configuration
-    from a seeded fresh state, on views the port renders from the trained
-    weights, then validation on held-out views and a checkpoint round trip;
-    one step of each of the three gradient routes from the same state and
-    draws, which must agree.
+  * serving (``machina_ngp``): 400x400 frames from the fixture's trained
+    weights (fast renderer, the compacted recipe, the evaluation renderer, a
+    full occupancy sweep, the density grid), held against the golden renders
+    the JAX package produced from the same weights;
+  * training (``machina_ngp``): ``Trainer.fit`` for 768 steps of the
+    flagship configuration from a seeded fresh state, on views the port
+    renders from the trained weights, then validation on held-out views and
+    a checkpoint round trip; one step of each of the three gradient routes
+    from the same state and draws, which must agree;
+  * the classic engine (``machina_classic``): ``Trainer.fit`` for 1000 steps
+    on 200x200 views, held-out PSNR, both held-out views rendered through the
+    fused kernel and through its plain version, one step of the fused and of
+    the module gradient route, a checkpoint and a legacy round trip.
 
 It prints one JSON object per phase, then a ``{"kernels": [...]}`` line, the
 card's name and power limit as ``nvidia-smi`` gives them, and as the last
@@ -30,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -42,7 +47,8 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 
-PHASES = ("kernels", "grad_kernels", "serve", "golden", "train", "train_autodiff")
+PHASES = ("kernels", "grad_kernels", "serve", "golden", "train", "train_autodiff",
+          "classic")
 
 KERNEL_REPS = 5        # timed launches per kernel (median), after 2 warm-ups
 
@@ -267,8 +273,223 @@ def phase_kernels(fx, dev, quick: bool, reps: int):
             "bound_ms": b, "bound_by": by, "library_ms": None,
         })
         del xt, vd
+    rows.append(classic_forward_row(dev, quick, reps, flush))
     emit({"phase": "kernels", "quick": quick, "kernels": rows})
     return rows
+
+
+# machina_classic at full width (configs/machina_classic.yml; the card has no
+# PyYAML, and tests/test_torch_classic_train.py holds this dict to the file).
+CLASSIC_CONFIG = {
+    "dataset": {"basedir": "cache/machina400", "far": 6, "half_res": True,
+                "near": 2, "no_ndc": True, "testskip": 1, "type": "blender"},
+    "experiment": {"id": "machina-classic-lowres", "logdir": "logs",
+                   "print_every": 500, "randomseed": 42, "save_every": 20000,
+                   "train_iters": 200000, "validate_every": 2000},
+    "models": {net: {"hidden_size": 128, "include_input_dir": True,
+                     "include_input_xyz": True, "log_sampling_dir": True,
+                     "log_sampling_xyz": True, "num_encoding_fn_dir": 4,
+                     "num_encoding_fn_xyz": 10, "num_layers": 8,
+                     "skip_connect_every": 3, "use_viewdirs": True}
+               for net in ("coarse", "fine")},
+    "nerf": {
+        "encode_direction_fn": "positional_encoding",
+        "encode_position_fn": "positional_encoding",
+        "train": {"chunksize": 131072, "lindisp": False, "num_coarse": 64,
+                  "num_fine": 64, "num_random_rays": 1024, "perturb": True,
+                  "radiance_field_noise_std": 0.2, "white_background": True},
+        "use_viewdirs": True,
+        "validation": {"chunksize": 131072, "lindisp": False, "num_coarse": 64,
+                       "num_fine": 64, "perturb": False,
+                       "radiance_field_noise_std": 0.0, "white_background": True},
+    },
+    "optimizer": {"lr": 0.005, "type": "Adam"},
+    "scheduler": {"lr_decay": 250, "lr_decay_factor": 0.1},
+}
+
+# rows 9 and 10: kernel against plain version, relative to the largest entry
+# of the plain version's row (forward) or leaf (gradient). f32: only the
+# order of the sums differs; bf16: that order can flip the bf16 rounding of
+# an activation, one bf16 step (2^-8) of a single input.
+CLASSIC_FWD_TOL = {"f32": {"max": 1e-4, "mean": 1e-5},
+                   "bf16": {"max": 5e-2, "mean": 2e-3}}
+
+
+def classic_engines(dev, modes=("f32", "bf16"), seed=0):
+    """ClassicNerf at full width in each compute type, the same seeded
+    weights."""
+    import dataclasses
+
+    from nerf_kinematics_tpu_torch.train.config import config_from_dict
+    from nerf_kinematics_tpu_torch.train.loop import ClassicNerf
+
+    base = config_from_dict(CLASSIC_CONFIG)
+    out = {}
+    for mode in modes:
+        dt = "bfloat16" if mode == "bf16" else "float32"
+        cfg = base.replace(
+            model_coarse=dataclasses.replace(base.model_coarse, compute_dtype=dt),
+            model_fine=dataclasses.replace(base.model_fine, compute_dtype=dt))
+        eng = ClassicNerf(cfg, device=dev)
+        eng.init_state(seed=seed)
+        out[mode] = eng
+    return out
+
+
+def classic_points(n: int, gen, dev):
+    """Points of rays through a machina-like scene: origins on a sphere of
+    radius 4, directions towards the middle, depths in [near, far] = [2, 6]
+    (|x| up to 6, so the L = 10 encoding sees arguments of thousands of
+    radians); unit view directions. Channels-first."""
+    o = torch.randn((3, n), generator=gen, device=dev)
+    o = 4.0 * o / torch.linalg.norm(o, dim=0, keepdim=True)
+    d = -o / 4.0 + 0.3 * torch.randn((3, n), generator=gen, device=dev)
+    d = d / torch.linalg.norm(d, dim=0, keepdim=True)
+    z = 2.0 + 4.0 * torch.rand((1, n), generator=gen, device=dev)
+    return (o + d * z).contiguous(), d.contiguous()
+
+
+def classic_flops(cfg) -> int:
+    """Multiply-adds of one point of the fused classic forward, times two."""
+    H, h2 = cfg.hidden_size, cfg.hidden_size // 2
+    t = cfg.trunk_depth
+    macs = cfg.dim_xyz * H + (t - 1) * H * H + H + H * H + (H + cfg.dim_dir) * h2 + h2 * 3
+    return 2 * macs
+
+
+def classic_rel_errors(k, p):
+    """(max, mean) of |kernel - plain| per output row over the row's largest
+    plain entry; the worst row."""
+    mx = mean = 0.0
+    for r in range(4):
+        scale = max(p[r].abs().max().item(), 1e-30)
+        d = (k[r] - p[r]).abs()
+        mx, mean = max(mx, d.max().item() / scale), max(mean, d.mean().item() / scale)
+    return mx, mean
+
+
+def classic_forward_row(dev, quick: bool, reps: int, flush):
+    """Row 9 at the classic main path's shape (the fine pass of a train step
+    and of a 1024-ray render chunk: 1024 x 128 points), f32 and bf16, plus a
+    ragged size."""
+    from nerf_kinematics_tpu_torch.ops.classic_fused_cuda import (
+        classic_fused_apply_cf, classic_fused_apply_cf_ref)
+
+    gen = torch.Generator(device=dev).manual_seed(99)
+    n = 1024 * 128 // (16 if quick else 1)
+    xt, vd = classic_points(n, gen, dev)
+    engines = classic_engines(dev)
+    errs = {}
+    for mode, eng in engines.items():
+        mcfg = eng.cfg.model_coarse
+        params = eng._fused_params(eng.model_coarse)
+        worst = {"max": 0.0, "mean": 0.0}
+        for m in (n, 999):
+            k = classic_fused_apply_cf(params, xt[:, :m].contiguous(),
+                                       vd[:, :m].contiguous(), mcfg)
+            p = classic_fused_apply_cf_ref(params, xt[:, :m], vd[:, :m], mcfg)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(k).all() and k.shape == p.shape):
+                raise AssertionError("classic_fused_apply_cf: bad output")
+            mx, mean = classic_rel_errors(k, p)
+            worst = {"max": max(worst["max"], mx), "mean": max(worst["mean"], mean),
+                     "max_abs": max(worst.get("max_abs", 0.0), (k - p).abs().max().item())}
+        tol = CLASSIC_FWD_TOL[mode]
+        if not (worst["max"] <= tol["max"] and worst["mean"] <= tol["mean"]):
+            raise AssertionError(
+                f"classic_fused_apply_cf ({mode}): {worst} beyond {tol}")
+        errs[mode] = worst
+    eng = engines["f32"]
+    mcfg = eng.cfg.model_coarse
+    params = eng._fused_params(eng.model_coarse)
+    b, by = bound_ms(n * 40 + eng.layout.total * 2, n * classic_flops(mcfg), "f32")
+    return {
+        "name": "classic_fused_apply_cf", "route": "cuda",
+        "source": "nerf_kinematics_tpu_torch/csrc/classic_fused.cu",
+        "replaces": "nerf_kinematics_tpu/ops/classic_fused_pallas.py:312",
+        "n_points": n, "max_abs_err": errs["f32"]["max_abs"], "errors": errs,
+        "tolerance": f"per output row, over the row's largest entry: {CLASSIC_FWD_TOL}",
+        "ms": time_ms(lambda: classic_fused_apply_cf(params, xt, vd, mcfg), reps, 2, flush),
+        "plain_ms": time_ms(lambda: classic_fused_apply_cf_ref(params, xt, vd, mcfg),
+                            3, 1, flush),
+        "bound_ms": b, "bound_by": by, "library_ms": None,
+    }
+
+
+def classic_grad_row(dev, quick: bool, reps: int, flush):
+    """Row 10 at the same shape, f32 and bf16, seeded random cotangents;
+    plus a ragged size in one launch and split over several."""
+    from nerf_kinematics_tpu_torch.ops import classic_fused_cuda as cfc
+
+    gen = torch.Generator(device=dev).manual_seed(98)
+    n = 1024 * 128 // (16 if quick else 1)
+    xt, vd = classic_points(n, gen, dev)
+    g4 = torch.randn((4, n), generator=gen, device=dev)
+    engines = classic_engines(dev)
+    reports = {}
+    abs_err = 0.0
+
+    def leaves(d):
+        return [(f"W[{i}]", w) for i, w in enumerate(d["W"])] + \
+               [(f"b[{i}]", b) for i, b in enumerate(d["b"])]
+
+    def compare(k, p, mode, what):
+        rep, worst_abs = {}, 0.0
+        for (name, a), (_, b_) in zip(leaves(k), leaves(p)):
+            if a.shape != b_.shape or not torch.isfinite(a).all():
+                raise AssertionError(f"{what} {name}: bad gradient")
+            scale = b_.abs().max().item()
+            if scale == 0.0:
+                raise AssertionError(f"{what} {name}: the plain gradient is all zero")
+            d = (a - b_).abs()
+            rep[name] = d.max().item() / scale
+            worst_abs = max(worst_abs, d.max().item())
+        bad = {k_: v for k_, v in rep.items() if not v <= GRAD_TOL[mode]}
+        if bad:
+            raise AssertionError(f"{what} ({mode}): beyond {GRAD_TOL[mode]}: {bad}")
+        return rep, worst_abs
+
+    for mode, eng in engines.items():
+        mcfg = eng.cfg.model_coarse
+        prm = {k: [t.detach() for t in v]
+               for k, v in eng._fused_params(eng.model_coarse).items()}
+        k = cfc.classic_fused_apply_cf_bwd(prm, xt, vd, g4, mcfg)
+        p = cfc.classic_fused_apply_cf_bwd_ref(prm, xt, vd, g4, mcfg)
+        torch.cuda.synchronize()
+        rep, ae = compare(k, p, mode, "classic_fused_apply_cf_bwd")
+        reports[mode] = max(rep.values())
+        if mode == "f32":
+            abs_err = ae
+        # ragged: 999 points in one launch and over three
+        m = 999
+        xs, vs, gs = (t[:, :m].contiguous() for t in (xt, vd, g4))
+        p = cfc.classic_fused_apply_cf_bwd_ref(prm, xs, vs, gs, mcfg)
+        for label, chunk in (("one launch", cfc.BWD_CHUNK), ("split", 400)):
+            keep, cfc.BWD_CHUNK = cfc.BWD_CHUNK, chunk
+            k = cfc.classic_fused_apply_cf_bwd(prm, xs, vs, gs, mcfg)
+            cfc.BWD_CHUNK = keep
+            torch.cuda.synchronize()
+            rep, _ = compare(k, p, mode, f"classic_fused_apply_cf_bwd, 999 points, {label}")
+            reports[f"{mode}_999_{label.replace(' ', '_')}"] = max(rep.values())
+    eng = engines["f32"]
+    mcfg = eng.cfg.model_coarse
+    prm = {k: [t.detach() for t in v]
+           for k, v in eng._fused_params(eng.model_coarse).items()}
+    b, by = bound_ms(n * (24 + 16) + eng.layout.total * 2,
+                     3 * n * classic_flops(mcfg), "f32")
+    return {
+        "name": "classic_fused_apply_cf_bwd", "route": "cuda",
+        "source": "nerf_kinematics_tpu_torch/csrc/classic_fused.cu",
+        "replaces": "nerf_kinematics_tpu/ops/classic_fused_pallas.py:345",
+        "n_points": n, "max_abs_err": abs_err, "max_rel_err": max(reports.values()),
+        "errors": reports,
+        "tolerance": f"per leaf, max abs over the leaf's largest entry: {GRAD_TOL}",
+        "ms": time_ms(lambda: cfc.classic_fused_apply_cf_bwd(prm, xt, vd, g4, mcfg),
+                      reps, 2, flush),
+        "plain_ms": time_ms(lambda: cfc.classic_fused_apply_cf_bwd_ref(prm, xt, vd, g4, mcfg),
+                            2, 1, flush),
+        "bound_ms": b, "bound_by": by, "library_ms": None,
+    }
 
 
 GRAD_TOL = {"bf16": 5e-3, "f32": 2e-4}  # per leaf, relative to its largest entry
@@ -481,6 +702,7 @@ def phase_grad_kernels(fx, dev, quick: bool, reps: int):
                        {"lines": p5, "dW": [], "db": [], "cW": [], "cb": []})
     check("cp_encode_bwd, ragged", "bf16", rep5)
     ragged["row_5_max_rel"] = worst_of([rep5])
+    rows.append(classic_grad_row(dev, quick, reps, flush))
     emit({"phase": "grad_kernels", "quick": quick, "kernels": rows,
           "ragged_999_points": ragged})
     return rows
@@ -657,17 +879,19 @@ def _train_config(fx, logdir, quick: bool, **ngp_kw):
     return fx.config.replace(ngp=ngp, experiment=exp, nerf=nerf), steps
 
 
-def build_dataset(fx, engine, aux, dev, quick: bool):
+def build_dataset(fx, engine, aux, dev, quick: bool, size=None):
     """Views of the fixture's trained model, rendered by the port's
     evaluation renderer: 80 for training on five orbits between 5 and 60
     degrees of elevation (the span of the reference scene's training
-    cameras), 2 held out."""
+    cameras), 2 held out. ``size``: the views' side (the focal scales with
+    it), by default the fixture's (100 with ``quick``)."""
     from nerf_kinematics_tpu_torch.data.machina import (
         machina_intrinsics, orbit_poses)
     from nerf_kinematics_tpu_torch.data.types import dataset_from_arrays
 
-    size = 100 if quick else fx.intrinsics.width
-    intr = machina_intrinsics(size) if quick else fx.intrinsics
+    if size is None:
+        size = 100 if quick else fx.intrinsics.width
+    intr = fx.intrinsics if size == fx.intrinsics.width else machina_intrinsics(size)
     near, far = fx.config.dataset.near, fx.config.dataset.far
     n_each = 8 if quick else 16
     poses = np.concatenate(
@@ -792,13 +1016,16 @@ def time_step_parts(trainer, state):
     return {"coarse_proposal_ms": proposal_ms, "adam_ms": adam_ms}
 
 
-def profile_steps(trainer, state, n_steps: int = 10):
+def profile_steps(trainer, state, n_steps: int = 10, groups=None):
     """torch.profiler over ``n_steps`` train steps: device time by kernel
-    group, the top operations and the device's idle share of the window."""
+    group (``groups``: name -> kernel name prefixes; the fast engine's by
+    default), the top operations and the device's idle share of the
+    window."""
     from torch.profiler import ProfilerActivity, profile
 
     step = trainer._train_step
     args = (trainer.images, trainer.poses, trainer.ray_buf)
+    state = state.clone()  # the steps below must not move the caller's state
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts):  # the tracer's own start-up, thrown away
         for _ in range(3):
@@ -810,11 +1037,12 @@ def profile_steps(trainer, state, n_steps: int = 10):
             state, _ = step(state, *args)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups = {"hull proposal (row 1)": ("nkt_hull",),
-              "coarse density (row 2)": ("nkt_fused_sigma",),
-              "fused train objective (row 7)": (
-                  "nkt_fused_apply_save", "nkt_train_rays", "nkt_fused_point_bwd",
-                  "nkt_wgrad", "nkt_reduce_partials")}
+    groups = groups or {
+        "hull proposal (row 1)": ("nkt_hull",),
+        "coarse density (row 2)": ("nkt_fused_sigma",),
+        "fused train objective (row 7)": (
+            "nkt_fused_apply_save", "nkt_train_rays", "nkt_fused_point_bwd",
+            "nkt_wgrad", "nkt_reduce_partials")}
     by_group = {k: 0.0 for k in groups}
     by_group["PyTorch ops (sampling, compositing, gathers, Adam)"] = 0.0
     kernels = []
@@ -940,6 +1168,231 @@ def phase_train_autodiff(fx, dev, quick: bool, dataset):
     return counts
 
 
+CLASSIC_STEPS = 1000
+CLASSIC_SEED = 42           # the config's experiment.randomseed
+CLASSIC_SIZE = 200          # half_res: the 400x400 scene at half resolution
+# held-out PSNR after CLASSIC_STEPS: the first full-size run's 24.35 dB (view
+# 0; 25.96 view 1) less 2 dB, rounded down; see PERF.md section 6
+CLASSIC_VAL_FLOOR_DB = 22.0
+CLASSIC_RENDER_MIN_DB = 60.0  # kernel render against plain-version render
+# fused and module gradients, per leaf, over the leaf's largest entry. Both
+# are f32; the two forwards differ in the last bits, and a sample whose sigma
+# (or a hidden pre-activation) sits within them of a ReLU's kink switches its
+# whole contribution on or off: 5.4e-4 measured with the density noise,
+# 1.1e-3 without (PERF.md section 6). Kernel against plain version from one
+# cotangent is row 10's check (2e-4).
+CLASSIC_ROUTE_TOL = 2e-3
+
+
+def phase_classic(fx, dev, quick: bool, engine, aux, profile: bool):
+    """The classic engine of machina_classic at full width: Trainer.fit,
+    held-out PSNR, renders through the kernel and its plain version, the two
+    gradient routes, a checkpoint and a legacy round trip."""
+    import dataclasses
+    import tempfile
+
+    from nerf_kinematics_tpu_torch.cameras.rays import pixel_dirs
+    from nerf_kinematics_tpu_torch.io.torch_compat import import_legacy_checkpoint
+    from nerf_kinematics_tpu_torch.metrics.psnr import psnr
+    from nerf_kinematics_tpu_torch.ops import classic_fused_cuda as cfc
+    from nerf_kinematics_tpu_torch.ops import cuda_lib
+    from nerf_kinematics_tpu_torch.train.config import config_from_dict
+    from nerf_kinematics_tpu_torch.train.loop import ClassicNerf, build_objective
+    from nerf_kinematics_tpu_torch.train.trainer import Trainer
+
+    size = 100 if quick else CLASSIC_SIZE
+    steps = 100 if quick else CLASSIC_STEPS
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        dataset = build_dataset(fx, engine, aux, dev, quick, size=size)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    base = config_from_dict(CLASSIC_CONFIG)
+    report = {"phase": "classic", "quick": quick, "steps": steps,
+              "size": [size, size], "views": [len(dataset.train_idx),
+                                              len(dataset.val_idx)],
+              "dataset_seconds": data_s}
+    with tempfile.TemporaryDirectory() as logdir:
+        exp = dataclasses.replace(
+            base.experiment, logdir=logdir, id="chip_smoke_classic",
+            print_every=steps // 4, validate_every=0, save_every=0,
+            train_iters=steps, randomseed=CLASSIC_SEED)
+        cfg = base.replace(experiment=exp)
+        trainer = Trainer(cfg, dataset, export_legacy=True)  # device=None: the card
+        state = trainer.init_or_resume()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launch_counts()
+        # ---- the main path: training --------------------------------------
+        t1 = time.perf_counter()
+        res = trainer.fit(state=state)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t1
+        counts_fit = dict(cuda_lib.LAUNCHES)
+        # ---- the main path: serving the held-out views --------------------
+        eng = trainer.engine
+        ds = dataset
+        render = eng.make_render_fn(ds.intrinsics, ds.near, ds.far, False)
+        val_poses = [torch.tensor(ds.poses[int(i)], device=dev) for i in ds.val_idx]
+        with eng.bound(res.state.params):
+            render(val_poses[0])  # warm-up
+            cuda_lib.reset_launch_counts()
+            frames, ms_frames = timed(lambda: [render(p) for p in val_poses])
+            counts_serve = dict(cuda_lib.LAUNCHES)
+            # the same views through the plain version of row 9
+            kernel_fn = cfc.classic_fused_apply_cf
+            cfc.classic_fused_apply_cf = lambda p, x, v, c: \
+                cfc.classic_fused_apply_cf_ref(p, x, v, c)
+            try:
+                plain_render = eng.make_render_fn(ds.intrinsics, ds.near, ds.far, False)
+            finally:
+                cfc.classic_fused_apply_cf = kernel_fn
+            plain, ms_plain = timed(lambda: [plain_render(p) for p in val_poses])
+        # -------------------------------------------------------------------
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        for f in frames:
+            check_maps(f, "classic render")
+        render_db = [psnr(a["rgb"].cpu().numpy(), b["rgb"].cpu().numpy())
+                     for a, b in zip(frames, plain)]
+        val_db = [psnr(f["rgb"].cpu().numpy(), ds.images[int(i)])
+                  for f, i in zip(frames, ds.val_idx)]
+        # checkpoints: the trainer's own and the reference's legacy file
+        trainer.save_checkpoint(res.state, steps, res.last_metrics, val_db[0])
+        fresh = eng.init_state(seed=99)
+        back, at = trainer.ckpt.restore(fresh, layout=eng.layout)
+        same = at == steps and all(torch.equal(a, b) for a, b in (
+            (back.params, res.state.params), (back.opt_state.mu, res.state.opt_state.mu),
+            (back.opt_state.nu, res.state.opt_state.nu), (back.step, res.state.step)))
+        legacy = import_legacy_checkpoint(
+            os.path.join(trainer.rundir, f"checkpoint{steps}.ckpt"))
+        with eng.bound(res.state.params):
+            want = {**{f"coarse.{k}": v for k, v in eng.model.coarse.state_dict().items()},
+                    **{f"fine.{k}": v for k, v in eng.model.fine.state_dict().items()}}
+            got = {**{f"coarse.{k}": v for k, v in legacy["state_coarse"].items()},
+                   **{f"fine.{k}": v for k, v in legacy["state_fine"].items()}}
+            legacy_same = legacy["step"] == steps and set(got) == set(want) and all(
+                torch.equal(got[k], want[k].cpu()) for k in want)
+        prof = profile_steps(trainer, res.state, groups={
+            "classic fused forward (row 9)": ("nkc_forward", "nkc_pack"),
+            "classic fused gradient (row 10)": ("nkc_bwd_tile", "nkt_wgrad",
+                                                "nkt_reduce_partials")}) \
+            if profile else None
+        trainer.close()
+
+    # ---- the two gradient routes from one state and one set of draws ------
+    routes = {}
+    n_rays = base.nerf.num_random_rays
+    t = base.nerf.train
+    gen = torch.Generator(device=dev).manual_seed(21)
+    imgs, poses = ds.split("train")
+    pix = (torch.randint(0, len(imgs), (n_rays,), generator=gen, device=dev),
+           torch.randint(0, size, (n_rays,), generator=gen, device=dev),
+           torch.randint(0, size, (n_rays,), generator=gen, device=dev))
+    u_c = torch.rand((n_rays, t.num_coarse), generator=gen, device=dev)
+    u_f = torch.rand((n_rays, t.num_fine), generator=gen, device=dev)
+    nz_c = torch.randn((n_rays, t.num_coarse), generator=gen, device=dev)
+    nz_f = torch.randn((n_rays, t.num_coarse + t.num_fine), generator=gen, device=dev)
+    images = torch.as_tensor(imgs, device=dev)
+    poses_t = torch.as_tensor(poses, device=dev)
+    img, row, col = pix
+    intr = ds.intrinsics
+    c2w = poses_t[img]
+    dirs = pixel_dirs(col.float(), row.float(), intr.fl_x, intr.fl_y, intr.cx, intr.cy)
+    rays_d = torch.einsum("nij,nj->ni", c2w[:, :3, :3], dirs)
+    batch = (c2w[:, :3, 3], rays_d,
+             rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True),
+             images[img, row, col])
+    for name, mode in (("fused", "on"), ("module", "off")):
+        c = base.replace(
+            model_coarse=dataclasses.replace(base.model_coarse, fused=mode),
+            model_fine=dataclasses.replace(base.model_fine, fused=mode))
+        e = ClassicNerf(c)
+        e.init_state(seed=CLASSIC_SEED)  # the same fresh weights on both routes
+        cuda_lib.reset_launch_counts()
+        objective = build_objective(e, ds.near, ds.far)
+        (loss, _), grads = objective(batch, None, None, u_coarse=u_c, u_fine=u_f,
+                                     noise_coarse=nz_c, noise_fine=nz_f)
+        torch.cuda.synchronize()
+        launches = dict(cuda_lib.LAUNCHES)
+        # the same without density noise
+        (_, _), grads0 = objective(batch, None, None, u_coarse=u_c, u_fine=u_f,
+                                   noise_coarse=torch.zeros_like(nz_c),
+                                   noise_fine=torch.zeros_like(nz_f))
+        routes[name] = (float(loss), grads, launches, grads0)
+
+    def route_errors(i):
+        per_leaf, zero, finite = {}, [], True
+        for k, g in routes["module"][i].items():
+            fused_g = routes["fused"][i][k]
+            finite = finite and bool(torch.isfinite(fused_g).all())
+            scale = g.abs().max().item()
+            if scale == 0.0:  # a leaf no ray reached: zero on both routes
+                zero.append(k)
+                per_leaf[k] = float("inf") if fused_g.abs().max().item() else 0.0
+                continue
+            per_leaf[k] = (fused_g - g).abs().max().item() / scale
+        return per_leaf, zero, finite
+
+    per_leaf, zero_leaves, finite = route_errors(1)
+    per_leaf0, _, finite0 = route_errors(3)
+    finite = finite and finite0
+    worst, worst0 = max(per_leaf.values()), max(per_leaf0.values())
+    loss_rel = abs(routes["fused"][0] - routes["module"][0]) / abs(routes["module"][0])
+
+    losses = np.asarray(res.losses)
+    first, last = float(losses[:16].mean()), float(losses[-64:].mean())
+    ms_per_step = statistics.median(s / k * 1e3 for k, s in res.chunk_seconds)
+    report.update({
+        "loss_first16": first, "loss_last64": last,
+        "train_psnr_last64": float(-10 * np.log10(max(last, 1e-12))),
+        "val_psnr_db": val_db, "val_mean_psnr_db": float(np.mean(val_db)),
+        "val_psnr_floor_db": CLASSIC_VAL_FLOOR_DB,
+        "ms_per_step": ms_per_step, "rays_per_s": n_rays / ms_per_step * 1e3,
+        "fit_seconds": fit_s, "chunks": [[k, s] for k, s in res.chunk_seconds],
+        "eval_ms_per_frame": ms_frames / len(frames),
+        "plain_eval_ms_per_frame": ms_plain / len(plain),
+        "kernel_vs_plain_render_psnr_db": render_db,
+        "launches_fit": counts_fit, "launches_serve": counts_serve,
+        "routes": {k: {"loss": v[0], "launches": v[2]} for k, v in routes.items()},
+        "routes_grad_max_rel": worst, "routes_loss_rel": loss_rel,
+        "routes_zero_leaves": zero_leaves,
+        "routes_worst_leaves": sorted(per_leaf.items(), key=lambda kv: -kv[1])[:6],
+        "routes_grad_max_rel_without_noise": worst0,
+        "routes_tolerance": CLASSIC_ROUTE_TOL,
+        "checkpoint_round_trip": same, "legacy_round_trip": legacy_same,
+        "peak_memory_gib": peak_gb,
+    })
+    if prof is not None:
+        report["profile"] = prof
+    emit(report)
+    if not np.isfinite(losses).all():
+        raise AssertionError("classic: non-finite loss")
+    evals = counts_fit["classic_fused_apply_cf"] - 2 * steps
+    if counts_fit["classic_fused_apply_cf_bwd"] != 2 * steps or evals < 0:
+        raise AssertionError(f"classic: launches {counts_fit} for {steps} steps")
+    if counts_serve["classic_fused_apply_cf"] <= 0:
+        raise AssertionError("classic: the render did not go through row 9")
+    if routes["fused"][2]["classic_fused_apply_cf_bwd"] != 2 or \
+            routes["module"][2]["classic_fused_apply_cf"] != 0:
+        raise AssertionError(f"classic: routes took other paths: {routes['fused'][2]}, "
+                             f"{routes['module'][2]}")
+    # the loss sums the coarse and the fine MSE, and the density noise keeps
+    # it up: the held-out PSNR floor below is the quality check
+    if not last < (1.0 if quick else 0.75) * first:
+        raise AssertionError(f"classic: loss {first} -> {last}")
+    if not quick and CLASSIC_VAL_FLOOR_DB is not None and \
+            not min(val_db) >= CLASSIC_VAL_FLOOR_DB:
+        raise AssertionError(f"classic: held-out PSNR {val_db} under the floor "
+                             f"{CLASSIC_VAL_FLOOR_DB} dB")
+    if not min(render_db) >= CLASSIC_RENDER_MIN_DB:
+        raise AssertionError(f"classic: kernel and plain renders at {render_db} dB")
+    if not (finite and max(worst, worst0) <= CLASSIC_ROUTE_TOL and loss_rel <= 1e-5):
+        raise AssertionError(f"classic: routes differ: grads {worst}, loss {loss_rel}")
+    if not (same and legacy_same):
+        raise AssertionError("classic: a checkpoint round trip failed")
+    return {k: counts_fit[k] + counts_serve[k] for k in counts_fit}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -992,7 +1445,7 @@ def main(argv=None) -> int:
             counts[k] += v
 
     engine = aux = dataset = None
-    if {"serve", "golden", "train", "train_autodiff"} & set(phases):
+    if {"serve", "golden", "train", "train_autodiff", "classic"} & set(phases):
         with torch.no_grad():
             serve_counts, engine, aux = phase_serve(fx, dev, args.quick)
             add(serve_counts)
@@ -1004,6 +1457,8 @@ def main(argv=None) -> int:
         add(phase_train(fx, dev, args.quick, dataset, args.profile))
     if "train_autodiff" in phases:
         add(phase_train_autodiff(fx, dev, args.quick, dataset))
+    if "classic" in phases:
+        add(phase_classic(fx, dev, args.quick, engine, aux, args.profile))
     if phases != PHASES:
         emit({"phase": "total", "seconds": time.perf_counter() - t_start,
               "partial": list(phases)})

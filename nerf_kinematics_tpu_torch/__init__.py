@@ -4,10 +4,14 @@ Same sub-package and module names as the reference so a reader finds the
 counterpart (``ops/sampling.py`` <-> ``ops/sampling.py``). This package imports
 ``torch`` and numpy only -- never JAX, and nothing from the reference package.
 
-Ported so far: the fast-engine (NGP-class) serving path -- config, weights
-bridge, CP-grid encoder, fused point pipeline, hull occupancy proposal,
-samplers, compositing, the standard and the fast full-image renderers and the
-inference half of ``NGPEngine``. Training is ported in a later slice.
+Ported so far: both engines, training and rendering. The fast engine
+(NGP-class, ``train/ngp_engine.py``): CP-grid encoder, fused point pipeline
+and its gradients, hull occupancy proposal, the standard and the fast
+full-image renderers, the train step and the trainer. The classic engine
+(``train/loop.py::ClassicNerf``): ``FlexibleNeRF``, positional encoding, the
+fused classic point pipeline and its gradient, merged hierarchical sampling,
+NDC rays, legacy checkpoints. Loaders, CLIs, export, poses and multi-GPU
+training come in later slices (``ROADMAP.md``).
 """
 
 from ._device import resolve_device

@@ -56,3 +56,22 @@ def get_rays(H: int, W: int, focal, c2w, cx=None, cy=None, focal_y=None,
     rays_d = dirs @ c2w[:3, :3].T
     rays_o = c2w[:3, 3].expand(rays_d.shape)
     return rays_o, rays_d
+
+
+def ndc_rays(H: int, W: int, focal, near, rays_o: torch.Tensor,
+             rays_d: torch.Tensor):
+    """Warp rays into NDC space for forward-facing (LLFF) scenes: shift the
+    origins to the near plane, then apply the perspective projection, so the
+    frustum maps to the [-1, 1] cube and t in [0, 1] spans near to infinity."""
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+
+    ox, oy, oz = rays_o[..., 0], rays_o[..., 1], rays_o[..., 2]
+    dx, dy, dz = rays_d[..., 0], rays_d[..., 1], rays_d[..., 2]
+    o0 = -1.0 / (W / (2.0 * focal)) * ox / oz
+    o1 = -1.0 / (H / (2.0 * focal)) * oy / oz
+    o2 = 1.0 + 2.0 * near / oz
+    d0 = -1.0 / (W / (2.0 * focal)) * (dx / dz - ox / oz)
+    d1 = -1.0 / (H / (2.0 * focal)) * (dy / dz - oy / oz)
+    d2 = -2.0 * near / oz
+    return torch.stack([o0, o1, o2], -1), torch.stack([d0, d1, d2], -1)

@@ -268,11 +268,18 @@ __global__ void __launch_bounds__(NKT_THREADS, 1)
   }
 }
 
-// partial[w_off + k * J + j] = sum over the block's tiles of A[k][p] *
-// bf16(G[j][p]); partial[b_off + j] = sum of G[j][p]. A: (K, n) layer input
-// (already rounded), G: (J, n) masked f32 cotangent. The thread owns groups
+// partial[w_off + k * J + j] = sum over the block's tiles of bf16(A[k][p]) *
+// bf16(G[j][p]) (no rounding when bf is 0); partial[b_off + j] = sum of
+// G[j][p]. A: (K, n) layer input (the NGP kernels save it rounded already,
+// the classic kernels in f32), G: (J, n) masked f32 cotangent. The thread owns groups
 // of four consecutive j: group q = tid + 256 * i is k = q / J4, j4 = q % J4.
 // UNIFORM: J4 divides 256, so j4 is the same for all of a thread's groups.
+// Floats of the input tile, rounded up so that the tile after it starts on
+// a 16-byte boundary (its rows are read as float4).
+__host__ __device__ __forceinline__ int nkt_as_floats(int K) {
+  return (K * NKT_AS + 3) & ~3;
+}
+
 template <bool UNIFORM>
 __global__ void __launch_bounds__(NKT_THREADS)
     nkt_wgrad_kernel(const float* __restrict__ A, const float* __restrict__ G,
@@ -283,7 +290,7 @@ __global__ void __launch_bounds__(NKT_THREADS)
   const int J4 = (J + 3) / 4;
   const int JP = 4 * J4 + 4;
   float* As = smem;                  // [K][NKT_AS]
-  float* Gr = As + K * NKT_AS;       // [NKT_TP][JP], rounded
+  float* Gr = As + nkt_as_floats(K); // [NKT_TP][JP], rounded (16-byte aligned)
   float* Gf = Gr + NKT_TP * JP;      // [NKT_TP][JP], f32
   for (int e = tid; e < 2 * NKT_TP * JP; e += NKT_THREADS) Gr[e] = 0.0f;
 
@@ -307,7 +314,8 @@ __global__ void __launch_bounds__(NKT_THREADS)
     const long long n0 = t * NKT_TP;
     for (int e = tid; e < K * NKT_TP; e += NKT_THREADS) {
       const int k = e / NKT_TP, p = e % NKT_TP;
-      As[k * NKT_AS + p] = n0 + p < n ? A[(long long)k * n + n0 + p] : 0.0f;
+      const float v = n0 + p < n ? A[(long long)k * n + n0 + p] : 0.0f;
+      As[k * NKT_AS + p] = bf ? nkt_bf16r(v) : v;
     }
     for (int e = tid; e < J * NKT_TP; e += NKT_THREADS) {
       const int j = e / NKT_TP, p = e % NKT_TP;
@@ -364,7 +372,7 @@ __global__ void nkt_reduce_partials_kernel(const float* __restrict__ partial,
 
 static size_t wgrad_smem(int K, int J) {
   const int JP = 4 * ((J + 3) / 4) + 4;
-  return (size_t)(K * NKT_AS + 2 * NKT_TP * JP) * sizeof(float);
+  return (size_t)(nkt_as_floats(K) + 2 * NKT_TP * JP) * sizeof(float);
 }
 
 static bool dims_ok(const FusedArgs& a) {
@@ -384,9 +392,16 @@ static bool dims_ok(const FusedArgs& a) {
     if (e_ != cudaSuccess) return (int)e_;     \
   } while (0)
 
-static int launch_wgrad(const float* A, const float* G, int K, int J,
-                        const BwdArgs& b, const SaveRows& rows, int w_off,
-                        int b_off, int blocks, cudaStream_t st) {
+// One layer's weight gradient, dW = A G^T and db = sum of G over n points,
+// as per-block partial sums into partial (blocks rows of `total` floats).
+// Also called by the classic engine's gradient (csrc/classic_fused.cu).
+extern "C" int nkt_wgrad_launch(const float* A, const float* G, long long n,
+                                int K, int J, int bf, float* partial,
+                                int total, int w_off, int b_off, int blocks,
+                                void* stream) {
+  if (K * ((J + 3) / 4) > NKT_MAX_Q * NKT_THREADS)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
   const size_t bytes = wgrad_smem(K, J);
   const int J4 = (J + 3) / 4;
   if (NKT_THREADS % J4 == 0) {
@@ -394,17 +409,32 @@ static int launch_wgrad(const float* A, const float* G, int K, int J,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)bytes));
     nkt_wgrad_kernel<true><<<blocks, NKT_THREADS, bytes, st>>>(
-        A, G, b.f.n, K, J, b.f.cp.use_bf16, b.partial, rows.total, w_off,
-        b_off);
+        A, G, n, K, J, bf, partial, total, w_off, b_off);
   } else {
     NKT_CHECK(cudaFuncSetAttribute(nkt_wgrad_kernel<false>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)bytes));
     nkt_wgrad_kernel<false><<<blocks, NKT_THREADS, bytes, st>>>(
-        A, G, b.f.n, K, J, b.f.cp.use_bf16, b.partial, rows.total, w_off,
-        b_off);
+        A, G, n, K, J, bf, partial, total, w_off, b_off);
   }
   return (int)cudaGetLastError();
+}
+
+// flat = the sum of the first `blocks` rows of partial, in row order.
+extern "C" int nkt_reduce_partials_launch(const float* partial, float* flat,
+                                          int total, int blocks,
+                                          void* stream) {
+  nkt_reduce_partials_kernel<<<(total + 255) / 256, 256, 0,
+                               (cudaStream_t)stream>>>(partial, flat, total,
+                                                       blocks);
+  return (int)cudaGetLastError();
+}
+
+static int launch_wgrad(const float* A, const float* G, int K, int J,
+                        const BwdArgs& b, const SaveRows& rows, int w_off,
+                        int b_off, int blocks, cudaStream_t st) {
+  return nkt_wgrad_launch(A, G, b.f.n, K, J, b.f.cp.use_bf16, b.partial,
+                          rows.total, w_off, b_off, blocks, st);
 }
 
 static int run_backward(const BwdArgs& b, bool train, int n_sm,
@@ -465,9 +495,7 @@ static int run_backward(const BwdArgs& b, bool train, int n_sm,
   }
 
   // 5. the sum over blocks
-  nkt_reduce_partials_kernel<<<(rows.total + 255) / 256, 256, 0, st>>>(
-      b.partial, b.flat, rows.total, wblocks);
-  return (int)cudaGetLastError();
+  return nkt_reduce_partials_launch(b.partial, b.flat, rows.total, wblocks, st);
 }
 
 // out[0] = rows of act, out[1] = rows of gs, out[2] = floats of the flat MLP

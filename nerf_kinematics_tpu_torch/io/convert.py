@@ -1,6 +1,7 @@
 """Weights and training state carried across: the reference's flax parameter
-tree <-> the port's ``NGPModel`` state dict, the occupancy grid, gradient
-trees, and the flattened Adam state.
+tree <-> the port's ``NGPModel`` state dict and the classic engine's
+``ClassicModel`` state dict, the occupancy grid, gradient trees, and the
+flattened Adam state.
 
 Both directions are renames and copies: f32 in, the same f32 bits out.
 State-dict names follow the tree: ``cp_lines``, ``density_0.kernel``,
@@ -93,12 +94,29 @@ def named_from_flax(tree: dict) -> Dict[str, np.ndarray]:
     return {k: v.numpy() for k, v in params_from_flax(tree).items()}
 
 
+def _reference_path(name: str):
+    """A port parameter name -> the reference's tree path. NGP names are the
+    tree's (``density_0.kernel``); a torch ``Linear`` of the classic engine
+    (``coarse.layers_xyz.0.weight``) is a dense layer of the reference
+    (``coarse / layers_xyz_0 / kernel``)."""
+    parts = name.split(".")
+    if parts[0] not in ("coarse", "fine"):
+        return tuple(parts)
+    leaf = "kernel" if parts[-1] == "weight" else parts[-1]
+    return (parts[0], "_".join(parts[1:-1]), leaf)
+
+
 def _reference_flat_order(layout):
     """Entries of a ``ParamLayout`` in the order the reference's flattened
     optimizer ravels its tree: dictionary keys sorted at every level, so
-    modules alphabetically and ``bias`` before ``kernel``."""
-    key = lambda e: tuple(e[0].split("."))
-    return sorted(layout.entries, key=key)
+    coarse before fine, modules alphabetically and ``bias`` before
+    ``kernel``."""
+    return sorted(layout.entries, key=lambda e: _reference_path(e[0]))
+
+
+def _is_linear_weight(name: str) -> bool:
+    # the port keeps a torch Linear's (out, in); the reference ravels (in, out)
+    return name.endswith(".weight")
 
 
 def flat_from_reference(vec, layout) -> torch.Tensor:
@@ -109,8 +127,11 @@ def flat_from_reference(vec, layout) -> torch.Tensor:
         raise ValueError(f"{vec.size} entries, the layout has {layout.total}")
     out = np.empty(layout.total, np.float32)
     pos = 0
-    for _, _, off, n in _reference_flat_order(layout):
-        out[off : off + n] = vec[pos : pos + n]
+    for name, shape, off, n in _reference_flat_order(layout):
+        part = vec[pos : pos + n]
+        if _is_linear_weight(name):
+            part = part.reshape(shape[::-1]).T.reshape(-1)
+        out[off : off + n] = part
         pos += n
     return torch.from_numpy(out)
 
@@ -118,8 +139,13 @@ def flat_from_reference(vec, layout) -> torch.Tensor:
 def flat_to_reference(flat: torch.Tensor, layout) -> np.ndarray:
     """Inverse of :func:`flat_from_reference`."""
     src = flat.detach().cpu().numpy().reshape(-1)
-    return np.concatenate([src[off : off + n]
-                           for _, _, off, n in _reference_flat_order(layout)])
+    parts = []
+    for name, shape, off, n in _reference_flat_order(layout):
+        part = src[off : off + n]
+        if _is_linear_weight(name):
+            part = part.reshape(shape).T.reshape(-1)
+        parts.append(part)
+    return np.concatenate(parts)
 
 
 def adam_state_from_reference(mu, nu, count, layout, device=None):
@@ -132,3 +158,45 @@ def adam_state_from_reference(mu, nu, count, layout, device=None):
         flat_from_reference(nu, layout).to(device),
         torch.tensor(int(count), dtype=torch.int64, device=device),
     )
+
+
+# ------------------------------------------------------------ classic engine
+
+def classic_params_from_flax(tree: dict, device=None) -> Dict[str, torch.Tensor]:
+    """The reference classic engine's ``{"coarse": tree, "fine": tree}``
+    (parameters or gradients; each tree ``{"params": {...}}`` or the inner
+    dict) -> the state dict of ``ClassicModel``: ``coarse.layer1.weight``
+    (out, in) from ``coarse/layer1/kernel`` (in, out), and so on."""
+    from .torch_compat import flax_to_torch_state_dict
+
+    out = {}
+    for net in ("coarse", "fine"):
+        if tree.get(net) is None:
+            continue
+        sub = tree[net]
+        sub = sub if "params" in sub and isinstance(sub["params"], dict) \
+            else {"params": sub}
+        for k, v in flax_to_torch_state_dict(sub).items():
+            out[f"{net}.{k}"] = torch.tensor(np.asarray(v, np.float32),
+                                             device=device)
+    return out
+
+
+def classic_params_to_flax(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """Inverse of :func:`classic_params_from_flax`: ``{"coarse": {"params":
+    ...}, "fine": ...}`` of numpy arrays."""
+    from .torch_compat import torch_state_dict_to_flax
+
+    out = {}
+    for net in ("coarse", "fine"):
+        sub = {k[len(net) + 1:]: v for k, v in state_dict.items()
+               if k.startswith(net + ".")}
+        if sub:
+            out[net] = torch_state_dict_to_flax(sub)
+    return out
+
+
+def classic_named_from_flax(tree: dict) -> Dict[str, np.ndarray]:
+    """A classic ``{"coarse", "fine"}`` tree of arrays (parameters, gradients
+    or an EMA shadow) -> {state-dict name: f32 numpy array}."""
+    return {k: v.numpy() for k, v in classic_params_from_flax(tree).items()}

@@ -27,6 +27,8 @@ MAX_LEVELS = 8
 MAX_LAYERS = 8
 MAX_WIDTH = 64  # NKT_W of csrc/ngp_fused.cuh
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
+CLASSIC_MAX_LAYERS = 16  # NKC_MAX_LAYERS of csrc/classic_fused.cu
+CLASSIC_MAX_FREQS = 16   # NKC_MAX_FREQS
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -42,6 +44,8 @@ LAUNCHES = {
     "cp_encode_bwd": 0,
     "ngp_fused_apply_cf_bwd": 0,
     "ngp_fused_train_cf": 0,
+    "classic_fused_apply_cf": 0,
+    "classic_fused_apply_cf_bwd": 0,
 }
 
 
@@ -108,6 +112,58 @@ class BwdArgs(ctypes.Structure):
         ("S", ctypes.c_int),
         ("white_bg", ctypes.c_int),
         ("inv_denom", ctypes.c_float),
+        ("n_part", ctypes.c_int),
+    ]
+
+
+_CL = CLASSIC_MAX_LAYERS
+
+
+class ClassicArgs(ctypes.Structure):
+    """Mirrors ``struct ClassicArgs`` of csrc/classic_fused.cu."""
+
+    _fields_ = [
+        ("xt", ctypes.c_void_p),
+        ("vdt", ctypes.c_void_p),
+        ("out", ctypes.c_void_p),
+        ("W", ctypes.c_void_p * _CL),
+        ("b", ctypes.c_void_p * _CL),
+        ("w_sk", ctypes.c_longlong * _CL),
+        ("w_sj", ctypes.c_longlong * _CL),
+        ("b_s", ctypes.c_longlong * _CL),
+        ("wf", ctypes.c_void_p),
+        ("wb", ctypes.c_void_p),
+        ("bias", ctypes.c_void_p),
+        ("n", ctypes.c_longlong),
+        ("nw", ctypes.c_int),
+        ("trunk", ctypes.c_int),
+        ("hidden", ctypes.c_int),
+        ("buf_rows", ctypes.c_int),
+        ("in_dim", ctypes.c_int * _CL),
+        ("out_dim", ctypes.c_int * _CL),
+        ("rnd", ctypes.c_int * _CL),
+        ("wf_off", ctypes.c_int * _CL),
+        ("wf_ld", ctypes.c_int * _CL),
+        ("wb_off", ctypes.c_int * _CL),
+        ("wb_ld", ctypes.c_int * _CL),
+        ("wb_cols", ctypes.c_int * _CL),
+        ("b_off", ctypes.c_int * _CL),
+        ("n_freq_x", ctypes.c_int),
+        ("n_freq_d", ctypes.c_int),
+        ("inc_x", ctypes.c_int),
+        ("inc_d", ctypes.c_int),
+        ("freq_x", ctypes.c_float * CLASSIC_MAX_FREQS),
+        ("freq_d", ctypes.c_float * CLASSIC_MAX_FREQS),
+        ("g", ctypes.c_void_p),
+        ("act", ctypes.c_void_p),
+        ("gs", ctypes.c_void_p),
+        ("partial", ctypes.c_void_p),
+        ("flat", ctypes.c_void_p),
+        ("act_row", ctypes.c_int * _CL),
+        ("gs_row", ctypes.c_int * _CL),
+        ("dw_off", ctypes.c_int * _CL),
+        ("db_off", ctypes.c_int * _CL),
+        ("grad_total", ctypes.c_int),
         ("n_part", ctypes.c_int),
     ]
 
@@ -244,6 +300,9 @@ def load_library(verbose: bool = False):
     lib.nkt_fused_bwd_sizes.restype = None
     for fn in (lib.nkt_fused_backward, lib.nkt_fused_train):
         fn.argtypes = [ctypes.POINTER(BwdArgs), ci, vp]
+        fn.restype = ci
+    for fn in (lib.nkt_classic_forward, lib.nkt_classic_backward):
+        fn.argtypes = [ctypes.POINTER(ClassicArgs), vp]
         fn.restype = ci
     _LIB = lib
     return lib

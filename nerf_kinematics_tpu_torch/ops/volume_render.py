@@ -87,11 +87,12 @@ def raw2outputs_cf(
 ) -> RenderOutputs:
     """Composite per-sample radiance and density into per-ray maps.
 
-    ``raw4``: (4, R*S), rgb logit rows 0-2, row 3 sigma **already
-    exp-activated** by the fused kernel, points flattened ray-major. The
-    relu below is therefore a no-op, and ``noise_std`` noise (standard
-    normal draws from ``generator``, or ``noise`` of shape (R, S)) is added
-    after the activation. alpha = 1 - exp(-relu(sigma) * delta); the last
+    ``raw4``: (4, R*S), rgb logit rows 0-2 and row 3 sigma, points flattened
+    ray-major. The NGP kernels emit sigma already exp-activated, so the relu
+    below is a no-op for them and ``noise_std`` noise (standard normal draws
+    from ``generator``, or ``noise`` of shape (R, S)) lands after their
+    activation; the classic kernel emits the raw sigma, so for it the noise
+    lands before the relu, as in :func:`raw2outputs`. alpha = 1 - exp(-relu(sigma) * delta); the last
     interval is 1e10 * ||d||; transmittance is the exclusive cumulative
     product of (1 - alpha + 1e-10)."""
     R, S = z_vals.shape[-2], z_vals.shape[-1]

@@ -44,14 +44,17 @@ class RenderSettings:
 
 
 def _composite(apply_fn, apply_cf, pts, viewdirs, z, rays_d,
-               settings: RenderSettings, generator):
+               settings: RenderSettings, generator, noise=None):
     """Query one pass and composite it. With ``apply_cf`` (the channels-first
     fused entry, (pts, vd) -> (4, N)) the result goes to ``raw2outputs_cf``;
     otherwise ``apply_fn`` ((pts, vd) -> (rgb logits (..., S, 3), sigma
-    (..., S))) and the classic channels-last ``raw2outputs``."""
+    (..., S))) and the classic channels-last ``raw2outputs``. ``noise``: the
+    pass's standard normal density noise, (N, S), in place of draws from
+    ``generator``."""
     vd = viewdirs[..., None, :].expand(pts.shape) if viewdirs is not None else None
     kw = dict(noise_std=settings.radiance_field_noise_std,
-              white_background=settings.white_background, generator=generator)
+              white_background=settings.white_background, generator=generator,
+              noise=noise)
     if apply_cf is not None:
         return raw2outputs_cf(apply_cf(pts, vd), z, rays_d, **kw)
     raw_rgb, raw_sigma = apply_fn(pts, vd)
@@ -75,6 +78,8 @@ def render_rays(
     u_coarse=None,
     u_fine=None,
     coarse_no_grad: bool = False,
+    noise_coarse=None,
+    noise_fine=None,
 ):
     """Render a batch of rays. Returns (coarse, fine | None) RenderOutputs.
 
@@ -88,8 +93,11 @@ def render_rays(
 
     Differentiable in whatever the entries close over. The coarse weights
     that place the fine samples are detached, as in the reference. Random
-    draws come from ``generator`` in the order coarse jitter, fine jitter,
-    or are given as ``u_coarse`` (N, num_coarse) / ``u_fine`` (N, num_fine).
+    draws come from ``generator`` in the order coarse jitter, coarse density
+    noise, fine jitter, fine density noise (the noise only when
+    ``radiance_field_noise_std`` > 0), or are given as ``u_coarse``
+    (N, num_coarse) / ``u_fine`` (N, num_fine) uniforms and ``noise_coarse``
+    / ``noise_fine`` standard normals of each pass's (N, samples) shape.
     ``coarse_no_grad`` runs the coarse pass outside autograd (a coarse pass
     that only places the fine samples needs no graph)."""
     n_rays = rays_o.shape[0]
@@ -112,7 +120,7 @@ def render_rays(
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_coarse[..., :, None]
     with torch.set_grad_enabled(torch.is_grad_enabled() and not coarse_no_grad):
         coarse = _composite(apply_coarse, apply_coarse_cf, pts, viewdirs,
-                            z_coarse, rays_d, settings, generator)
+                            z_coarse, rays_d, settings, generator, noise_coarse)
 
     fine = None
     if settings.num_fine > 0:
@@ -125,7 +133,7 @@ def render_rays(
         )
         pts_f = rays_o[..., None, :] + rays_d[..., None, :] * z_all[..., :, None]
         fine = _composite(af, af_cf, pts_f, viewdirs, z_all, rays_d, settings,
-                          generator)
+                          generator, noise_fine)
 
     return coarse, fine
 

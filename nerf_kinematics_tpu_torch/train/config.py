@@ -14,6 +14,7 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 from ..models.ngp import NGPConfig
+from ..ops.positional_encoding import encoding_dim
 from ..rendering.renderer import RenderSettings
 
 
@@ -28,9 +29,14 @@ def _filtered(cls, d: dict):
 @dataclass(frozen=True)
 class FlexibleNeRFConfig:
     """Shape of the classic engine's MLP (``models.coarse`` / ``models.fine``
-    of the YAML). The classic engine is not ported yet; the fields are kept
-    so every config loads and serializes to the same values in both
-    packages."""
+    of the YAML), the model of ``models/flexible_nerf.py``. The xyz trunk has
+    ``num_layers // 2`` layers; trunk layer i > 0 concatenates gamma(xyz) to
+    its input when ``i % skip_connect_every == 0``. ``compute_dtype`` is the
+    operand type of the products ("float32" | "bfloat16"; parameters stay
+    f32). ``fused``: "auto" and "on" send the point pipeline through
+    ``ops/classic_fused_cuda.py`` (the kernel for CUDA tensors, its plain
+    version for CPU tensors) where the config is supported, "off" keeps the
+    module."""
 
     num_layers: int = 8
     hidden_size: int = 128
@@ -44,6 +50,18 @@ class FlexibleNeRFConfig:
     use_viewdirs: bool = True
     compute_dtype: str = "float32"
     fused: str = "auto"
+
+    @property
+    def dim_xyz(self) -> int:
+        return encoding_dim(3, self.num_encoding_fn_xyz, self.include_input_xyz)
+
+    @property
+    def dim_dir(self) -> int:
+        return encoding_dim(3, self.num_encoding_fn_dir, self.include_input_dir)
+
+    @property
+    def trunk_depth(self) -> int:
+        return max(self.num_layers // 2, 1)
 
     @classmethod
     def from_model_cfg(cls, d: dict) -> "FlexibleNeRFConfig":

@@ -1,4 +1,4 @@
-"""Training state and the train step of the fast engine.
+"""Training state, the train step of both engines, and the classic engine.
 
 The whole step -- ray batch, coarse proposal, fine objective, Adam, EMA --
 is enqueued on the device without a host synchronisation: the step counter,
@@ -16,28 +16,57 @@ Random draws come from ``TrainState.generator`` in a fixed order per step:
   1. the ray batch: the window offset (``shuffled`` sampler, one integer) or
      the image, row and column indices (``random`` sampler, in that order);
   2. the coarse depth jitter, (n_rays, num_coarse) uniforms;
-  3. the fine depth jitter, (n_rays, num_fine) uniforms.
+  3. the coarse pass's density noise, standard normals (only with
+     ``radiance_field_noise_std`` > 0);
+  4. the fine depth jitter, (n_rays, num_fine) uniforms;
+  5. the fine pass's density noise.
 
 Every one of them can be passed in instead (``offset=``, ``pixels=``,
-``u_coarse=``, ``u_fine=``), which is how tests feed this package and the
-reference the same numbers.
+``u_coarse=``, ``u_fine=``, ``noise_coarse=``, ``noise_fine=``), which is
+how tests feed this package and the reference the same numbers.
+
+Optimizer. Adam over the flat buffer with each engine's constants
+(``engine.adam``): the fast engine's (b2 0.99, eps 1e-15, coupled 1e-6 decay
+on the MLP kernels) and the classic engine's, optax's defaults (b2 0.999,
+eps 1e-8, no decay).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import logging
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch import nn
 
-from ..cameras.rays import pixel_dirs
-from ..rendering.renderer import render_rays
+from .._device import resolve_device
+from ..cameras.rays import get_rays, ndc_rays, pixel_dirs
+from ..rendering.renderer import render_image, render_rays
 
-# Adam as the fast engine uses it (NGP practice): b2 0.99, eps 1e-15 outside
-# the square root, L2 decay on the MLP kernels only.
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.99, 1e-15
-WEIGHT_DECAY = 1e-6
+log = logging.getLogger("nerf_kinematics_tpu_torch.train")
+
+
+@dataclass(frozen=True)
+class AdamConfig:
+    """Adam's constants: ``eps`` is added outside the square root, and
+    ``weight_decay`` is a coupled L2 term on the parameters the layout's
+    ``decay_mask`` selects."""
+
+    b1: float
+    b2: float
+    eps: float
+    weight_decay: float
+
+
+# The fast engine's Adam (NGP practice): b2 0.99, eps 1e-15, L2 decay on the
+# MLP kernels only.
+NGP_ADAM = AdamConfig(0.9, 0.99, 1e-15, 1e-6)
+# The classic engine's: optax.adam's defaults, no decay.
+CLASSIC_ADAM = AdamConfig(0.9, 0.999, 1e-8, 0.0)
+WEIGHT_DECAY = NGP_ADAM.weight_decay
 
 
 class ParamLayout:
@@ -67,13 +96,14 @@ class ParamLayout:
         for name, view in self.views(flat).items():
             params[name].data = view
 
-    def decay_mask(self, device=None) -> torch.Tensor:
-        """``WEIGHT_DECAY`` on the MLP kernels, 0 on the encoding tables and
-        the biases."""
+    def decay_mask(self, device=None, weight_decay: float = WEIGHT_DECAY
+                   ) -> torch.Tensor:
+        """``weight_decay`` on the MLP kernels (``*.kernel``), 0 on the
+        encoding tables and the biases."""
         mask = torch.zeros(self.total, dtype=torch.float32, device=device)
         for name, _, off, n in self.entries:
             if name.endswith(".kernel"):
-                mask[off : off + n] = WEIGHT_DECAY
+                mask[off : off + n] = weight_decay
         return mask
 
 
@@ -105,6 +135,42 @@ class TrainState:
             gen, copy.copy(self.aux),
             None if self.ema is None else self.ema.clone(),
         )
+
+
+def new_state(layout: ParamLayout, model: nn.Module, source: nn.Module, device,
+              seed: int, ema_decay: float, aux=None) -> TrainState:
+    """A fresh training state over ``source``'s weights: one flat buffer on
+    ``device`` that ``model``'s parameters become views of, zero Adam
+    moments, the step's generator seeded with ``seed + 1``. The buffer is
+    built beside whatever ``model`` showed before and never written through
+    its old views."""
+    flat = layout.flatten(
+        {n: p.detach() for n, p in source.named_parameters()}
+    ).to(device, copy=True)
+    layout.bind(model, flat)
+    zeros = torch.zeros_like(flat)
+    return TrainState(
+        step=torch.zeros((), dtype=torch.int64, device=device),
+        params=flat,
+        opt_state=AdamState(zeros, zeros.clone(),
+                            torch.zeros((), dtype=torch.int64, device=device)),
+        generator=torch.Generator(device=device).manual_seed(seed + 1),
+        aux=aux,
+        ema=init_ema_shadow(flat, ema_decay),
+    )
+
+
+@contextlib.contextmanager
+def bound(model: nn.Module, layout: ParamLayout, flat: torch.Tensor):
+    """Inside the block ``model`` shows the flat buffer ``flat`` (a state's
+    live parameters or its EMA shadow); then what it showed before."""
+    before = {n: p.data for n, p in model.named_parameters()}
+    layout.bind(model, flat)
+    try:
+        yield
+    finally:
+        for n, p in model.named_parameters():
+            p.data = before[n]
 
 
 def eval_params(state: TrainState) -> torch.Tensor:
@@ -165,29 +231,31 @@ def lr_schedule(cfg):
 
 
 def adam_update(params: torch.Tensor, grads: torch.Tensor, opt: AdamState,
-                sched, decay_mask: torch.Tensor) -> None:
+                sched, decay_mask: Optional[torch.Tensor],
+                adam: AdamConfig = NGP_ADAM) -> None:
     """One optimizer step over the flat buffer, in place.
 
-    The decay term ``decay_mask * p`` is added to the gradient **before**
-    Adam (coupled L2: it goes through both moments), the moments are bias
-    corrected with the count after this update, eps is added outside the
-    square root, and the learning rate is the schedule at the count before
-    it is incremented."""
-    g = grads + decay_mask * params
-    opt.mu.mul_(ADAM_B1).add_(g, alpha=1.0 - ADAM_B1)
-    opt.nu.mul_(ADAM_B2).addcmul_(g, g, value=1.0 - ADAM_B2)
+    The decay term ``decay_mask * p`` (none when the mask is None) is added
+    to the gradient **before** Adam (coupled L2: it goes through both
+    moments), the moments are bias corrected with the count after this
+    update, eps is added outside the square root, and the learning rate is
+    the schedule at the count before it is incremented."""
+    g = grads if decay_mask is None else grads + decay_mask * params
+    opt.mu.mul_(adam.b1).add_(g, alpha=1.0 - adam.b1)
+    opt.nu.mul_(adam.b2).addcmul_(g, g, value=1.0 - adam.b2)
     lr = sched(opt.count)
     t = (opt.count + 1).to(torch.float32)
-    mu_hat = opt.mu / (1.0 - torch.pow(ADAM_B1, t))
-    nu_hat = opt.nu / (1.0 - torch.pow(ADAM_B2, t))
-    params.sub_(lr * (mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)))
+    mu_hat = opt.mu / (1.0 - torch.pow(adam.b1, t))
+    nu_hat = opt.nu / (1.0 - torch.pow(adam.b2, t))
+    params.sub_(lr * (mu_hat / (torch.sqrt(nu_hat) + adam.eps)))
     opt.count += 1
 
 
 def build_objective(engine, near, far):
     """Loss and gradients of one ray batch, by the route the engine's
     configuration selects: ``objective(batch, aux, gen, u_coarse=None,
-    u_fine=None) -> ((loss, (loss_c, loss_f)), grads)``. ``batch`` =
+    u_fine=None, noise_coarse=None, noise_fine=None) -> ((loss, (loss_c,
+    loss_f)), grads)``. ``batch`` =
     (rays_o, rays_d, viewdirs, target), ``grads`` maps the model's parameter
     names to tensors. The fused objective (one kernel call for the fine pass
     and its whole backward) where the step shape is eligible, else autograd
@@ -201,7 +269,8 @@ def build_objective(engine, near, far):
     cw = engine.resolved_coarse_loss_weight()
     cf_coarse, cf_fine = engine.cf_apply_fns()
 
-    def autodiff_objective(batch, aux, gen, u_coarse=None, u_fine=None):
+    def autodiff_objective(batch, aux, gen, u_coarse=None, u_fine=None,
+                           noise_coarse=None, noise_fine=None):
         rays_o, rays_d, viewdirs, target = batch
         leaves = dict(engine.model.named_parameters())
         with torch.enable_grad():
@@ -212,6 +281,7 @@ def build_objective(engine, near, far):
                 proposal_fn=engine.proposal_for(aux, near, far, settings, gen),
                 apply_coarse=engine.apply_coarse, apply_fine=engine.apply_fine,
                 u_coarse=u_coarse, u_fine=u_fine,
+                noise_coarse=noise_coarse, noise_fine=noise_fine,
                 # cw == 0 makes the coarse pass forward-only: its weights are
                 # detached for the fine samples and loss_c stays a metric.
                 coarse_no_grad=(cw == 0.0 and settings.num_fine > 0),
@@ -235,12 +305,12 @@ def build_objective(engine, near, far):
 def build_train_step(engine, intrinsics, near, far, use_ndc: bool = False):
     """The train step of ``engine`` closed over the static scene geometry:
     ``step(state, images, poses, ray_buf=None, *, offset=None, pixels=None,
-    u_coarse=None, u_fine=None) -> (state, metrics)``. ``images``
-    (N, H, W, 3) and ``poses`` (N, 4, 4) are device tensors; the ``shuffled``
-    sampler reads ``ray_buf`` instead. The state is updated in place; the
-    metrics are device tensors."""
-    if use_ndc:
-        raise NotImplementedError("NDC rays are not ported yet (ROADMAP A.4)")
+    u_coarse=None, u_fine=None, noise_coarse=None, noise_fine=None) ->
+    (state, metrics)``. ``images`` (N, H, W, 3) and ``poses`` (N, 4, 4) are
+    device tensors; the ``shuffled`` sampler reads ``ray_buf`` instead.
+    ``use_ndc`` warps the batch into NDC space after the view directions are
+    taken from the unwarped rays. The state is updated in place; the metrics
+    are device tensors."""
     cfg = engine.cfg
     settings = cfg.nerf.train
     n_rays = cfg.nerf.num_random_rays
@@ -263,6 +333,8 @@ def build_train_step(engine, intrinsics, near, far, use_ndc: bool = False):
         viewdirs = None
         if use_viewdirs:
             viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        if use_ndc:
+            rays_o, rays_d = ndc_rays(H, W, intrinsics.fl_x, 1.0, rays_o, rays_d)
         return rays_o, rays_d, viewdirs, target
 
     def randint(high, shape, gen):
@@ -301,10 +373,12 @@ def build_train_step(engine, intrinsics, near, far, use_ndc: bool = False):
                             ray_buf["target"][idx])
 
     objective = build_objective(engine, near, far)
+    adam: AdamConfig = engine.adam
     decay_masks: Dict[Any, torch.Tensor] = {}
 
     def train_step(state: TrainState, images, poses, ray_buf=None, *,
-                   offset=None, pixels=None, u_coarse=None, u_fine=None):
+                   offset=None, pixels=None, u_coarse=None, u_fine=None,
+                   noise_coarse=None, noise_fine=None):
         gen = state.generator
         layout.bind(engine.model, state.params)
         with torch.no_grad():
@@ -317,13 +391,14 @@ def build_train_step(engine, intrinsics, near, far, use_ndc: bool = False):
             else:
                 batch = sample_batch(gen, images, poses, pixels)
         (loss, (loss_c, loss_f)), grads = objective(
-            batch, state.aux, gen, u_coarse=u_coarse, u_fine=u_fine)
+            batch, state.aux, gen, u_coarse=u_coarse, u_fine=u_fine,
+            noise_coarse=noise_coarse, noise_fine=noise_fine)
         with torch.no_grad():
             dev = state.params.device
-            if dev not in decay_masks:
-                decay_masks[dev] = layout.decay_mask(dev)
+            if adam.weight_decay and dev not in decay_masks:
+                decay_masks[dev] = layout.decay_mask(dev, adam.weight_decay)
             adam_update(state.params, layout.flatten(grads), state.opt_state,
-                        sched, decay_masks[dev])
+                        sched, decay_masks.get(dev), adam)
             if state.ema is not None:
                 state.ema.mul_(ema_decay).add_(state.params,
                                                alpha=1.0 - ema_decay)
@@ -356,3 +431,196 @@ def build_train_many(engine, intrinsics, near, far, use_ndc: bool = False,
         return state, {**metrics, "losses": torch.stack(losses)}
 
     return many
+
+
+# ------------------------------------------------------------ classic engine
+
+class ClassicModel(nn.Module):
+    """The classic engine's two networks under one module, so that one
+    ``ParamLayout`` covers both: ``coarse`` and, when the config has one,
+    ``fine`` (parameter names ``coarse.layer1.weight`` ...)."""
+
+    def __init__(self, cfg_coarse, cfg_fine=None, generator=None):
+        super().__init__()
+        from ..models.flexible_nerf import FlexibleNeRF
+
+        self.coarse = FlexibleNeRF(cfg_coarse, generator)
+        self.fine = None if cfg_fine is None else FlexibleNeRF(cfg_fine, generator)
+
+
+class ClassicNerf:
+    """Classic-NeRF engine: coarse (+ fine) ``FlexibleNeRF`` with stratified
+    and merged hierarchical sampling, built from a reference-schema Config.
+    ``device=None`` means the GPU and raises when there is none; pass
+    ``device="cpu"`` to run the plain PyTorch versions of the kernel on the
+    CPU.
+
+    Each network's point pipeline goes through the fused kernel
+    (``ops/classic_fused_cuda.py``) when its ``fused`` mode is "auto" or "on"
+    and the config is one the kernel takes, else through the module. The
+    optimizer is ``CLASSIC_ADAM`` (optax's defaults, no decay); the coarse
+    pass trains through the coarse loss (weight 1 by default)."""
+
+    adam = CLASSIC_ADAM
+
+    def __init__(self, cfg, device=None, generator: Optional[torch.Generator] = None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.model = ClassicModel(cfg.model_coarse, cfg.model_fine,
+                                  generator).to(self.device)
+        self.model_coarse = self.model.coarse
+        self.model_fine = self.model.fine
+        self.layout = ParamLayout(self.model)
+
+    # -- weights -------------------------------------------------------------
+    def load_flax_params(self, tree: dict) -> None:
+        """Load the reference's ``{"coarse": ..., "fine": ...}`` parameter
+        trees (numpy arrays) into the model."""
+        from ..io.convert import classic_params_from_flax
+
+        with torch.no_grad():
+            for name, value in classic_params_from_flax(
+                    tree, device=self.device).items():
+                self.model.get_parameter(name).copy_(value)
+
+    def bound(self, flat: torch.Tensor):
+        """Render with the flat parameter buffer ``flat`` inside the block,
+        then go back to what the model showed before."""
+        return bound(self.model, self.layout, flat)
+
+    def init_state(self, seed: Optional[int] = None,
+                   keep_weights: bool = False) -> TrainState:
+        """A fresh training state: newly initialised weights from ``seed``
+        (default: experiment.randomseed), or the model's present ones with
+        ``keep_weights``; see :func:`new_state`."""
+        seed = self.cfg.experiment.randomseed if seed is None else int(seed)
+        source = self.model if keep_weights else ClassicModel(
+            self.cfg.model_coarse, self.cfg.model_fine,
+            generator=torch.Generator().manual_seed(seed))
+        return new_state(self.layout, self.model, source, self.device, seed,
+                         self.cfg.nerf.ema_decay)
+
+    # -- the two passes ------------------------------------------------------
+    def apply_coarse(self, pts, vd):
+        return self.model_coarse(pts, vd)
+
+    def apply_fine(self, pts, vd):
+        model = self.model_fine if self.model_fine is not None else self.model_coarse
+        return model(pts, vd)
+
+    def proposal_for(self, aux, near, far, settings, generator=None):
+        """No occupancy proposal: plain stratified coarse samples."""
+        return None
+
+    def fused_objective_fn(self, near, far, settings):
+        """The classic engine has no one-call objective."""
+        return None
+
+    def resolved_coarse_loss_weight(self) -> float:
+        """nerf.coarse_loss_weight with -1 resolved to the classic default,
+        1.0: the separate coarse network trains only through the coarse
+        term."""
+        cw = float(self.cfg.nerf.coarse_loss_weight)
+        return 1.0 if cw < 0.0 else cw
+
+    @staticmethod
+    def _fused_params(model) -> dict:
+        """The module's parameters in the kernel's structure: (in, out)
+        views of the weights and (out, 1) views of the biases, so gradients
+        taken through them land on the module's leaves."""
+        lins = model.linears
+        return {"W": [l.weight.T for l in lins],
+                "b": [l.bias[:, None] for l in lins]}
+
+    def cf_apply_fns(self):
+        """(coarse_cf, fine_cf) channels-first fused entries for
+        ``render_rays``, or None for a network that takes the module route.
+        A network's ``fused`` mode "off" (or YAML's false) keeps the module;
+        "auto" / "on" (or true) take the kernel for CUDA tensors and its
+        plain version for CPU tensors, unless the config is one the kernel
+        does not take: then a warning is logged and the module is used. When
+        only one of the two networks is supported, both stay unfused."""
+        from ..ops.classic_fused_cuda import classic_fused_apply_cf, fused_supported
+
+        def make(model):
+            if model is None:
+                return None
+            mcfg = model.config
+            mode = {True: "on", False: "off"}.get(mcfg.fused, mcfg.fused)
+            if mode == "off":
+                return None
+            if not fused_supported(mcfg):
+                reason = (
+                    "the trunk skip connection fires (skip_connect_every="
+                    f"{mcfg.skip_connect_every} within trunk_depth="
+                    f"{mcfg.trunk_depth})"
+                    if mcfg.use_viewdirs else "use_viewdirs is off")
+                log.warning(
+                    "fused: %s requested but the fused classic kernel does not "
+                    "support this config (%s); falling back to the module path",
+                    mode, reason)
+                return None
+
+            def apply_cf(pts, vd):
+                xt = pts.detach().reshape(-1, 3).T.contiguous()
+                vdt = vd.detach().reshape(-1, 3).T.contiguous()
+                return classic_fused_apply_cf(self._fused_params(model), xt, vdt,
+                                              mcfg)
+
+            return apply_cf
+
+        coarse = make(self.model_coarse)
+        if self.model_fine is None:
+            return coarse, coarse
+        fine = make(self.model_fine)
+        if (coarse is None) != (fine is None):
+            # one network's entry must never meet the other's parameters
+            return None, None
+        return coarse, fine
+
+    # -- training ------------------------------------------------------------
+    def make_train_step(self, intrinsics, near, far, use_ndc: bool = False):
+        """(state, images, poses, ray_buf=None) -> (state, metrics); see
+        ``build_train_step``."""
+        return build_train_step(self, intrinsics, near, far, use_ndc)
+
+    def make_train_many(self, intrinsics, near, far, use_ndc: bool = False,
+                        steps_per_call: int = 20):
+        """``steps_per_call`` steps per call with no host synchronisation in
+        between; see ``build_train_many``."""
+        return build_train_many(self, intrinsics, near, far, use_ndc,
+                                steps_per_call)
+
+    # -- evaluation ----------------------------------------------------------
+    def make_render_fn(self, intrinsics, near, far, use_ndc: bool = False,
+                       settings=None, chunk_rays: Optional[int] = None):
+        """Full-image renderer: (c2w, aux=None) -> maps dict, with whatever
+        parameters the model is bound to. ``settings`` overrides the sample
+        budget (default: cfg.nerf.validation); ``chunk_rays`` defaults to
+        ``settings.chunksize`` over the samples per ray."""
+        cfg = self.cfg
+        settings = settings or cfg.nerf.validation
+        H, W = intrinsics.height, intrinsics.width
+        has_fine = self.model_fine is not None and settings.num_fine > 0
+        cf_coarse, cf_fine = self.cf_apply_fns()
+
+        def render_view(c2w, aux=None):
+            c2w = torch.as_tensor(c2w, dtype=torch.float32, device=self.device)
+            rays_o, rays_d = get_rays(
+                H, W, intrinsics.fl_x, c2w, cx=intrinsics.cx, cy=intrinsics.cy,
+                focal_y=intrinsics.fl_y,
+                dist=getattr(intrinsics, "distortion", None))
+            viewdirs = None
+            if cfg.nerf.use_viewdirs:
+                viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+            if use_ndc:
+                rays_o, rays_d = ndc_rays(H, W, intrinsics.fl_x, 1.0, rays_o, rays_d)
+            return render_image(
+                cf_coarse, rays_o, rays_d, near, far, settings,
+                apply_fine_cf=cf_fine if has_fine else None,
+                use_viewdirs=cfg.nerf.use_viewdirs, chunk_rays=chunk_rays,
+                viewdirs=viewdirs,
+                apply_coarse=self.apply_coarse,
+                apply_fine=self.apply_fine if has_fine else None)
+
+        return render_view

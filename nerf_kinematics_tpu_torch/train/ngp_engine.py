@@ -14,20 +14,19 @@ pass, then ONE kernel call for the fine forward, compositing, loss and the
 whole backward); ``ngp.fused_train: off`` takes autograd through the fused
 forward's gradient kernel, and ``ngp.fused: off`` autograd through the
 unfused model and the CP encoder's gradient kernel. The optimizer is Adam
-(b2 0.99, eps 1e-15) over the flat buffer with coupled 1e-6 decay on the MLP
-kernels only.
+(``NGP_ADAM``: b2 0.99, eps 1e-15) over the flat buffer with coupled 1e-6
+decay on the MLP kernels only.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Optional
 
 import torch
 
 from .._device import resolve_device
-from ..cameras.rays import get_rays
+from ..cameras.rays import get_rays, ndc_rays
 from ..models.ngp import NGPConfig, NGPModel
 from ..ops.ngp_fused_cuda import (
     ngp_fused_apply,
@@ -48,12 +47,13 @@ from ..rendering.fast_render import FastRenderSettings, render_image_fast
 from ..rendering.renderer import render_image
 from .config import Config
 from .loop import (
-    AdamState,
+    NGP_ADAM,
     ParamLayout,
     TrainState,
+    bound,
     build_train_many,
     build_train_step,
-    init_ema_shadow,
+    new_state,
 )
 
 # The reference's fused objective needs a ray count divisible by its 128-ray
@@ -69,6 +69,8 @@ class NGPEngine:
     """Single NGP model for both passes. ``device=None`` means the GPU and
     raises when there is none; pass ``device="cpu"`` to run the plain
     PyTorch versions of the kernels on the CPU."""
+
+    adam = NGP_ADAM
 
     def __init__(self, cfg: Config, scene_bound: float = 1.0, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -109,18 +111,11 @@ class NGPEngine:
             for name, value in params_from_flax(tree, device=self.device).items():
                 self.model.get_parameter(name).copy_(value)
 
-    @contextlib.contextmanager
     def bound(self, flat: torch.Tensor):
         """Render with the flat parameter buffer ``flat`` (a state's live
         parameters or its EMA shadow) inside the block, then go back to what
         the model showed before."""
-        before = {n: p.data for n, p in self.model.named_parameters()}
-        self.layout.bind(self.model, flat)
-        try:
-            yield self
-        finally:
-            for n, p in self.model.named_parameters():
-                p.data = before[n]
+        return bound(self.model, self.layout, flat)
 
     def init_aux(self) -> Optional[OccupancyGrid]:
         """A fresh (all-occupied) occupancy grid, or None without occupancy."""
@@ -334,7 +329,8 @@ class NGPEngine:
         cp = self.ngp_config.cp
 
         @torch.no_grad()
-        def objective(batch, aux, generator=None, u_coarse=None, u_fine=None):
+        def objective(batch, aux, generator=None, u_coarse=None, u_fine=None,
+                      noise_coarse=None, noise_fine=None):
             rays_o, rays_d, viewdirs, target = batch
             n_rays = rays_o.shape[0]
             prop = self.proposal_for(aux, near, far, settings, generator)
@@ -383,25 +379,10 @@ class NGPEngine:
         engine's device. The model's parameters become views of the state's
         flat buffer."""
         seed = self.cfg.experiment.randomseed if seed is None else int(seed)
-        # The model may still show an earlier state's buffer: the new one is
-        # built beside it and never written through the old views.
         source = self.model if keep_weights else NGPModel(
             self.ngp_config, generator=torch.Generator().manual_seed(seed))
-        flat = self.layout.flatten(
-            {n: p.detach() for n, p in source.named_parameters()}
-        ).to(self.device, copy=True)
-        self.layout.bind(self.model, flat)
-        zeros = torch.zeros_like(flat)
-        gen = torch.Generator(device=self.device).manual_seed(seed + 1)
-        return TrainState(
-            step=torch.zeros((), dtype=torch.int64, device=self.device),
-            params=flat,
-            opt_state=AdamState(zeros, zeros.clone(), torch.zeros(
-                (), dtype=torch.int64, device=self.device)),
-            generator=gen,
-            aux=self.init_aux(),
-            ema=init_ema_shadow(flat, self.cfg.nerf.ema_decay),
-        )
+        return new_state(self.layout, self.model, source, self.device, seed,
+                         self.cfg.nerf.ema_decay, aux=self.init_aux())
 
     def make_train_step(self, intrinsics, near, far, use_ndc: bool = False):
         """(state, images, poses, ray_buf=None) -> (state, metrics); see
@@ -416,7 +397,9 @@ class NGPEngine:
                                 steps_per_call)
 
     # -- evaluation --------------------------------------------------------
-    def _view_rays(self, intrinsics, c2w):
+    def _view_rays(self, intrinsics, c2w, use_ndc: bool = False):
+        """Rays of a full view and their unit directions; with ``use_ndc``
+        the rays are warped into NDC space, the directions are not."""
         H, W = intrinsics.height, intrinsics.width
         c2w = torch.as_tensor(c2w, dtype=torch.float32, device=self.device)
         rays_o, rays_d = get_rays(
@@ -425,6 +408,8 @@ class NGPEngine:
             dist=getattr(intrinsics, "distortion", None),
         )
         viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        if use_ndc:
+            rays_o, rays_d = ndc_rays(H, W, intrinsics.fl_x, 1.0, rays_o, rays_d)
         return rays_o, rays_d, viewdirs
 
     def make_render_fn(self, intrinsics, near, far, use_ndc: bool = False,
@@ -434,8 +419,6 @@ class NGPEngine:
         ``chunk_rays``: rays per chunk; by default ``settings.chunksize``
         over the per-ray sample count on the CPU and ``GPU_CHUNK_RAYS`` on
         a GPU (the result does not depend on it)."""
-        if use_ndc:
-            raise NotImplementedError("NDC rays are not ported yet")
         cfg = self.cfg
         settings = settings or cfg.nerf.validation
         cf_coarse, cf_fine = self.cf_apply_fns()
@@ -443,7 +426,7 @@ class NGPEngine:
             chunk_rays = GPU_CHUNK_RAYS
 
         def render_view(c2w, aux=None):
-            rays_o, rays_d, viewdirs = self._view_rays(intrinsics, c2w)
+            rays_o, rays_d, viewdirs = self._view_rays(intrinsics, c2w, use_ndc)
             return render_image(
                 cf_coarse, rays_o, rays_d, near, far, settings,
                 apply_fine_cf=cf_fine,
@@ -462,8 +445,6 @@ class NGPEngine:
         stride^2-block coarse pass + one fused full-image fine pass. Needs
         the fused kernel and the occupancy proposal; raises otherwise.
         (c2w, aux) -> maps dict."""
-        if use_ndc:
-            raise NotImplementedError("NDC rays are not ported yet")
         if not self.fused:
             raise ValueError("fast render needs the fused kernel (ngp.fused)")
         if not self.ngp_config.use_occupancy:
@@ -480,7 +461,7 @@ class NGPEngine:
         )
 
         def render_view(c2w, aux):
-            rays_o, rays_d, viewdirs = self._view_rays(intrinsics, c2w)
+            rays_o, rays_d, viewdirs = self._view_rays(intrinsics, c2w, use_ndc)
             return render_image_fast(
                 self.apply_cf, rays_o, rays_d, near, far, settings,
                 proposal_fn=self.proposal_for(aux, near, far, prop_settings),

@@ -25,7 +25,7 @@ from ..io.checkpoint import CheckpointManager
 from ..metrics.psnr import psnr
 from ..metrics.writer import ScalarWriter
 from .config import Config
-from .loop import TrainState, build_shuffled_ray_buffer, eval_params
+from .loop import ClassicNerf, TrainState, build_shuffled_ray_buffer, eval_params
 
 log = logging.getLogger("nerf_kinematics_tpu_torch.train")
 
@@ -46,24 +46,30 @@ class TrainResult:
 
 
 class Trainer:
-    """Fits the fast engine to a dataset. ``device=None`` means the GPU."""
+    """Fits the engine ``cfg.engine`` names ("ngp" or "classic") to a
+    dataset. ``device=None`` means the GPU. ``export_legacy`` (classic engine
+    only) writes the reference's ``checkpoint{iter}.ckpt`` next to each
+    checkpoint, with the weights validation scores."""
 
     def __init__(self, cfg: Config, dataset: Optional[NerfDataset] = None,
-                 device=None):
+                 device=None, export_legacy: bool = False):
         if dataset is None:
             raise NotImplementedError(
                 "loading a dataset from cfg.dataset.basedir is not ported yet "
                 "(ROADMAP A.2: loaders and the scene generator); pass a "
                 "NerfDataset (data/types.py::dataset_from_arrays)")
-        if cfg.engine != "ngp":
-            raise NotImplementedError(
-                "the classic engine is not ported yet (ROADMAP A.4)")
-        from .ngp_engine import NGPEngine
-
         self.cfg = cfg
         self.dataset = ds = dataset
-        bound = max(ds.aabb_scale / 2.0, 1.0)
-        self.engine = NGPEngine(cfg, scene_bound=bound, device=device)
+        if cfg.engine == "ngp":
+            from .ngp_engine import NGPEngine
+
+            bound = max(ds.aabb_scale / 2.0, 1.0)
+            self.engine = NGPEngine(cfg, scene_bound=bound, device=device)
+        elif cfg.engine == "classic":
+            self.engine = ClassicNerf(cfg, device=device)
+        else:
+            raise ValueError(f"unknown engine {cfg.engine!r}")
+        self.export_legacy = export_legacy and cfg.engine == "classic"
         self.device = self.engine.device
 
         exp = cfg.experiment
@@ -146,8 +152,9 @@ class Trainer:
         t0 = time.perf_counter()
         result = TrainResult(state)
 
-        ngp = self.engine.ngp_config
-        occ_every = ngp.occ_update_every if ngp.use_occupancy else 0
+        # occupancy refreshes: the fast engine's only
+        ngp = getattr(self.engine, "ngp_config", None)
+        occ_every = ngp.occ_update_every if ngp is not None and ngp.use_occupancy else 0
 
         cadences = [
             c for c in (exp.print_every, exp.validate_every, exp.save_every,
@@ -245,9 +252,20 @@ class Trainer:
 
     def save_checkpoint(self, state: TrainState, it: int, metrics: dict,
                         val_psnr: Optional[float] = None) -> None:
-        """Write a checkpoint of iteration ``it``. (The reference's legacy
-        export is of the classic engine only and is not ported.)"""
+        """Write a checkpoint of iteration ``it`` and, with ``export_legacy``,
+        the reference's ``checkpoint{it}.ckpt`` of the weights validation
+        scores (the EMA shadow when the run keeps one)."""
         self.ckpt.save(it, state, metrics, layout=self.engine.layout)
+        if self.export_legacy:
+            from ..io.torch_compat import export_legacy_checkpoint
+
+            model = self.engine.model
+            with self.engine.bound(eval_params(state)):
+                coarse = model.coarse.state_dict()
+                fine = model.fine.state_dict() if model.fine is not None else None
+                export_legacy_checkpoint(
+                    os.path.join(self.rundir, f"checkpoint{it}.ckpt"), it,
+                    coarse, fine, loss=metrics.get("loss"), psnr=val_psnr)
         log.info("saved checkpoint at iter %d", it)
 
     def close(self):

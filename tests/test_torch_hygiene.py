@@ -2,6 +2,7 @@
 its entry points ask for the GPU unless told otherwise, a CPU tensor never
 reaches the CUDA library's loader, and every ported kernel has its source."""
 
+import dataclasses
 import pathlib
 import re
 
@@ -27,7 +28,10 @@ def _port_files():
     assert len(files) > 30
     names = {str(f.relative_to(ROOT)) for f in files}
     for new in ("train/loop.py", "train/trainer.py", "io/checkpoint.py",
-                "metrics/writer.py", "csrc/ngp_fused_bwd.cu", "csrc/ngp_fused.cuh"):
+                "metrics/writer.py", "csrc/ngp_fused_bwd.cu", "csrc/ngp_fused.cuh",
+                "csrc/classic_fused.cu", "ops/classic_fused_cuda.py",
+                "models/flexible_nerf.py", "ops/positional_encoding.py",
+                "io/torch_compat.py"):
         assert f"nerf_kinematics_tpu_torch/{new}" in names
     return files
 
@@ -52,6 +56,11 @@ def test_entry_points_ask_for_the_gpu(monkeypatch):
         NGPEngine(Config(engine="ngp"), scene_bound=1.0)
     assert resolve_device("cpu") == torch.device("cpu")
     assert NGPEngine(Config(engine="ngp"), device="cpu").device.type == "cpu"
+    from nerf_kinematics_tpu_torch.train.loop import ClassicNerf
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ClassicNerf(Config())
+    assert ClassicNerf(Config(), device="cpu").device.type == "cpu"
 
 
 def test_cpu_tensors_never_touch_the_library_loader(monkeypatch):
@@ -91,6 +100,23 @@ def test_cpu_tensors_never_touch_the_library_loader(monkeypatch):
     # the gradient wrappers too, directly and through autograd
     xt = x.T.contiguous()
     assert cp_encode_cuda_bwd(lines, x, torch.ones(50, 16), cfg).shape == lines.shape
+    # the classic engine's kernels, directly and through autograd
+    from nerf_kinematics_tpu_torch.ops.classic_fused_cuda import (
+        classic_fused_apply_cf, classic_fused_apply_cf_bwd)
+    from nerf_kinematics_tpu_torch.train.config import Config
+    from nerf_kinematics_tpu_torch.train.loop import ClassicNerf
+
+    ccfg = dataclasses.replace(Config().model_coarse, hidden_size=32,
+                               num_encoding_fn_xyz=3, num_encoding_fn_dir=1)
+    eng = ClassicNerf(Config(model_coarse=ccfg, model_fine=None), device="cpu")
+    cparams = ClassicNerf._fused_params(eng.model_coarse)
+    out = classic_fused_apply_cf(cparams, x.T.contiguous(), vd, ccfg)
+    assert out.shape == (4, 50)
+    out.sum().backward()
+    assert eng.model_coarse.layer1.weight.grad is not None
+    dc = classic_fused_apply_cf_bwd({k: [t.detach() for t in v] for k, v in cparams.items()},
+                                    x.T.contiguous(), vd, torch.ones(4, 50), ccfg)
+    assert dc["W"][0].shape == (ccfg.dim_xyz, 32) and dc["b"][-1].shape == (3, 1)
     d = ngp_fused_apply_cf_bwd(params, xt, vd, torch.ones(4, 50), cfg)
     assert d["lines"].shape == lines.shape and d["db"][0].shape == (16, 1)
     err, maps, d = ngp_fused_train_cf(params, xt, vd, torch.full((1, 50), 0.1),
@@ -125,6 +151,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     ("nkt_fused_point_bwd_kernel", "ngp_fused_bwd.cu"),
     ("nkt_wgrad_kernel", "ngp_fused_bwd.cu"),
     ("nkt_reduce_partials_kernel", "ngp_fused_bwd.cu"),
+    ("nkc_pack_kernel", "classic_fused.cu"),
+    ("nkc_forward_kernel", "classic_fused.cu"),
+    ("nkc_bwd_tile_kernel", "classic_fused.cu"),
 ])
 def test_every_ported_kernel_has_cuda_source(kernel, source):
     text = (PORT / "csrc" / source).read_text()
@@ -160,6 +189,16 @@ def test_ctypes_structs_mirror_the_cuda_structs():
     assert f"#define NKT_MAX_LEVELS {cuda_lib.MAX_LEVELS}" in common
     assert f"#define NKT_MAX_LAYERS {cuda_lib.MAX_LAYERS}" in fused
     assert f"#define NKT_W {cuda_lib.MAX_WIDTH}" in fused
+    classic = (PORT / "csrc" / "classic_fused.cu").read_text()
+    assert c_fields(classic, "ClassicArgs") == [f[0] for f in cuda_lib.ClassicArgs._fields_]
+    assert f"#define NKC_MAX_LAYERS {cuda_lib.CLASSIC_MAX_LAYERS}" in classic
+    assert f"#define NKC_MAX_FREQS {cuda_lib.CLASSIC_MAX_FREQS}" in classic
+    from nerf_kinematics_tpu_torch.ops.classic_fused_cuda import TILE
+
+    assert f"#define NKC_P {TILE}" in classic
+    # the classic kernels' weight gradients call the launcher of the NGP file
+    for fn in ("nkt_wgrad_launch", "nkt_reduce_partials_launch"):
+        assert f'extern "C" int {fn}(' in bwd and f'extern "C" int {fn}(' in classic
 
 
 @pytest.mark.parametrize(

@@ -180,8 +180,9 @@ def test_training_entry_points_wait(sl):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         hashed = dataclasses.replace(sl.te.ngp_config, encoder="hash")
         NGPEngine(sl.te.cfg.replace(ngp=hashed), device="cpu")
-    with pytest.raises(NotImplementedError, match="NDC"):
-        sl.te.make_train_step(sl.tintr, 2.0, 6.0, True)
+    # NDC rays are ported: the step and the renderers build for them
+    assert callable(sl.te.make_train_step(sl.tintr, 2.0, 6.0, True))
+    assert callable(sl.te.make_render_fn(sl.tintr, 0.0, 1.0, True))
     assert sl.te.fused and sl.te.resolved_coarse_loss_weight() == 0.0
     coarse, fine = sl.te.cf_apply_fns()
     assert coarse == sl.te.apply_sigma_cf and fine == sl.te.apply_cf

@@ -164,8 +164,8 @@ def test_what_the_trainer_does_not_load_yet(tmp_path):
     cfg = tcfg.config_from_dict(_raw(tmp_path))
     with pytest.raises(NotImplementedError, match="A.2"):
         Trainer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="classic"):
-        Trainer(cfg.replace(engine="classic"), _dataset(), device="cpu")
+    with pytest.raises(ValueError, match="engine"):
+        Trainer(cfg.replace(engine="nerfacto"), _dataset(), device="cpu")
     with pytest.raises(ValueError, match="n_val"):
         _dataset(n_views=2, n_val=2)
     mgr = CheckpointManager(str(tmp_path / "empty"))
