@@ -21,7 +21,13 @@ width through the entry points a user calls:
   * the classic engine (``machina_classic``): ``Trainer.fit`` for 1000 steps
     on 200x200 views, held-out PSNR, both held-out views rendered through the
     fused kernel and through its plain version, one step of the fused and of
-    the module gradient route, a checkpoint and a legacy round trip.
+    the module gradient route, a checkpoint and a legacy round trip;
+  * training from the images on disk (``machina_ngp``, ``ngp.fused_train:
+    full``): the port generates machina400, ``Trainer(cfg)`` loads it and
+    fits 2048 steps from the JAX package's seed-42 initial weights, one
+    whole-step kernel launch a step; ground-truth PSNR of the held-out views
+    beside the canonical run's; one step of the whole-step and of the
+    two-call route from one state and one set of draws.
 
 It prints one JSON object per phase, then a ``{"kernels": [...]}`` line, the
 card's name and power limit as ``nvidia-smi`` gives them, and as the last
@@ -34,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -48,7 +55,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 
 PHASES = ("kernels", "grad_kernels", "serve", "golden", "train", "train_autodiff",
-          "classic")
+          "classic", "scene")
 
 KERNEL_REPS = 5        # timed launches per kernel (median), after 2 warm-ups
 
@@ -170,9 +177,15 @@ def phase_kernels(fx, dev, quick: bool, reps: int):
     proj_t = pair_projections(grid).contiguous()
     proj_r = torch.rand((3, occ_R, occ_R), generator=gen, device=dev) * 50.0
     xt, _ = random_points(n_hull, gen, dev)
+    # Only a NaN point takes the plain version's index out of range (clamp
+    # keeps NaN; the kernel's fmaxf maps it to cell 0), so a corrupted input
+    # is named here, and a fault of the kernel at its own launch.
+    if not torch.isfinite(xt).all():
+        raise AssertionError("occupancy_at_hull: non-finite points from torch.rand")
     err = 0.0
     for proj in (proj_t, proj_r):
         k = occupancy_at_hull_cuda(proj, xt)
+        torch.cuda.synchronize()
         p = occupancy_at_hull_cuda_ref(proj, xt)
         torch.cuda.synchronize()
         err = max(err, (k - p).abs().max().item())
@@ -702,10 +715,128 @@ def phase_grad_kernels(fx, dev, quick: bool, reps: int):
                        {"lines": p5, "dW": [], "db": [], "cW": [], "cb": []})
     check("cp_encode_bwd, ragged", "bf16", rep5)
     ragged["row_5_max_rel"] = worst_of([rep5])
+    rows.append(full_step_row(fx, engines, dev, quick, reps, flush))
     rows.append(classic_grad_row(dev, quick, reps, flush))
     emit({"phase": "grad_kernels", "quick": quick, "kernels": rows,
           "ragged_999_points": ragged})
     return rows
+
+
+# Row 8 against its plain version. Stages A-B (proposal, coarse depths) are
+# the same IEEE operations in both; the density-only pass sums in another
+# order than the plain version's matmul, so coarse weights and then fine
+# depths differ in their last bits, which the inverse CDF amplifies in bins
+# of little mass: the fine stage then sees slightly moved samples. err,
+# maps, err_c: abs; gradients per leaf over the leaf's largest entry.
+FULL_OUT_TOL = 1e-3
+FULL_GRAD_TOL = {"f32": 2e-3, "bf16": 1e-2}
+
+
+def full_step_inputs(R: int, S: int, Sc: int, gen, dev):
+    """Rays of a machina-like camera (origins at radius 4, directions towards
+    the middle with a spread, norms in [1, 1.2] as get_rays gives them), unit
+    view directions, targets, and sorted stratified inverse-CDF positions
+    (Sc, R) / (S, R). Channels-first."""
+    o = torch.randn((3, R), generator=gen, device=dev)
+    o = 4.0 * o / torch.linalg.norm(o, dim=0, keepdim=True)
+    d = -o / 4.0 + 0.15 * torch.randn((3, R), generator=gen, device=dev)
+    vd = d / torch.linalg.norm(d, dim=0, keepdim=True)
+    d = vd * (1.0 + 0.2 * torch.rand((1, R), generator=gen, device=dev))
+    tgt = torch.rand((3, R), generator=gen, device=dev)
+
+    def strat(n):
+        base = torch.arange(n, dtype=torch.float32, device=dev)[:, None] / n
+        return (base + torch.rand((n, R), generator=gen, device=dev) / n).contiguous()
+
+    return (o.contiguous(), d.contiguous(), vd.contiguous(), tgt, strat(Sc), strat(S))
+
+
+def full_step_row(fx, engines, dev, quick: bool, reps: int, flush):
+    """Row 8 at the flagship step's shape: 8192 rays, 48 + 48 samples, 64
+    proposal bins on the fixture's 96^3 grid; bf16 and f32 mode, both
+    backgrounds; then 37 rays in one launch and split over five."""
+    from nerf_kinematics_tpu_torch.io.convert import grid_from_numpy
+    from nerf_kinematics_tpu_torch.ops import ngp_fused_cuda
+    from nerf_kinematics_tpu_torch.ops.ngp_fused_cuda import (
+        ngp_fused_train_full_cf, ngp_fused_train_full_cf_ref)
+    from nerf_kinematics_tpu_torch.ops.occupancy import pair_projections
+
+    gen = torch.Generator(device=dev).manual_seed(8888)
+    ngp, t = fx.config.ngp, fx.config.nerf.train
+    S, Sc, NB = t.num_fine, t.num_coarse, ngp.occ_bins
+    R = fx.config.nerf.num_random_rays // (16 if quick else 1)
+    near, far = fx.config.dataset.near, fx.config.dataset.far
+    proj2 = pair_projections(grid_from_numpy(fx.grid_density, fx.grid_bound,
+                                             device=dev)).contiguous()
+    o, d, vd, tgt, uc, uf = full_step_inputs(R, S, Sc, gen, dev)
+
+    def call(fn, prm, c, white, rays=None, inv=1.0 / (3.0 * R)):
+        args = (o, d, vd, tgt, uc, uf) if rays is None else rays
+        return fn(prm, *args, proj2, c, S, Sc, NB, white, inv, near, far, 1.0,
+                  ngp.occ_floor)
+
+    reports, out_err, abs_err = {}, 0.0, 0.0
+    for mode, eng in engines.items():
+        prm, c = eng._fused_params(detach=True), eng.ngp_config.cp
+        for white in (True, False):
+            ek, mk, eck, k = call(ngp_fused_train_full_cf, prm, c, white)
+            ep, mp, ecp, p = call(ngp_fused_train_full_cf_ref, prm, c, white)
+            torch.cuda.synchronize()
+            if ek.shape != (1, R) or mk.shape != (4, R) or eck.shape != (1, R):
+                raise AssertionError("ngp_fused_train_full_cf: wrong output shapes")
+            out_err = max(out_err, *((a - b).abs().max().item()
+                                     for a, b in ((ek, ep), (mk, mp), (eck, ecp))))
+            reports[f"{mode}{'_white' if white else ''}"] = grad_errors(k, p)
+            abs_err = max(abs_err, *((a - b_).abs().max().item()
+                                     for (_, a), (_, b_) in zip(_leaf_list(k), _leaf_list(p))))
+            del k, p
+    # ragged: 37 rays (no multiple of a warp or of 128) in one launch and in
+    # launches of 8 rays
+    Rr = 37
+    rays_r = tuple(x[:, :Rr].contiguous() for x in (o, d, vd, tgt, uc, uf))
+    prm, c = engines["bf16"]._fused_params(detach=True), engines["bf16"].ngp_config.cp
+    ep, mp, ecp, p = call(ngp_fused_train_full_cf_ref, prm, c, True, rays_r, 1 / (3 * Rr))
+    for label, chunk in (("one launch", ngp_fused_cuda.BWD_CHUNK), ("split", 400)):
+        keep, ngp_fused_cuda.BWD_CHUNK = ngp_fused_cuda.BWD_CHUNK, chunk
+        ek, mk, eck, k = call(ngp_fused_train_full_cf, prm, c, True, rays_r, 1 / (3 * Rr))
+        ngp_fused_cuda.BWD_CHUNK = keep
+        torch.cuda.synchronize()
+        out_err = max(out_err, *((a - b).abs().max().item()
+                                 for a, b in ((ek, ep), (mk, mp), (eck, ecp))))
+        reports[f"bf16_37_rays_{label.replace(' ', '_')}"] = grad_errors(k, p)
+    prm, c = engines["bf16"]._fused_params(detach=True), engines["bf16"].ngp_config.cp
+    LC = c.out_dim
+    n_c, n_f = R * Sc, R * S
+    flops = n_c * (mlp_flops(prm["dW"]) + LC * 12) + \
+        n_f * (3 * mlp_flops(prm["dW"] + prm["cW"]) + LC * 12 + LC * 30 + 120)
+    io = R * (4 * 12 + 4 * (S + Sc) + 24) + proj2.numel() * 4 + \
+        2 * param_bytes(prm, True)
+    b, by = bound_ms(io, flops, "bf16")
+    worst = max(v["max_rel"] for rep in reports.values() for v in rep.values())
+    row = {
+        "name": "ngp_fused_train_full_cf", "route": "cuda",
+        "source": "nerf_kinematics_tpu_torch/csrc/ngp_fused_full.cu",
+        "replaces": "nerf_kinematics_tpu/ops/ngp_fused_pallas.py:1013",
+        "n_rays": R, "n_points": n_c + n_f, "max_abs_err": abs_err,
+        "max_rel_err": worst, "errors": reports,
+        "err_maps_errc_max_abs_err": out_err,
+        "tolerance": f"err, maps, err_c: abs {FULL_OUT_TOL}; gradients per leaf, "
+                     f"max abs over the leaf's largest entry: {FULL_GRAD_TOL}",
+        "ms": time_ms(lambda: call(ngp_fused_train_full_cf, prm, c, True), reps, 2, flush),
+        "plain_ms": time_ms(lambda: call(ngp_fused_train_full_cf_ref, prm, c, True),
+                            2, 1, flush),
+        "bound_ms": b, "bound_by": by, "library_ms": None,
+    }
+    bad = {k: {n: v for n, v in rep.items()
+               if not v["max_rel"] <= FULL_GRAD_TOL[k.split("_")[0]]}
+           for k, rep in reports.items()}
+    bad = {k: v for k, v in bad.items() if v}
+    if bad or not out_err <= FULL_OUT_TOL:
+        emit({"phase": "grad_kernels", "failed_row": row})
+        raise AssertionError(
+            f"ngp_fused_train_full_cf: outputs {out_err} (tolerance {FULL_OUT_TOL}), "
+            f"gradients beyond {FULL_GRAD_TOL}: {bad}")
+    return row
 
 
 def _replace_cp(ngp, **kw):
@@ -1168,6 +1299,204 @@ def phase_train_autodiff(fx, dev, quick: bool, dataset):
     return counts
 
 
+# machina400 as configs/machina_ngp.yml's comment generates it: 400x400,
+# 100 / 8 / 16 views, 1024 ground-truth samples per ray, seed 7.
+SCENE = {"resolution": 400, "n_train": 100, "n_val": 8, "n_test": 16,
+         "n_samples": 1024, "seed": 7}
+SCENE_QUICK = {"resolution": 100, "n_train": 16, "n_val": 4, "n_test": 2,
+               "n_samples": 256, "seed": 7}
+SCENE_STEPS = 2048
+# The canonical JAX run of configs/machina_ngp.yml on these images
+# (logs/machina-ngp/metrics.jsonl): val view 0 at steps 1024 and 2048.
+CANONICAL_VAL_DB = {1024: 31.36460424471172, 2048: 33.59586248188184}
+# ground-truth val PSNR (view 0) after SCENE_STEPS: the first full-size
+# run's 34.06 dB less 2 dB, rounded down; see PERF.md section 6
+SCENE_VAL_FLOOR_DB = 32.0
+# The whole-step and the two-call route, per leaf over the leaf's largest
+# entry. The two place samples by the same formulas written differently
+# (a CDF accumulated bin by bin against a cumulative sum, bin edges
+# near + b * step against the blended linspace), so depths differ in their
+# last bits, which the inverse CDF amplifies in bins of little mass.
+SCENE_ROUTE_TOL = {"f32": ROUTE_TOL["f32"], "bf16": 5e-2}
+
+
+def scene_config(fx, basedir: str, logdir: str, steps: int, quick: bool,
+                 fused_train: str = "full"):
+    """configs/machina_ngp.yml (the fixture's configuration; the card has no
+    PyYAML) with its dataset at ``basedir``, ``ngp.fused_train`` as given,
+    validation at every 1024 steps as the canonical run logged it."""
+    import dataclasses
+
+    c = fx.config
+    exp = dataclasses.replace(
+        c.experiment, logdir=logdir, id="chip_smoke_scene", print_every=0,
+        validate_every=256 if quick else 1024, save_every=0, train_iters=steps)
+    ngp = dataclasses.replace(c.ngp, fused_train=fused_train)
+    if quick:
+        # The ray count stays: from these weights 512 rays a step fall into
+        # the all-white dead state within 16 steps, in the JAX trainer too
+        # (PERF.md section 6); 8192 train.
+        ngp = dataclasses.replace(ngp, occ_update_every=64, occ_full_every=128)
+    return c.replace(dataset=dataclasses.replace(c.dataset, basedir=basedir),
+                     experiment=exp, ngp=ngp)
+
+
+def phase_scene(fx, dev, quick: bool, profile: bool):
+    """Training from the images on disk: generate machina400 with the port,
+    ``Trainer(cfg)`` with ``ngp.fused_train: full`` from the JAX package's
+    seed-42 initial weights for SCENE_STEPS steps, ground-truth PSNR on the
+    held-out views against the canonical run, the launch counts, and one
+    step of the whole-step and of the two-call route from one state (the
+    initial weights, the trained occupancy grid) and one set of draws."""
+    import tempfile
+
+    from nerf_kinematics_tpu_torch.data.machina import write_machina_dataset
+    from nerf_kinematics_tpu_torch.io.convert import params_from_npz
+    from nerf_kinematics_tpu_torch.io.fixture import MACHINA_NGP_INIT42
+    from nerf_kinematics_tpu_torch.ops import cuda_lib
+    from nerf_kinematics_tpu_torch.train.loop import build_objective
+    from nerf_kinematics_tpu_torch.train.ngp_engine import NGPEngine
+    from nerf_kinematics_tpu_torch.train.trainer import Trainer
+
+    scene = SCENE_QUICK if quick else SCENE
+    steps = 256 if quick else SCENE_STEPS
+    report = {"phase": "scene", "quick": quick, "scene": scene, "steps": steps}
+    with tempfile.TemporaryDirectory() as root:
+        basedir = os.path.join(root, "machina400")
+        # ---- the main path: the scene generator ---------------------------
+        t0 = time.perf_counter()
+        write_machina_dataset(basedir, **scene)  # device=None: the card
+        torch.cuda.synchronize()
+        report["generate_seconds"] = time.perf_counter() - t0
+
+        cfg = scene_config(fx, basedir, root, steps, quick)
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg)  # loads cfg.dataset from disk; the card
+        report["load_seconds"] = time.perf_counter() - t0
+        ds = trainer.dataset
+        report["views"] = [len(ds.train_idx), len(ds.val_idx), len(ds.test_idx)]
+        eng = trainer.engine
+        eng.load_flax_params(params_from_npz(MACHINA_NGP_INIT42))
+        state = eng.init_state(keep_weights=True)  # the step's generator: seed 42
+        init_params = state.params.clone()  # fit updates the state in place
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launch_counts()
+        # ---- the main path: training from disk, held-out renders ----------
+        t0 = time.perf_counter()
+        res = trainer.fit(state=state)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = dict(cuda_lib.LAUNCHES)
+        # -------------------------------------------------------------------
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        val = trainer.validate(res.state)
+        split = trainer.evaluate_split(res.state, "val")
+        with open(os.path.join(trainer.rundir, "metrics.jsonl")) as f:
+            val_log = {r["step"]: r["value"] for r in map(json.loads, f)
+                       if r["tag"] == "val/psnr"}
+        prof = profile_steps(trainer, res.state, groups={
+            "whole train step (row 8)": (
+                "nkf_", "nkt_fused_sigma", "nkt_fused_apply_save", "nkt_train_rays",
+                "nkt_fused_point_bwd", "nkt_wgrad", "nkt_reduce_partials")}) \
+            if profile else None
+
+        # ---- one step of the two routes from one state and one set of
+        # draws: the initial weights, whose gradients are large, and the
+        # trained grid, which shapes the proposal. At the trained weights
+        # the loss is small and each gradient entry a sum that cancels, so
+        # bf16 roundings that the two routes' last bits flip weigh up to 10 %
+        # of a leaf there (quick run, PERF.md section 6).
+        n_rays = cfg.nerf.num_random_rays
+        t = cfg.nerf.train
+        gen = torch.Generator(device=dev).manual_seed(31)
+        sl = slice(2000, 2000 + n_rays)
+        d = trainer.ray_buf["rays_d"][sl]
+        batch = (trainer.ray_buf["rays_o"][sl], d,
+                 d / torch.linalg.norm(d, dim=-1, keepdim=True),
+                 trainer.ray_buf["target"][sl])
+        u_c = torch.rand((n_rays, t.num_coarse), generator=gen, device=dev)
+        u_f = torch.rand((n_rays, t.num_fine), generator=gen, device=dev)
+        routes = {}
+        for mode in ("f32", "bf16"):
+            for name, fused_train in (("full", "full"), ("two_call", "on")):
+                c = scene_config(fx, basedir, root, steps, quick, fused_train=fused_train)
+                c = c.replace(ngp=_replace_cp(c.ngp, use_bf16=mode == "bf16"))
+                e = NGPEngine(c, 1.0)
+                e.layout.bind(e.model, init_params)
+                cuda_lib.reset_launch_counts()
+                (loss, (loss_c, _)), grads = build_objective(e, ds.near, ds.far)(
+                    batch, res.state.aux, None, u_coarse=u_c, u_fine=u_f)
+                torch.cuda.synchronize()
+                routes[mode, name] = (float(loss), float(loss_c), grads,
+                                      dict(cuda_lib.LAUNCHES))
+        trainer.close()
+
+    route_rep = {}
+    for mode in ("f32", "bf16"):
+        full, two = routes[mode, "full"], routes[mode, "two_call"]
+        rel, bad = {}, {}
+        for k, g in two[2].items():
+            scale = g.abs().max().item()
+            if scale > 0.0 and math.isfinite(scale) and torch.isfinite(full[2][k]).all():
+                rel[k] = (full[2][k] - g).abs().max().item() / scale
+            else:  # reported, then refused below
+                bad[k] = {"two_call_scale": scale,
+                          "full_finite": bool(torch.isfinite(full[2][k]).all())}
+        route_rep[mode] = {
+            "loss": {"full": full[0], "two_call": two[0]},
+            "loss_rel": abs(full[0] - two[0]) / abs(two[0]),
+            "loss_coarse_rel": abs(full[1] - two[1]) / abs(two[1]),
+            "grad_max_rel": max(rel.values(), default=math.nan),
+            "bad_leaves": bad,
+            "worst_leaves": sorted(rel.items(), key=lambda kv: -kv[1])[:4],
+            "launches": {"full": full[3]["ngp_fused_train_full_cf"],
+                         "two_call": two[3]["ngp_fused_train_cf"]},
+        }
+    losses = np.asarray(res.losses)
+    ms_per_step = statistics.median(s / k * 1e3 for k, s in res.chunk_seconds)
+    floor = None if quick else SCENE_VAL_FLOOR_DB
+    report.update({
+        "train_seconds_fit": fit_s, "ms_per_step": ms_per_step,
+        "rays_per_s": n_rays / ms_per_step * 1e3,
+        "loss_first16": float(losses[:16].mean()), "loss_last64": float(losses[-64:].mean()),
+        "val_psnr_db_by_step": val_log, "canonical_val_psnr_db_by_step": CANONICAL_VAL_DB,
+        "val_psnr_db": val["val_psnr"], "val_mean_psnr_db": split["mean_psnr"],
+        "val_psnr_per_view_db": split["per_frame"], "val_psnr_floor_db": floor,
+        "occupancy_refreshes": [[i, k, s * 1e3] for i, k, s in res.occupancy_refreshes],
+        "launches": counts, "peak_memory_gib": peak_gb,
+        "routes": route_rep, "routes_tolerance": {"grad": SCENE_ROUTE_TOL, "loss": 1e-3},
+    })
+    if prof is not None:
+        report["profile"] = prof
+    emit(report)
+    if not (np.isfinite(losses).all() and np.isfinite(split["mean_psnr"])):
+        raise AssertionError("scene: non-finite loss or PSNR")
+    # one row-8 launch a step; rows 7, 2 and the hull only in the held-out
+    # renders, where every chunk launches the hull, row 2 and row 3 once
+    evals = counts["ngp_fused_apply_cf"]
+    want = {"ngp_fused_train_full_cf": steps, "ngp_fused_train_cf": 0,
+            "ngp_fused_sigma_cf": evals, "occupancy_at_hull": evals,
+            "ngp_fused_apply_cf_bwd": 0, "cp_encode_bwd": 0}
+    got = {k: counts[k] for k in want}
+    if got != want or evals <= 0:
+        raise AssertionError(f"scene: launches {got}, expected {want}")
+    for mode, r in route_rep.items():
+        if r["bad_leaves"]:
+            raise AssertionError(f"scene ({mode}): zero or non-finite gradients "
+                                 f"{r['bad_leaves']}")
+        if r["launches"] != {"full": 1, "two_call": 1}:
+            raise AssertionError(f"scene: the routes took other paths: {r}")
+        if not (r["grad_max_rel"] <= SCENE_ROUTE_TOL[mode] and r["loss_rel"] <= 1e-3
+                and r["loss_coarse_rel"] <= 1e-3):
+            raise AssertionError(f"scene ({mode}): routes differ: {r}")
+    if not float(losses[-64:].mean()) < 0.5 * float(losses[:16].mean()):
+        raise AssertionError("scene: the loss did not fall")
+    if floor is not None and not val["val_psnr"] >= floor:
+        raise AssertionError(f"scene: val PSNR {val['val_psnr']:.2f} dB under {floor}")
+    return counts
+
+
 CLASSIC_STEPS = 1000
 CLASSIC_SEED = 42           # the config's experiment.randomseed
 CLASSIC_SIZE = 200          # half_res: the 400x400 scene at half resolution
@@ -1459,6 +1788,8 @@ def main(argv=None) -> int:
         add(phase_train_autodiff(fx, dev, args.quick, dataset))
     if "classic" in phases:
         add(phase_classic(fx, dev, args.quick, engine, aux, args.profile))
+    if "scene" in phases:
+        add(phase_scene(fx, dev, args.quick, args.profile))
     if phases != PHASES:
         emit({"phase": "total", "seconds": time.perf_counter() - t_start,
               "partial": list(phases)})

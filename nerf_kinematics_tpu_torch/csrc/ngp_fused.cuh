@@ -49,6 +49,28 @@ struct FusedArgs {
   CPLevels cp;
 };
 
+// The gradient kernels' arguments (ngp_fused_bwd.cu; the whole-step call of
+// ngp_fused_full.cu wraps them).
+// Mirrors ops/cuda_lib.py::BwdArgs field for field.
+struct BwdArgs {
+  FusedArgs f;         // the forward's arguments; f.out is (4, n) scratch
+  const float* g;      // (4, n) cotangent of f.out (the VJP)
+  float* act;          // (act_rows, n) saved layer inputs and feature 0
+  float* gs;           // (gs_rows, n) masked f32 cotangent of every layer
+  float* partial;      // (n_part, total) per-block sums of the MLP leaves
+  float* flat;         // (total,) the MLP leaves' gradients
+  float* dlines;       // (L, 3, T, C), zeroed by the caller
+  const float* dists;  // (1, n) compositing intervals, ray-major (train)
+  const float* tgt;    // (3, R) target pixels (train)
+  float* err;          // (1, R) squared error per ray (train)
+  float* maps;         // (4, R) rgb map and acc (train)
+  float* gbuf;         // (4, n) cotangent written by the ray kernel (train)
+  int S;               // samples per ray (train)
+  int white_bg;
+  float inv_denom;     // dL/d(rgb_map) = 2 * inv_denom * diff
+  int n_part;          // rows of `partial`
+};
+
 // Offsets (in floats) into dynamic shared memory.
 struct FusedLayout {
   int w_off[2 * NKT_MAX_LAYERS];  // layer weights, [in][NKT_W], zero padded

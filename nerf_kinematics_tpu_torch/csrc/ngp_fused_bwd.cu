@@ -45,26 +45,6 @@
 #define NKT_AS 33      // row stride of its input tile (no bank conflicts)
 #define NKT_MAX_Q 16   // groups of four entries one thread may own there
 
-// Mirrors ops/cuda_lib.py::BwdArgs field for field.
-struct BwdArgs {
-  FusedArgs f;         // the forward's arguments; f.out is (4, n) scratch
-  const float* g;      // (4, n) cotangent of f.out (the VJP)
-  float* act;          // (act_rows, n) saved layer inputs and feature 0
-  float* gs;           // (gs_rows, n) masked f32 cotangent of every layer
-  float* partial;      // (n_part, total) per-block sums of the MLP leaves
-  float* flat;         // (total,) the MLP leaves' gradients
-  float* dlines;       // (L, 3, T, C), zeroed by the caller
-  const float* dists;  // (1, n) compositing intervals, ray-major (train)
-  const float* tgt;    // (3, R) target pixels (train)
-  float* err;          // (1, R) squared error per ray (train)
-  float* maps;         // (4, R) rgb map and acc (train)
-  float* gbuf;         // (4, n) cotangent written by the ray kernel (train)
-  int S;               // samples per ray (train)
-  int white_bg;
-  float inv_denom;     // dL/d(rgb_map) = 2 * inv_denom * diff
-  int n_part;          // rows of `partial`
-};
-
 __global__ void __launch_bounds__(NKT_THREADS, 1)
     nkt_fused_apply_save_kernel(FusedArgs a, FusedLayout lay, SaveRows rows,
                                 float* act) {

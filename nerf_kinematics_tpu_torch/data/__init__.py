@@ -1,1 +1,55 @@
-"""Dataset containers and pose synthesis."""
+"""Dataset loaders, keyed by the config's ``dataset.type``: ``blender``
+(nerf_synthetic layout) and ``llff`` (forward-facing, NDC) are ported; the
+``robot`` (forward-kinematics capture), ``ngp`` (instant-ngp transforms) and
+``synthetic`` types raise ``NotImplementedError`` naming the ROADMAP item they
+wait for.
+
+Counterpart of ``nerf_kinematics_tpu/data/__init__.py``.
+"""
+
+from .blender import load_blender
+from .llff import load_llff
+from .types import NerfDataset
+
+
+def _waits(kind: str, item: str):
+    def loader(cfg, **kw):
+        raise NotImplementedError(
+            f"dataset.type {kind!r} is not ported yet (ROADMAP {item})")
+
+    return loader
+
+
+LOADERS = {
+    "blender": load_blender,
+    "llff": load_llff,
+    # the robot capture and instant-ngp transforms need the pose tools
+    "robot": _waits("robot", "A.8: poses"),
+    "ngp": _waits("ngp", "A.8: poses, and A.5: contracted scenes"),
+    "synthetic": _waits("synthetic", "A.2: the synthetic scenes"),
+}
+
+
+def load_dataset(cfg, *, white_background: bool = False) -> NerfDataset:
+    """Load the dataset a ``DatasetConfig`` describes, through
+    ``cfg.cachedir`` when it is set. ``white_background`` is the train
+    settings' flag (``nerf.train.white_background``): blender RGBA ground
+    truth is composited onto white when it is set, as the renderer
+    composites."""
+    if cfg.type not in LOADERS:
+        raise ValueError(f"unknown dataset type {cfg.type!r}; have {sorted(LOADERS)}")
+    from .cache import cache_path, load_cached, save_cached
+
+    kwargs = {"white_background": white_background} if cfg.type == "blender" else {}
+    path = cache_path(cfg, extra=kwargs or None)
+    if path is not None:
+        cached = load_cached(path)
+        if cached is not None:
+            return cached
+    ds = LOADERS[cfg.type](cfg, **kwargs)
+    if path is not None:
+        save_cached(path, ds)
+    return ds
+
+
+__all__ = ["NerfDataset", "LOADERS", "load_dataset", "load_blender", "load_llff"]

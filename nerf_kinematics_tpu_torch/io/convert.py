@@ -48,6 +48,26 @@ def params_from_flax(tree: dict, device=None) -> Dict[str, torch.Tensor]:
     return {k: torch.tensor(v, device=device) for k, v in out.items()}
 
 
+def params_from_npz(path: str) -> dict:
+    """A flax parameter tree saved as ``param/<flax path>`` arrays of an
+    ``.npz`` (``scripts/export_torch_init.py``; the fixture's parameters use
+    the same keys) -> ``{"params": tree}`` of numpy arrays, for
+    ``NGPEngine.load_flax_params``."""
+    tree: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            if not key.startswith("param/"):
+                continue
+            node = tree
+            parts = key.split("/")[1:]
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = z[key]
+    if not tree:
+        raise ValueError(f"{path}: no param/ arrays")
+    return {"params": tree}
+
+
 def params_to_flax(state_dict: Dict[str, torch.Tensor],
                    encoder: str = "cp_pallas") -> dict:
     """Inverse of :func:`params_from_flax`: ``{"params": {...}}`` of numpy

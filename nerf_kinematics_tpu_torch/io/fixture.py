@@ -23,12 +23,17 @@ from typing import Dict, Optional
 import numpy as np
 
 from ..data.types import Intrinsics
+from .convert import params_from_npz
 from ..train.config import Config, config_from_json, config_to_json
 
 FIXTURE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "fixtures"
 )
 MACHINA_NGP = os.path.join(FIXTURE_DIR, "machina_ngp_10000.npz")
+# The JAX package's NGPEngine(machina_ngp).init_state(42) parameters: the
+# weights its canonical run started from (scripts/export_torch_init.py;
+# io/convert.py::params_from_npz reads them).
+MACHINA_NGP_INIT42 = os.path.join(FIXTURE_DIR, "machina_ngp_init42.npz")
 
 
 @dataclass
@@ -81,21 +86,13 @@ def write_fixture(path: str, fx: Fixture) -> None:
 
 
 def read_fixture(path: str = MACHINA_NGP) -> Fixture:
+    params = params_from_npz(path)
     with np.load(path) as z:
-        tree: dict = {}
-        golden = {}
-        for key in z.files:
-            if key.startswith("param/"):
-                node = tree
-                parts = key.split("/")[1:]
-                for part in parts[:-1]:
-                    node = node.setdefault(part, {})
-                node[parts[-1]] = z[key]
-            elif key.startswith("golden/"):
-                golden[key[len("golden/"):]] = z[key]
+        golden = {key[len("golden/"):]: z[key] for key in z.files
+                  if key.startswith("golden/")}
         has_grid = "grid/density" in z.files
         return Fixture(
-            params={"params": tree},
+            params=params,
             grid_density=z["grid/density"] if has_grid else None,
             grid_bound=float(z["grid/bound"]) if has_grid else None,
             config=config_from_json(str(z["config_json"])),

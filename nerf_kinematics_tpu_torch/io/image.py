@@ -1,0 +1,265 @@
+"""Image I/O without Pillow: an 8-bit PNG codec on ``zlib`` and Pillow's
+LANCZOS downscale in numpy.
+
+The machine the port trains on need not have Pillow, so the loaders and the
+scene generator read and write PNGs here:
+
+  * :func:`write_png` / :func:`read_png`: 8-bit, non-interlaced PNG of gray,
+    gray + alpha, RGB, RGBA (and palette, read only). The writer filters no
+    row; the reader undoes all five row filters, since Pillow's writer picks
+    a filter per row.
+  * :func:`resize_lanczos`: Pillow's ``Image.resize(size, LANCZOS)`` of an
+    8-bit image (``half_res`` and ``downsample_factor`` of the loaders):
+    the same separable filter (a = 3), the same fixed-point coefficients
+    (22 fraction bits), horizontal pass first, rounding to 8 bits between
+    the passes.
+  * :func:`save_image` / :func:`load_image`: float or uint8 images, by file
+    extension; JPEG goes through Pillow, imported when needed.
+
+Replaces ``nerf_kinematics_tpu/io/image.py::save_image`` / ``load_image``
+and the Pillow calls of the reference's loaders and scene writer.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import struct
+import zlib
+
+import numpy as np
+
+_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# PNG color type -> channels (8-bit samples)
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_COLOR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}
+
+
+def _chunk(tag: bytes, data: bytes) -> bytes:
+    crc = zlib.crc32(tag + data) & 0xFFFFFFFF
+    return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", crc)
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """(H, W) or (H, W, C) uint8, C in 1..4 (gray, gray + alpha, RGB, RGBA)
+    -> PNG bytes. Every row is stored with filter 0, deflated at zlib's
+    level 6 (Pillow's default)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise ValueError(f"encode_png takes uint8, got {img.dtype}")
+    if img.ndim == 2:
+        img = img[:, :, None]
+    if img.ndim != 3 or img.shape[2] not in _COLOR_TYPE:
+        raise ValueError(f"encode_png takes (H, W[, 1..4]), got {img.shape}")
+    H, W, C = img.shape
+    raw = np.zeros((H, 1 + W * C), np.uint8)
+    raw[:, 1:] = img.reshape(H, W * C)
+    ihdr = struct.pack(">IIBBBBB", W, H, 8, _COLOR_TYPE[C], 0, 0, 0)
+    return (_SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + _chunk(b"IEND", b""))
+
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _unfilter(raw: np.ndarray, H: int, W: int, C: int) -> np.ndarray:
+    """(H, 1 + W*C) filtered scanlines -> (H, W, C) uint8. Filters 0-2 (none,
+    sub, up) are undone row by row; with any average (3) or Paeth (4) row the
+    image is reconstructed along anti-diagonals: pixel (y, x) depends on its
+    left, upper and upper-left neighbours only, which lie on earlier ones."""
+    ftype = raw[:, 0].astype(np.int64)
+    if ftype.max(initial=0) > 4:
+        raise ValueError("unknown PNG row filter")
+    filt = raw[:, 1:].reshape(H, W, C)
+    if np.all(ftype <= 2):
+        out = np.empty((H, W, C), np.uint8)
+        prev = np.zeros((W, C), np.uint8)
+        for y in range(H):
+            line = filt[y]
+            if ftype[y] == 1:
+                line = np.cumsum(line, axis=0, dtype=np.uint8)
+            elif ftype[y] == 2:
+                line = line + prev
+            out[y] = prev = line
+        return out
+    f = filt.astype(np.int64)
+    pad = np.zeros((H + 1, W + 1, C), np.int64)  # row 0 and column 0 are zero
+    for k in range(H + W - 1):
+        ys = np.arange(max(0, k - W + 1), min(H - 1, k) + 1)
+        xs = k - ys
+        a, b, c = pad[ys + 1, xs], pad[ys, xs + 1], pad[ys, xs]
+        t = ftype[ys][:, None]
+        pred = np.select([t == 0, t == 1, t == 2, t == 3],
+                         [np.zeros_like(a), a, b, (a + b) >> 1], _paeth(a, b, c))
+        pad[ys + 1, xs + 1] = (f[ys, xs] + pred) & 255
+    return pad[1:, 1:].astype(np.uint8)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W, C) uint8 with C the file's channels (palette
+    images come back RGB, or RGBA with a transparency chunk). Takes 8-bit,
+    non-interlaced files."""
+    if data[:8] != _SIGNATURE:
+        raise ValueError("not a PNG file")
+    pos, idat, plte, trns, hdr = 8, [], None, None, None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif tag == b"tRNS":
+            trns = np.frombuffer(body, np.uint8)
+        elif tag == b"IEND":
+            break
+    if hdr is None:
+        raise ValueError("PNG without a header")
+    W, H, depth, ctype, _, _, interlace = hdr
+    if depth != 8 or interlace != 0 or ctype not in _CHANNELS:
+        raise ValueError(f"PNG of bit depth {depth}, color type {ctype}, "
+                         f"interlace {interlace}: only 8-bit non-interlaced files")
+    C = _CHANNELS[ctype]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    img = _unfilter(raw.reshape(H, 1 + W * C), H, W, C)
+    if ctype == 3:
+        idx = img[..., 0]
+        if plte is None:
+            raise ValueError("palette PNG without a palette")
+        rgb = plte[idx]
+        if trns is None:
+            return rgb
+        alpha = np.full(len(plte), 255, np.uint8)
+        alpha[: len(trns)] = trns
+        return np.concatenate([rgb, alpha[idx][..., None]], axis=-1)
+    return img
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
+
+
+def read_png(path: str) -> np.ndarray:
+    with open(path, "rb") as f:
+        return decode_png(f.read())
+
+
+def _pillow():
+    """Pillow's ``Image``, for the formats this module does not decode."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            "reading or writing anything but PNG needs Pillow, which is not "
+            "installed; convert the images to PNG") from e
+    return Image
+
+
+def _is_png(path: str) -> bool:
+    return os.path.splitext(path)[1].lower() == ".png"
+
+
+def read_image_u8(path: str) -> np.ndarray:
+    """(H, W, C) uint8 as stored: PNGs through :func:`read_png`, anything
+    else through Pillow."""
+    if _is_png(path):
+        return read_png(path)
+    with _pillow().open(path) as im:
+        arr = np.asarray(im)
+    return arr[:, :, None] if arr.ndim == 2 else arr
+
+
+def to_rgb(img: np.ndarray) -> np.ndarray:
+    """Gray / gray + alpha / RGB / RGBA uint8 -> RGB (alpha dropped), as
+    Pillow's ``convert("RGB")``."""
+    if img.ndim == 2:
+        img = img[:, :, None]
+    if img.shape[2] in (1, 2):
+        return np.repeat(img[:, :, :1], 3, axis=2)
+    return img[:, :, :3]
+
+
+def load_image(path: str) -> np.ndarray:
+    """(H, W, 3) float32 in [0, 1]."""
+    return to_rgb(read_image_u8(path)).astype(np.float32) / 255.0
+
+
+def save_image(path: str, img: np.ndarray) -> None:
+    """Save a float [0, 1] or uint8 (H, W, 3) image (RGBA and gray too)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        img = np.clip(img * 255.0, 0, 255).astype(np.uint8)
+    if _is_png(path):
+        write_png(path, img)
+    else:
+        _pillow().fromarray(img).save(path)
+
+
+# ---------------------------------------------------------------- LANCZOS
+
+_PRECISION_BITS = 32 - 8 - 2
+
+
+def _sinc(x: float) -> float:
+    if x == 0.0:
+        return 1.0
+    x = x * math.pi
+    return math.sin(x) / x
+
+
+def _lanczos(x: float) -> float:
+    return _sinc(x) * _sinc(x / 3.0) if -3.0 <= x < 3.0 else 0.0
+
+
+def _lanczos_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """(out, in) int64 fixed-point weights of one pass: Pillow's
+    ``precompute_coeffs`` (support 3 x scale, taps at (x + 0.5 - center) /
+    scale, normalised to sum 1) and ``normalize_coeffs_8bpc`` (rounded half
+    away from zero to 22 fraction bits)."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 3.0 * filterscale
+    ss = 1.0 / filterscale
+    m = np.zeros((out_size, in_size), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        w = [_lanczos((x + xmin - center + 0.5) * ss) for x in range(xmax)]
+        ww = 0.0
+        for v in w:
+            ww += v
+        for x, v in enumerate(w):
+            k = v / ww if ww != 0.0 else v
+            k *= 1 << _PRECISION_BITS
+            m[xx, xmin + x] = int(k - 0.5) if k < 0 else int(k + 0.5)
+    return m
+
+
+def _pass(img: np.ndarray, m: np.ndarray, axis: int) -> np.ndarray:
+    acc = np.tensordot(img.astype(np.int64), m, axes=([axis], [1]))
+    acc = np.moveaxis(acc, -1, axis) + (1 << (_PRECISION_BITS - 1))
+    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def resize_lanczos(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """(H, W[, C]) uint8 -> (height, width[, C]) uint8 as Pillow's
+    ``Image.fromarray(img).resize((width, height), Image.LANCZOS)`` for
+    gray and RGB images (channels are filtered independently)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise ValueError(f"resize_lanczos takes uint8, got {img.dtype}")
+    out = img
+    if width != img.shape[1]:
+        out = _pass(out, _lanczos_matrix(img.shape[1], width), 1)
+    if height != img.shape[0]:
+        out = _pass(out, _lanczos_matrix(img.shape[0], height), 0)
+    return out

@@ -29,6 +29,8 @@ MAX_WIDTH = 64  # NKT_W of csrc/ngp_fused.cuh
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 CLASSIC_MAX_LAYERS = 16  # NKC_MAX_LAYERS of csrc/classic_fused.cu
 CLASSIC_MAX_FREQS = 16   # NKC_MAX_FREQS
+MAX_BINS = 256     # NKF_MAX_BINS of csrc/ngp_fused_full.cu
+MAX_SAMPLES = 256  # NKF_MAX_SAMPLES
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -44,6 +46,7 @@ LAUNCHES = {
     "cp_encode_bwd": 0,
     "ngp_fused_apply_cf_bwd": 0,
     "ngp_fused_train_cf": 0,
+    "ngp_fused_train_full_cf": 0,
     "classic_fused_apply_cf": 0,
     "classic_fused_apply_cf_bwd": 0,
 }
@@ -94,7 +97,7 @@ class FusedArgs(ctypes.Structure):
 
 
 class BwdArgs(ctypes.Structure):
-    """Mirrors ``struct BwdArgs`` of csrc/ngp_fused_bwd.cu."""
+    """Mirrors ``struct BwdArgs`` of csrc/ngp_fused.cuh."""
 
     _fields_ = [
         ("f", FusedArgs),
@@ -113,6 +116,32 @@ class BwdArgs(ctypes.Structure):
         ("white_bg", ctypes.c_int),
         ("inv_denom", ctypes.c_float),
         ("n_part", ctypes.c_int),
+    ]
+
+
+class FullArgs(ctypes.Structure):
+    """Mirrors ``struct FullArgs`` of csrc/ngp_fused_full.cu."""
+
+    _fields_ = [
+        ("b", BwdArgs),
+        ("o", ctypes.c_void_p),
+        ("d", ctypes.c_void_p),
+        ("vd", ctypes.c_void_p),
+        ("uc", ctypes.c_void_p),
+        ("uf", ctypes.c_void_p),
+        ("proj2", ctypes.c_void_p),
+        ("zc", ctypes.c_void_p),
+        ("xtc", ctypes.c_void_p),
+        ("sigc", ctypes.c_void_p),
+        ("errc", ctypes.c_void_p),
+        ("R", ctypes.c_longlong),
+        ("Sc", ctypes.c_int),
+        ("NB", ctypes.c_int),
+        ("Rg", ctypes.c_int),
+        ("near", ctypes.c_double),
+        ("step", ctypes.c_double),
+        ("inv_bound2", ctypes.c_float),
+        ("occ_floor", ctypes.c_float),
     ]
 
 
@@ -301,6 +330,8 @@ def load_library(verbose: bool = False):
     for fn in (lib.nkt_fused_backward, lib.nkt_fused_train):
         fn.argtypes = [ctypes.POINTER(BwdArgs), ci, vp]
         fn.restype = ci
+    lib.nkt_fused_train_full.argtypes = [ctypes.POINTER(FullArgs), ci, vp]
+    lib.nkt_fused_train_full.restype = ci
     for fn in (lib.nkt_classic_forward, lib.nkt_classic_backward):
         fn.argtypes = [ctypes.POINTER(ClassicArgs), vp]
         fn.restype = ci

@@ -8,10 +8,12 @@ Replaces, from ``nerf_kinematics_tpu/ops/ngp_fused_pallas.py``:
   * ``ngp_fused_apply_cf`` VJP      -> :func:`ngp_fused_apply_cf_bwd`, the
     backward of the ``autograd.Function`` behind :func:`ngp_fused_apply_cf`
   * ``ngp_fused_train_cf``          -> :func:`ngp_fused_train_cf`
+  * ``ngp_fused_train_full_cf``     -> :func:`ngp_fused_train_full_cf`
   * ``ngp_fused_apply``             -> :func:`ngp_fused_apply`
 
 Kernel sources: ``csrc/ngp_fused.cu`` (forward), ``csrc/ngp_fused_bwd.cu``
-(gradients), ``csrc/ngp_fused.cuh`` (shared). Channels-first IO: ``(3, N)``
+(gradients), ``csrc/ngp_fused_full.cu`` (the whole train step),
+``csrc/ngp_fused.cuh`` (shared). Channels-first IO: ``(3, N)``
 unit-cube points and ``(3, N)`` unit view directions -> ``(4, N)``, rows 0-2
 rgb logits and row 3 sigma (already exp-activated). ``params`` is the
 raw-array dict the reference's kernels take: ``{"lines": (L,3,T,C),
@@ -393,6 +395,117 @@ def ngp_fused_train_cf_ref(params: dict, xt: torch.Tensor, vdt: torch.Tensor,
     return err, maps, d_params
 
 
+# ------------------------------- the whole train step: the plain version
+
+def _cdf_rows_ref(w: torch.Tensor) -> torch.Tensor:
+    """(R, M) unnormalised weights -> (R, M + 1) CDF as the reference's
+    ``_cdf_rows``: +1e-5, the total summed bin by bin, then each bin's
+    ``w / tot`` added to the running value. Not a cumulative sum over a
+    normalised pdf: the last bits differ, and the inverse CDF amplifies them."""
+    w = w + 1e-5
+    tot = w[:, 0]
+    for k in range(1, w.shape[1]):
+        tot = tot + w[:, k]
+    cols = [torch.zeros_like(tot)]
+    for k in range(w.shape[1]):
+        cols.append(cols[-1] + w[:, k] / tot)
+    return torch.stack(cols, dim=1)
+
+
+def _inv_cdf_rows_ref(cdf: torch.Tensor, edges: torch.Tensor,
+                      u: torch.Tensor) -> torch.Tensor:
+    """The reference's ``_inv_cdf_rows``: ``cdf`` (R, M1), ``edges`` (R, M1)
+    or (M1,), ``u`` (R, n) -> (R, n) depths. The bin is ``#(cdf <= u)``
+    clipped to [1, M1 - 1]; a bin mass under 1e-5 divides by 1."""
+    M1 = cdf.shape[1]
+    edges = edges.expand(cdf.shape)
+    cnt = (cdf[:, None, :] <= u[:, :, None]).sum(dim=-1)
+    hi = torch.clamp(cnt, 1, M1 - 1)
+    lo = hi - 1
+    c_lo, c_hi = torch.gather(cdf, 1, lo), torch.gather(cdf, 1, hi)
+    e_lo, e_hi = torch.gather(edges, 1, lo), torch.gather(edges, 1, hi)
+    den = c_hi - c_lo
+    den = torch.where(den < 1e-5, torch.ones_like(den), den)
+    return e_lo + ((u - c_lo) / den) * (e_hi - e_lo)
+
+
+def _interval_rows(z: torch.Tensor, d_norm: torch.Tensor) -> torch.Tensor:
+    """(R, S) sorted depths -> (R, S) compositing intervals times the ray
+    direction's norm, the 1e10 sentinel last."""
+    last = torch.full_like(z[:, :1], 1e10)
+    return torch.cat([z[:, 1:] - z[:, :-1], last], dim=1) * d_norm[:, None]
+
+
+@torch.no_grad()
+def ngp_fused_train_full_cf_ref(params: dict, o_cf, d_cf, vd_cf, tgt_cf,
+                                u_coarse, u_fine, proj2, cfg: CPGridConfig,
+                                S: int, Sc: int, num_bins: int, white_bg: bool,
+                                inv_denom: float, near: float, far: float,
+                                bound: float, occ_floor: float):
+    """Plain PyTorch version of :func:`ngp_fused_train_full_cf`, written
+    from the reference's ``_train_full_kernel`` stage by stage (not from
+    ``occupancy_sample`` / ``sample_pdf``, whose last bits differ)."""
+    R = o_cf.shape[1]
+    # Constants are computed in double and rounded once to f32, as the
+    # reference's kernel takes them (Python floats).
+    step = (far - near) / num_bins
+    ib2 = 1.0 / (2.0 * bound)
+    dev = o_cf.device
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def to_unit(pts):
+        return torch.clamp(pts * ib2 + 0.5, 0.0, 1.0)
+
+    # ---- stage A: hull-proposal weights on the uniform bins --------------
+    centres = torch.tensor([near + (b + 0.5) * step for b in range(num_bins)], **f32)
+    pb = o_cf[:, None, :] + centres[None, :, None] * d_cf[:, None, :]  # (3, NB, R)
+    Rg = proj2.shape[-1]
+    cell = torch.floor(torch.clamp(to_unit(pb) * float(Rg), 0.0, float(Rg - 1)))
+    ix, iy, iz = cell.to(torch.int64)
+    P = proj2.to(torch.bfloat16).to(torch.float32)
+    occ = torch.minimum(P[0][ix, iy], torch.minimum(P[1][ix, iz], P[2][iy, iz])).T
+    occ_max = occ.amax(dim=1, keepdim=True)
+    w = occ / (occ_max + 1e-9) + occ_floor  # (R, NB)
+
+    # ---- stage B: inverse CDF -> coarse depths ----------------------------
+    edges = torch.tensor([near + b * step for b in range(num_bins + 1)], **f32)
+    z_c = _inv_cdf_rows_ref(_cdf_rows_ref(w), edges, u_coarse.T)  # (R, Sc)
+
+    # ---- stage C: density-only coarse pass and its compositing weights ----
+    o3, d3 = o_cf[:, :, None], d_cf[:, :, None]
+    xt_c = to_unit(o3 + z_c[None] * d3).reshape(3, R * Sc)
+    sigma = ngp_fused_sigma_cf_ref(params, xt_c, cfg)[3].reshape(R, Sc)
+    d_norm = torch.sqrt((d_cf[0] * d_cf[0] + d_cf[1] * d_cf[1]) + d_cf[2] * d_cf[2])
+    dists_c = _interval_rows(z_c, d_norm)
+    trans = torch.ones(R, **f32)
+    acc = torch.zeros(R, **f32)
+    cw = []
+    for s in range(Sc):
+        a = 1.0 - torch.exp(-sigma[:, s] * dists_c[:, s])
+        w_s = a * trans
+        acc = acc + w_s
+        cw.append(w_s)
+        trans = trans * (1.0 - a + 1e-10)
+    # The density-only pass has zero rgb logits: a grey composite.
+    v = 0.5 * acc + ((1.0 - acc) if white_bg else 0.0)
+    dv = v[None] - tgt_cf
+    err_c = ((dv[0] * dv[0] + dv[1] * dv[1]) + dv[2] * dv[2])[None]
+
+    # ---- stage D: inverse CDF -> fine depths ------------------------------
+    # bins: the coarse midpoints; weights: the interior coarse weights
+    mids = 0.5 * (z_c[:, :-1] + z_c[:, 1:])
+    z_f = _inv_cdf_rows_ref(_cdf_rows_ref(torch.stack(cw[1:-1], dim=1)), mids,
+                            u_fine.T)  # (R, S)
+
+    # ---- stage E: the fine stage of ngp_fused_train_cf (ray-major) --------
+    xt_f = to_unit(o3 + z_f[None] * d3).reshape(3, R * S)
+    dists = _interval_rows(z_f, d_norm).reshape(1, R * S)
+    vdt = vd_cf[:, :, None].expand(3, R, S).reshape(3, R * S)
+    err, maps, d_params = ngp_fused_train_cf_ref(
+        params, xt_f, vdt, dists, tgt_cf, cfg, S, white_bg, inv_denom)
+    return err, maps, err_c, d_params
+
+
 # ---------------------------------------------------- gradients: the kernels
 
 def _grad_layout(params: dict):
@@ -407,10 +520,13 @@ def _grad_layout(params: dict):
     return order
 
 
-def _launch_grad(params, xt, vdt, cfg: CPGridConfig, g=None, train=None):
+def _launch_grad(params, xt, vdt, cfg: CPGridConfig, g=None, train=None,
+                 full=None):
     """One launch sequence of the gradient kernels over all of ``xt``.
     ``g``: (4, n) cotangent (the VJP); ``train``: (dists, tgt, S, white_bg,
-    inv_denom) for the fused train objective. Returns (d_params, err, maps)."""
+    inv_denom) for the fused train objective; ``full``: a filled
+    ``cuda_lib.FullArgs`` whose call first writes ``xt``, ``vdt`` and
+    ``dists`` (the whole train step). Returns (d_params, err, maps)."""
     dev = xt.device
     n = xt.shape[1]
     f32 = dict(dtype=torch.float32, device=dev)
@@ -455,7 +571,13 @@ def _launch_grad(params, xt, vdt, cfg: CPGridConfig, g=None, train=None):
     # The kernels run after this returns. Their scratch tensors may be freed
     # then: the caching allocator hands a block out again only to work that
     # is queued behind them on the same stream.
-    code = fn(ctypes.byref(b), n_sm, cuda_lib.current_stream(dev))
+    if full is not None:
+        full.b = b
+        name = "ngp_fused_train_full_cf"
+        code = lib.nkt_fused_train_full(ctypes.byref(full), n_sm,
+                                        cuda_lib.current_stream(dev))
+    else:
+        code = fn(ctypes.byref(b), n_sm, cuda_lib.current_stream(dev))
     cuda_lib.LAUNCHES[name] += 1
     cuda_lib.raise_on_error(code, name)
     d = {"lines": dlines, "dW": [], "db": [], "cW": [], "cb": []}
@@ -540,3 +662,100 @@ def ngp_fused_train_cf(params: dict, xt: torch.Tensor, vdt: torch.Tensor,
         errs.append(err)
         mapss.append(maps)
     return torch.cat(errs, dim=1), torch.cat(mapss, dim=1), _sum_grads(parts)
+
+
+def _launch_full(params, o_cf, d_cf, vd_cf, tgt_cf, u_coarse, u_fine, proj2,
+                 cfg: CPGridConfig, S, Sc, num_bins, white_bg, inv_denom, near,
+                 far, bound, occ_floor):
+    """One call of ``nkt_fused_train_full`` over all the rays given."""
+    dev = o_cf.device
+    R = o_cf.shape[1]
+    for t, name, shape in ((o_cf, "o_cf", (3, R)), (d_cf, "d_cf", (3, R)),
+                           (vd_cf, "vd_cf", (3, R)), (u_coarse, "u_coarse", (Sc, R)),
+                           (u_fine, "u_fine", (S, R))):
+        cuda_lib.check_tensor(t, name, shape, dev)
+    Rg = proj2.shape[-1]
+    cuda_lib.check_tensor(proj2, "proj2", (3, Rg, Rg), dev)
+    if num_bins > cuda_lib.MAX_BINS or max(S, Sc) > cuda_lib.MAX_SAMPLES:
+        raise ValueError(
+            f"the whole-step kernel takes at most {cuda_lib.MAX_BINS} bins and "
+            f"{cuda_lib.MAX_SAMPLES} samples per pass")
+    f32 = dict(dtype=torch.float32, device=dev)
+    n = R * S
+    # the fine stage's operands, written by the call itself
+    xt, vdt, dists = (torch.empty((3, n), **f32), torch.empty((3, n), **f32),
+                      torch.empty((1, n), **f32))
+    z_c = torch.empty((R, Sc), **f32)
+    xt_c = torch.empty((3, R * Sc), **f32)
+    sigma_c = torch.empty((4, R * Sc), **f32)
+    err_c = torch.empty((1, R), **f32)
+    a = cuda_lib.FullArgs()
+    a.o, a.d, a.vd = o_cf.data_ptr(), d_cf.data_ptr(), vd_cf.data_ptr()
+    a.uc, a.uf, a.proj2 = u_coarse.data_ptr(), u_fine.data_ptr(), proj2.data_ptr()
+    a.zc, a.xtc, a.sigc, a.errc = (z_c.data_ptr(), xt_c.data_ptr(),
+                                   sigma_c.data_ptr(), err_c.data_ptr())
+    a.R, a.Sc, a.NB, a.Rg = R, Sc, num_bins, Rg
+    a.near, a.step = float(near), (float(far) - float(near)) / num_bins
+    a.inv_bound2, a.occ_floor = 1.0 / (2.0 * float(bound)), float(occ_floor)
+    d, err, maps = _launch_grad(params, xt, vdt, cfg,
+                                train=(dists, tgt_cf, S, white_bg, inv_denom),
+                                full=a)
+    return err, maps, err_c, d
+
+
+@torch.no_grad()
+def ngp_fused_train_full_cf(params: dict, o_cf: torch.Tensor, d_cf: torch.Tensor,
+                            vd_cf: torch.Tensor, tgt_cf: torch.Tensor,
+                            u_coarse: torch.Tensor, u_fine: torch.Tensor,
+                            proj2: torch.Tensor, cfg: CPGridConfig, S: int,
+                            Sc: int, num_bins: int, white_bg: bool,
+                            inv_denom: float, near: float, far: float,
+                            bound: float, occ_floor: float):
+    """The whole train step of the fast engine in one call: the hull
+    proposal on ``num_bins`` uniform bins, inverse-CDF coarse depths, the
+    density-only coarse pass, the coarse compositing weights and error,
+    inverse-CDF fine depths, then the fine stage of
+    :func:`ngp_fused_train_cf` (forward, compositing, squared error, the
+    whole backward).
+
+    Args:
+      params: as :func:`ngp_fused_apply_cf`.
+      o_cf / d_cf / vd_cf / tgt_cf: (3, R) ray origins, directions, unit view
+        directions and target pixels.
+      u_coarse / u_fine: (Sc, R) / (S, R) sorted inverse-CDF positions per
+        ray (``sample_pdf``'s stratified or evenly spaced positions).
+      proj2: (3, Rg, Rg) occupancy pair-projections
+        (``ops/occupancy.py::pair_projections``).
+      near / far / bound: the scene's static depth range and box
+        ([-bound, bound]^3, linear map to the unit cube); occ_floor: the
+        proposal's floor; inv_denom as :func:`ngp_fused_train_cf`.
+
+    Returns ``(err (1, R), maps (4, R), err_c (1, R), d_params)``: ``err_c``
+    is the squared error of the coarse pass's grey composite. A CUDA tensor
+    goes through the kernels (csrc/ngp_fused_full.cu); a CPU tensor through
+    the plain version."""
+    R = o_cf.shape[1]
+    if Sc < 3:
+        raise ValueError(f"Sc={Sc}: the fine pass needs at least 3 coarse samples")
+    for t, name, shape in ((tgt_cf, "tgt_cf", (3, R)), (u_coarse, "u_coarse", (Sc, R)),
+                           (u_fine, "u_fine", (S, R))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} {tuple(t.shape)} != {shape}")
+    args = (cfg, S, Sc, num_bins, white_bg, inv_denom, near, far, bound, occ_floor)
+    if not o_cf.is_cuda:
+        return ngp_fused_train_full_cf_ref(params, o_cf, d_cf, vd_cf, tgt_cf,
+                                           u_coarse, u_fine, proj2, *args)
+    rays = max(BWD_CHUNK // max(S, Sc), 1)
+    if R <= rays:
+        return _launch_full(params, o_cf, d_cf, vd_cf, tgt_cf, u_coarse, u_fine,
+                            proj2, *args)
+    outs = []
+    for r0 in range(0, R, rays):
+        sl = slice(r0, r0 + rays)
+        outs.append(_launch_full(
+            params, *(t[:, sl].contiguous() for t in (
+                o_cf, d_cf, vd_cf, tgt_cf, u_coarse, u_fine)), proj2, *args))
+    return (torch.cat([o[0] for o in outs], dim=1),
+            torch.cat([o[1] for o in outs], dim=1),
+            torch.cat([o[2] for o in outs], dim=1),
+            _sum_grads([o[3] for o in outs]))

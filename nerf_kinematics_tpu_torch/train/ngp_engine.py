@@ -11,9 +11,11 @@ parameter buffer the model's parameters are views of; ``make_train_step`` /
 ``make_train_many`` build the step (``train/loop.py``). The default step
 takes the fused objective (:meth:`fused_objective_fn`: density-only coarse
 pass, then ONE kernel call for the fine forward, compositing, loss and the
-whole backward); ``ngp.fused_train: off`` takes autograd through the fused
-forward's gradient kernel, and ``ngp.fused: off`` autograd through the
-unfused model and the CP encoder's gradient kernel. The optimizer is Adam
+whole backward); ``ngp.fused_train: full`` puts the whole step, proposal
+and coarse pass included, into one call; ``ngp.fused_train: off`` takes
+autograd through the fused forward's gradient kernel, and ``ngp.fused:
+off`` autograd through the unfused model and the CP encoder's gradient
+kernel. The optimizer is Adam
 (``NGP_ADAM``: b2 0.99, eps 1e-15) over the flat buffer with coupled 1e-6
 decay on the MLP kernels only.
 """
@@ -33,15 +35,17 @@ from ..ops.ngp_fused_cuda import (
     ngp_fused_apply_cf,
     ngp_fused_sigma_cf,
     ngp_fused_train_cf,
+    ngp_fused_train_full_cf,
 )
 from ..ops.occupancy import (
     OccupancyGrid,
     init_grid,
     occupancy_sample,
+    pair_projections,
     update_grid,
     update_grid_incremental,
 )
-from ..ops.sampling import hierarchical_sample, linspace, stratified_sample
+from ..ops.sampling import _uniform, hierarchical_sample, linspace, stratified_sample
 from ..ops.volume_render import raw2outputs_cf
 from ..rendering.fast_render import FastRenderSettings, render_image_fast
 from ..rendering.renderer import render_image
@@ -296,17 +300,15 @@ class NGPEngine:
         Eligibility mirrors the reference's: fused cp encoder, proposal-only
         coarse pass (coarse_loss_weight 0), importance fine samples,
         viewdirs on, no density noise, and a ray count divisible by 128.
-        ``loss_c`` is the MSE of the density-only coarse composite (zero rgb
-        rows, so the background composite): a metric, never a gradient."""
+        ``ngp.fused_train: full`` takes the whole step in one call instead
+        (:meth:`_full_objective`), and needs the hull proposal on a linear
+        scene with static near / far. ``loss_c`` is the MSE of the
+        density-only coarse composite (zero rgb rows, so the background
+        composite): a metric, never a gradient."""
         mode = getattr(self.ngp_config, "fused_train", "auto")
         mode = {True: "on", False: "off"}.get(mode, mode)
         if mode == "off":
             return None
-        if mode == "full":
-            raise NotImplementedError(
-                "ngp.fused_train: full (the whole-step kernel "
-                "ngp_fused_train_full_cf, row 8 of ROADMAP section B) is not "
-                "ported yet")
         eligible = (
             self.fused
             and self.resolved_coarse_loss_weight() == 0.0
@@ -327,6 +329,26 @@ class NGPEngine:
         S = settings.num_fine
         white_bg = settings.white_background
         cp = self.ngp_config.cp
+
+        # The whole step in one call (row 8 of the kernel table) for the
+        # hull proposal on a linear scene with a static depth range; other
+        # shapes take the two-call objective below. As in the reference,
+        # "full" is the explicit opt-in and "auto" / "on" take two calls.
+        full = (
+            mode == "full"
+            and self.ngp_config.use_occupancy
+            and self.ngp_config.occ_proposal == "hull"
+            and not self.contracted
+            and isinstance(near, (int, float))
+            and isinstance(far, (int, float))
+        )
+        if mode == "full" and not full:
+            raise ValueError(
+                "ngp.fused_train: full requires the hull occupancy proposal "
+                "on a non-contracted scene with static near/far"
+            )
+        if full:
+            return self._full_objective(near, far, settings)
 
         @torch.no_grad()
         def objective(batch, aux, generator=None, u_coarse=None, u_fine=None,
@@ -369,6 +391,45 @@ class NGPEngine:
             return (loss_f, (loss_c, loss_f)), self._fused_grads_to_tree(d_fused)
 
         return objective
+
+    def _full_objective(self, near, far, settings):
+        """``fused_objective_fn`` for ``ngp.fused_train: full``: one call of
+        ``ngp_fused_train_full_cf`` per step. Its inverse-CDF positions are
+        ``sample_pdf``'s: ``arange(n) / n + U / n`` from the step's
+        generator (``U`` given as ``u_coarse`` (R, Sc) / ``u_fine`` (R, S)
+        when passed), or the blended linspace without ``perturb``."""
+        S, Sc = settings.num_fine, settings.num_coarse
+        white_bg = settings.white_background
+        ngp = self.ngp_config
+
+        def sample_u(u, generator, n_rays, n_out, device):
+            if not settings.perturb:
+                return linspace(0.0, 1.0, n_out, device=device).expand(n_rays, n_out)
+            base = torch.arange(n_out, dtype=torch.float32, device=device) / n_out
+            return base + _uniform((n_rays, n_out), u, generator, device,
+                                   torch.float32) / n_out
+
+        @torch.no_grad()
+        def objective_full(batch, aux, generator=None, u_coarse=None, u_fine=None,
+                           noise_coarse=None, noise_fine=None):
+            rays_o, rays_d, viewdirs, target = batch
+            n_rays = rays_o.shape[0]
+            dev = rays_o.device
+            u_c = sample_u(u_coarse, generator, n_rays, Sc, dev)
+            u_f = sample_u(u_fine, generator, n_rays, S, dev)
+            cf = lambda t: t.T.contiguous()
+            err, _maps, err_c, d_fused = ngp_fused_train_full_cf(
+                self._fused_params(detach=True), cf(rays_o), cf(rays_d),
+                cf(viewdirs), cf(target), cf(u_c), cf(u_f),
+                pair_projections(aux).contiguous(), ngp.cp, S, Sc, ngp.occ_bins,
+                white_bg, inv_denom=1.0 / (3.0 * n_rays), near=near, far=far,
+                bound=self.scene_bound, occ_floor=ngp.occ_floor,
+            )
+            loss_f = torch.sum(err) / (3.0 * n_rays)
+            loss_c = torch.sum(err_c) / (3.0 * n_rays)
+            return (loss_f, (loss_c, loss_f)), self._fused_grads_to_tree(d_fused)
+
+        return objective_full
 
     def init_state(self, seed: Optional[int] = None,
                    keep_weights: bool = False) -> TrainState:

@@ -47,17 +47,19 @@ class TrainResult:
 
 class Trainer:
     """Fits the engine ``cfg.engine`` names ("ngp" or "classic") to a
-    dataset. ``device=None`` means the GPU. ``export_legacy`` (classic engine
-    only) writes the reference's ``checkpoint{iter}.ckpt`` next to each
-    checkpoint, with the weights validation scores."""
+    dataset: the one given, or the one ``cfg.dataset`` describes on disk
+    (``data/__init__.py::load_dataset``). ``device=None`` means the GPU.
+    ``export_legacy`` (classic engine only) writes the reference's
+    ``checkpoint{iter}.ckpt`` next to each checkpoint, with the weights
+    validation scores."""
 
     def __init__(self, cfg: Config, dataset: Optional[NerfDataset] = None,
                  device=None, export_legacy: bool = False):
         if dataset is None:
-            raise NotImplementedError(
-                "loading a dataset from cfg.dataset.basedir is not ported yet "
-                "(ROADMAP A.2: loaders and the scene generator); pass a "
-                "NerfDataset (data/types.py::dataset_from_arrays)")
+            from ..data import load_dataset
+
+            dataset = load_dataset(
+                cfg.dataset, white_background=cfg.nerf.train.white_background)
         self.cfg = cfg
         self.dataset = ds = dataset
         if cfg.engine == "ngp":

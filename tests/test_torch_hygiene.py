@@ -31,7 +31,10 @@ def _port_files():
                 "metrics/writer.py", "csrc/ngp_fused_bwd.cu", "csrc/ngp_fused.cuh",
                 "csrc/classic_fused.cu", "ops/classic_fused_cuda.py",
                 "models/flexible_nerf.py", "ops/positional_encoding.py",
-                "io/torch_compat.py"):
+                "io/torch_compat.py", "csrc/ngp_fused_full.cu", "io/image.py",
+                "data/machina.py", "data/blender.py", "data/llff.py",
+                "data/machina_llff.py", "data/cache.py", "data/__init__.py",
+                "cli/make_scene.py"):
         assert f"nerf_kinematics_tpu_torch/{new}" in names
     return files
 
@@ -42,6 +45,9 @@ def test_no_jax_and_no_reference_package(path):
     for pat in FORBIDDEN:
         m = pat.search(text)
         assert m is None, f"{path}: forbidden import {m.group(0)!r}"
+    # the card has no Pillow and no PyYAML: imported inside a function only
+    m = re.search(r"^(import|from)\s+(PIL|yaml)\b", text, re.M)
+    assert m is None, f"{path}: module-level import {m.group(0)!r}"
 
 
 def test_entry_points_ask_for_the_gpu(monkeypatch):
@@ -154,6 +160,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     ("nkc_pack_kernel", "classic_fused.cu"),
     ("nkc_forward_kernel", "classic_fused.cu"),
     ("nkc_bwd_tile_kernel", "classic_fused.cu"),
+    ("nkf_propose_kernel", "ngp_fused_full.cu"),
+    ("nkf_fine_inputs_kernel", "ngp_fused_full.cu"),
 ])
 def test_every_ported_kernel_has_cuda_source(kernel, source):
     text = (PORT / "csrc" / source).read_text()
@@ -185,7 +193,14 @@ def test_ctypes_structs_mirror_the_cuda_structs():
     bwd = (PORT / "csrc" / "ngp_fused_bwd.cu").read_text()
     assert c_fields(common, "CPLevels") == [f[0] for f in cuda_lib.CPLevels._fields_]
     assert c_fields(fused, "FusedArgs") == [f[0] for f in cuda_lib.FusedArgs._fields_]
-    assert c_fields(bwd, "BwdArgs") == [f[0] for f in cuda_lib.BwdArgs._fields_]
+    assert c_fields(fused, "BwdArgs") == [f[0] for f in cuda_lib.BwdArgs._fields_]
+    full = (PORT / "csrc" / "ngp_fused_full.cu").read_text()
+    assert c_fields(full, "FullArgs") == [f[0] for f in cuda_lib.FullArgs._fields_]
+    assert f"#define NKF_MAX_BINS {cuda_lib.MAX_BINS}" in full
+    assert f"#define NKF_MAX_SAMPLES {cuda_lib.MAX_SAMPLES}" in full
+    # the whole step calls rows 2 and 7 through their C entry points
+    for fn in ("nkt_fused_forward", "nkt_fused_train"):
+        assert f'extern "C" int {fn}(' in full
     assert f"#define NKT_MAX_LEVELS {cuda_lib.MAX_LEVELS}" in common
     assert f"#define NKT_MAX_LAYERS {cuda_lib.MAX_LAYERS}" in fused
     assert f"#define NKT_W {cuda_lib.MAX_WIDTH}" in fused

@@ -171,10 +171,10 @@ def test_training_entry_points_wait(sl):
                                  generator=torch.Generator().manual_seed(0))
     assert new.density.shape == sl.taux.density.shape
     import dataclasses
+    # the whole step in one call (row 8) is ported: its objective builds
     full = dataclasses.replace(sl.te.ngp_config, fused_train="full")
-    with pytest.raises(NotImplementedError, match="row 8"):
-        NGPEngine(sl.te.cfg.replace(ngp=full), device="cpu").fused_objective_fn(
-            2.0, 6.0, sl.te.cfg.nerf.train)
+    assert callable(NGPEngine(sl.te.cfg.replace(ngp=full), device="cpu").fused_objective_fn(
+        2.0, 6.0, sl.te.cfg.nerf.train))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         NGPEngine(sl.te.cfg, scene_bound=4.0, device="cpu")  # contracted scene
     with pytest.raises(NotImplementedError, match="ROADMAP"):

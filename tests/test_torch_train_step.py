@@ -42,7 +42,8 @@ from nerf_kinematics_tpu_torch.train.ngp_engine import NGPEngine
 N_RAYS, N_COARSE, N_FINE, OCC = 128, 8, 6, 16
 NEAR, FAR = 2.0, 6.0
 ROUTES = {"fused_objective": ("on", "auto"), "fused_vjp": ("on", "off"),
-          "unfused": ("off", "auto")}
+          "unfused": ("off", "auto"), "full": ("on", "full")}
+ONE_CALL = ("fused_objective", "full")  # routes with a fused objective
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -151,8 +152,11 @@ class _Pair:
         return big[0], big[1], counts
 
 
-CASES = [(r, occ, False) for r in sorted(ROUTES) for occ in (True, False)]
+# the whole-step route needs the hull proposal: with the grid only
+CASES = [(r, occ, False) for r in sorted(ROUTES) for occ in (True, False)
+         if occ or r != "full"]
 CASES.append(("fused_objective", True, True))  # the shipped route in bf16 mode
+CASES.append(("full", True, True))
 
 
 @pytest.mark.parametrize(
@@ -165,9 +169,9 @@ def test_train_step_matches_jax(route, use_occ, bf16, monkeypatch):
     _patch_jax_draws(monkeypatch, draws)
     settings = pr.je.cfg.nerf.train
     assert (pr.je.fused_objective_fn(NEAR, FAR, settings) is not None) == (
-        route == "fused_objective")
+        route in ONE_CALL)
     assert (pr.te.fused_objective_fn(NEAR, FAR, pr.te.cfg.nerf.train) is not None) == (
-        route == "fused_objective")
+        route in ONE_CALL)
 
     # ---- the whole step ---------------------------------------------------
     jbuf = {k: jnp.asarray(v) for k, v in draws["ray_buf"].items()}
@@ -359,8 +363,10 @@ def test_fused_objective_eligibility():
         obj(engine(fused_train="on", n_rays=200))
     assert obj(engine(fused_train="auto", cw=0.1)) is None
     assert obj(engine(fused="off", fused_train="auto")) is None
-    with pytest.raises(NotImplementedError, match="row 8"):
-        obj(engine(fused_train="full"))
+    # the whole step in one call (ported: row 8) is the explicit opt-in
+    assert obj(engine(fused_train="full")).__name__ == "objective_full"
+    assert obj(engine(fused_train="full", n_rays=200)) is None
+    assert obj(engine(fused_train="auto")).__name__ == "objective"
 
 
 @pytest.mark.parametrize("sampler", ["random", "shuffled"])
