@@ -751,6 +751,75 @@ def full_step_inputs(R: int, S: int, Sc: int, gen, dev):
     return (o.contiguous(), d.contiguous(), vd.contiguous(), tgt, strat(Sc), strat(S))
 
 
+def wgrad_yardsticks(params, n: int, reps: int, flush):
+    """cuBLAS times of the weight gradients' products at row 8's fine shape:
+    bf16 (K x n) . (n x J) for layer 0 and for all the layers, one call
+    each. A yardstick for the hand-written kernel; the port never calls
+    it."""
+    dev = params["lines"].device
+    gen = torch.Generator(device=dev).manual_seed(77)
+    shapes = [tuple(w.shape) for w in params["dW"] + params["cW"]]
+    mats = [(torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16),
+             torch.randn((j, n), generator=gen, device=dev).to(torch.bfloat16))
+            for k, j in shapes]
+
+    def all_layers():
+        for a, g in mats:
+            torch.matmul(a, g.T)
+
+    out = {"n_points": n, "layers": shapes,
+           "matmul_layer0_ms": time_ms(lambda: torch.matmul(mats[0][0], mats[0][1].T),
+                                       reps, 2, flush),
+           "matmul_all_layers_ms": time_ms(all_layers, reps, 2, flush)}
+    del mats
+    return out
+
+
+def scatter_atomics(run_plain, cfg):
+    """atomicAdds per point of the encoder scatter, counted from the tap
+    rows of the fine points that ``run_plain`` (row 8's plain version) hands
+    to its fine stage: before (one per tap and channel, as the f32 kernel
+    issues them) and after (one per run of points with the same pair of
+    rows within a warp's 16 consecutive points, as the tensor-core kernel
+    issues them). Taps of zero weight issue none; zero cotangents are not
+    counted."""
+    from nerf_kinematics_tpu_torch.ops import ngp_fused_cuda
+    from nerf_kinematics_tpu_torch.ops.cp_grid import level_taps
+
+    seen = {}
+    orig = ngp_fused_cuda.ngp_fused_train_cf_ref
+
+    def spy(params, xt, *args, **kw):
+        seen["xt"] = xt
+        return orig(params, xt, *args, **kw)
+
+    ngp_fused_cuda.ngp_fused_train_cf_ref = spy
+    try:
+        run_plain()
+    finally:
+        ngp_fused_cuda.ngp_fused_train_cf_ref = orig
+    x = torch.clamp(seen["xt"], 0.0, 1.0)
+    n = x.shape[1]
+    idx = torch.arange(n, device=x.device)
+    before = after = 0
+    for l in range(cfg.n_levels):
+        for a in range(3):
+            r0, r1, _, w1 = level_taps(x[a], cfg, l, a)
+            two = w1 != 0.0
+            before += n + int(two.sum())
+            new = (idx % 16 == 0) | (r0 != torch.roll(r0, 1)) | (r1 != torch.roll(r1, 1))
+            run = torch.cumsum(new.to(torch.int64), 0) - 1
+            n_runs = int(new.sum())
+            any_two = torch.zeros(n_runs, device=x.device).scatter_reduce(
+                0, run, two.to(torch.float32), "amax")
+            after += n_runs + int(any_two.sum())
+    C = cfg.n_components
+    # per channel; the tensor-core kernel adds a lane's two adjacent
+    # channels in one 8-byte atomicAdd, so it issues half as many operations
+    return {"n_points": n, "before": before * C / n, "after": after * C / n,
+            "after_float2_ops": after * C / 2 / n}
+
+
 def full_step_row(fx, engines, dev, quick: bool, reps: int, flush):
     """Row 8 at the flagship step's shape: 8192 rays, 48 + 48 samples, 64
     proposal bins on the fixture's 96^3 grid; bf16 and f32 mode, both
@@ -805,6 +874,9 @@ def full_step_row(fx, engines, dev, quick: bool, reps: int, flush):
                                  for a, b in ((ek, ep), (mk, mp), (eck, ecp))))
         reports[f"bf16_37_rays_{label.replace(' ', '_')}"] = grad_errors(k, p)
     prm, c = engines["bf16"]._fused_params(detach=True), engines["bf16"].ngp_config.cp
+    yard = wgrad_yardsticks(prm, R * S, reps, flush)
+    yard["scatter_atomics_per_point"] = scatter_atomics(
+        lambda: call(ngp_fused_train_full_cf_ref, prm, c, True), c)
     LC = c.out_dim
     n_c, n_f = R * Sc, R * S
     flops = n_c * (mlp_flops(prm["dW"]) + LC * 12) + \
@@ -826,6 +898,7 @@ def full_step_row(fx, engines, dev, quick: bool, reps: int, flush):
         "plain_ms": time_ms(lambda: call(ngp_fused_train_full_cf_ref, prm, c, True),
                             2, 1, flush),
         "bound_ms": b, "bound_by": by, "library_ms": None,
+        "yardsticks": yard,
     }
     bad = {k: {n: v for n, v in rep.items()
                if not v["max_rel"] <= FULL_GRAD_TOL[k.split("_")[0]]}
@@ -1170,10 +1243,11 @@ def profile_steps(trainer, state, n_steps: int = 10, groups=None):
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups = groups or {
         "hull proposal (row 1)": ("nkt_hull",),
-        "coarse density (row 2)": ("nkt_fused_sigma",),
+        "coarse density (row 2)": ("nkt_fused_sigma", "nkt_mma_sigma"),
         "fused train objective (row 7)": (
-            "nkt_fused_apply_save", "nkt_train_rays", "nkt_fused_point_bwd",
-            "nkt_wgrad", "nkt_reduce_partials")}
+            "nkt_fused_apply_save", "nkt_mma_apply_save", "nkt_train_rays",
+            "nkt_fused_point_bwd", "nkt_mma_point_bwd", "nkt_wgrad",
+            "nkt_reduce_partials")}
     by_group = {k: 0.0 for k in groups}
     by_group["PyTorch ops (sampling, compositing, gathers, Adam)"] = 0.0
     kernels = []
@@ -1341,6 +1415,16 @@ def scene_config(fx, basedir: str, logdir: str, steps: int, quick: bool,
                      experiment=exp, ngp=ngp)
 
 
+# Row 8's parts by kernel name (either mode's kernels), for the profile.
+ROW8_PARTS = {
+    "row 8: sigma pass (row 2's body)": ("nkt_mma_sigma", "nkt_fused_sigma"),
+    "row 8: forward with saves": ("nkt_mma_apply_save", "nkt_fused_apply_save"),
+    "row 8: per-point backward": ("nkt_mma_point_bwd", "nkt_fused_point_bwd"),
+    "row 8: weight gradients": ("nkt_wgrad", "nkt_reduce_partials"),
+    "row 8: proposal, fine inputs, ray kernel": ("nkf_", "nkt_train_rays"),
+}
+
+
 def phase_scene(fx, dev, quick: bool, profile: bool):
     """Training from the images on disk: generate machina400 with the port,
     ``Trainer(cfg)`` with ``ngp.fused_train: full`` from the JAX package's
@@ -1395,11 +1479,11 @@ def phase_scene(fx, dev, quick: bool, profile: bool):
         with open(os.path.join(trainer.rundir, "metrics.jsonl")) as f:
             val_log = {r["step"]: r["value"] for r in map(json.loads, f)
                        if r["tag"] == "val/psnr"}
-        prof = profile_steps(trainer, res.state, groups={
-            "whole train step (row 8)": (
-                "nkf_", "nkt_fused_sigma", "nkt_fused_apply_save", "nkt_train_rays",
-                "nkt_fused_point_bwd", "nkt_wgrad", "nkt_reduce_partials")}) \
+        prof = profile_steps(trainer, res.state, groups=ROW8_PARTS) \
             if profile else None
+        if prof is not None:
+            prof["row_8_ms_per_step"] = sum(
+                prof["ms_per_step_by_group"][k] for k in ROW8_PARTS)
 
         # ---- one step of the two routes from one state and one set of
         # draws: the initial weights, whose gradients are large, and the

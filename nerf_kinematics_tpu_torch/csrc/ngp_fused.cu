@@ -1,37 +1,88 @@
 // Fused NGP point pipeline, the forward kernels.
 //
 // Replaces the TPU kernels of nerf_kinematics_tpu/ops/ngp_fused_pallas.py:
-//   ngp_fused_sigma_cf  (_fwd_sigma_kernel)  -> nkt_fused_sigma_kernel
-//   ngp_fused_apply_cf forward (_fwd_kernel) -> nkt_fused_apply_kernel
-// The device code is in ngp_fused.cuh (shared with the gradient kernels of
-// ngp_fused_bwd.cu), where the arithmetic contract is written down.
+//   ngp_fused_sigma_cf  (_fwd_sigma_kernel)  -> nkt_mma_sigma_kernel (bf16)
+//                                               nkt_fused_sigma_kernel (f32)
+//   ngp_fused_apply_cf forward (_fwd_kernel) -> nkt_mma_apply_kernel (bf16)
+//                                               nkt_fused_apply_kernel (f32)
+// The device code is in nkt_mma.cuh (bf16 mode, tensor cores) and
+// ngp_fused.cuh (f32 mode, FMA pipe; the arithmetic contract of both).
 //
 // Bound on this card: operations. 2 * (256*64 + 64*64 + 64*16) = 43.0 kFLOP
 // of MLP work per point for sigma and 63.9 kFLOP with the color MLP, against
-// 28 / 40 B of device traffic.
-#include "ngp_fused.cuh"
+// 28 / 40 B of device traffic. In bf16 mode those products run on the tensor
+// cores; what remains is the encoder's 6 table rows per point and level
+// (768 B of L1/L2 traffic per level) and its tap arithmetic.
+#include "nkt_mma.cuh"
 
 __global__ void __launch_bounds__(NKT_THREADS, 1)
     nkt_fused_sigma_kernel(FusedArgs a, FusedLayout lay) {
   const SaveRows none = SaveRows();
-  nkt_fused_body<false, false>(a, lay, none, nullptr);
+  nkt_fused_body<false, false>(a, lay, none, nullptr, nullptr);
 }
 
 __global__ void __launch_bounds__(NKT_THREADS, 1)
     nkt_fused_apply_kernel(FusedArgs a, FusedLayout lay) {
   const SaveRows none = SaveRows();
-  nkt_fused_body<true, false>(a, lay, none, nullptr);
+  nkt_fused_body<true, false>(a, lay, none, nullptr, nullptr);
+}
+
+__global__ void __launch_bounds__(NKT_MMA_MAX_WARPS * 32, 1)
+    nkt_mma_sigma_kernel(FusedArgs a, MmaLayout lay) {
+  const SaveRows none = SaveRows();
+  nkt_mma_body<false, false>(a, lay, none, nullptr, nullptr, 0);
+}
+
+__global__ void __launch_bounds__(NKT_MMA_MAX_WARPS * 32, 1)
+    nkt_mma_apply_kernel(FusedArgs a, MmaLayout lay) {
+  const SaveRows none = SaveRows();
+  nkt_mma_body<true, false>(a, lay, none, nullptr, nullptr, 0);
 }
 
 // Bytes of dynamic shared memory a launch with these arguments asks for.
 extern "C" long long nkt_fused_smem_bytes(const FusedArgs* args, int color) {
+  if (args->cp.use_bf16) return make_mma_layout_fwd(*args, color != 0).total;
   return (long long)make_layout(*args, color != 0).total * sizeof(float);
+}
+
+// The bf16 forward: one warp per 16 points, lay.warps warps a block.
+static int mma_forward(const FusedArgs& a, bool color, int n_sm,
+                       cudaStream_t st) {
+  if (!mma_dims_ok(a, color)) return (int)cudaErrorInvalidValue;
+  const MmaLayout lay = make_mma_layout_fwd(a, color);
+  const size_t bytes = (size_t)lay.total;
+  const long long tiles = (a.n + NKT_MT - 1) / NKT_MT;
+  const int threads = lay.warps * 32;
+  long long want = (tiles + lay.warps - 1) / lay.warps;
+  if (color && want > a.enc_slots / lay.warps) want = a.enc_slots / lay.warps;
+  if (want < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (color) {
+    err = cudaFuncSetAttribute(nkt_mma_apply_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    const long long blocks =
+        persistent_blocks(nkt_mma_apply_kernel, threads, bytes, want, n_sm);
+    nkt_mma_apply_kernel<<<(unsigned)blocks, threads, bytes, st>>>(a, lay);
+  } else {
+    err = cudaFuncSetAttribute(nkt_mma_sigma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    const long long blocks =
+        persistent_blocks(nkt_mma_sigma_kernel, threads, bytes, want, n_sm);
+    nkt_mma_sigma_kernel<<<(unsigned)blocks, threads, bytes, st>>>(a, lay);
+  }
+  return (int)cudaGetLastError();
 }
 
 // color = 0: sigma kernel (rows 0-2 zero); color = 1: full forward.
 // Returns the cudaError_t of the attribute call or the launch, 0 = success.
 extern "C" int nkt_fused_forward(const FusedArgs* args, int color, int n_sm,
                                  void* stream) {
+  if (args->cp.use_bf16)
+    return mma_forward(*args, color != 0, n_sm, (cudaStream_t)stream);
   const FusedLayout lay = make_layout(*args, color != 0);
   const size_t bytes = (size_t)lay.total * sizeof(float);
   long long blocks = (args->n + NKT_THREADS - 1) / NKT_THREADS;

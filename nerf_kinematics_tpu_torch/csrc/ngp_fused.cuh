@@ -13,17 +13,26 @@
 // the last. sigma comes from the f32 feature 0; the color MLP's input is
 // [features (rounded), SH4 (rounded)] in that order.
 //
-// The forward is deliberately simple: one thread per point with the layer's
-// accumulators in registers, all layers' weights staged once per block in
-// shared memory (blocks are persistent and walk over point tiles), every
-// weight read a broadcast 16-byte load, the 256-wide encoding produced four
-// channels at a time and consumed straight into the first layer's
-// accumulators. The products run on the f32 FMA pipe, not on the tensor
-// cores; moving them there (mma / wgmma) is the next step for these kernels.
+// Two bodies compute this, and the mode picks one (nothing falls back):
 //
-// With SAVE the body also writes every layer's (rounded) input and the f32
-// feature 0 into a (rows, N) scratch array in device memory: what the
-// gradient kernels read back instead of holding 1.4 KB per point on chip.
+//  * bf16 mode (use_bf16 = 1): nkt_mma_body of nkt_mma.cuh. Every product
+//    runs on the tensor cores (mma.sync.m16n8k16, bf16 in, f32 accumulate);
+//    a warp owns a tile of 16 points and chains the layers in registers. The
+//    weights come packed in bf16 from the host (about 45 KB density only,
+//    70 KB with color), so two or three blocks share an SM, and the encoder
+//    gathers a bf16 copy of the line tables with its lanes on channel pairs.
+//    On this card the old f32 body ran at about 14 TFLOP/s, 1.4 % of the
+//    bf16 tensor-core peak; the products no longer bound the kernels, the
+//    table gathers and (with SAVE) the saved activations do.
+//  * f32 mode: nkt_fused_body below, one thread per point with the layer's
+//    accumulators in registers and all layers' f32 weights staged once per
+//    block (one persistent block per SM), every weight read a broadcast
+//    16-byte load, the products on the f32 FMA pipe.
+//
+// With SAVE the body also writes every layer's (rounded) input into a
+// (rows, ld) scratch array in device memory (bf16 in bf16 mode, f32 in f32
+// mode) and the f32 feature 0 into a (ld,) array: what the gradient kernels
+// read back instead of holding 1.4 KB per point on chip.
 #pragma once
 
 #include "nkt_common.cuh"
@@ -37,6 +46,7 @@ struct FusedArgs {
   const float* xt;     // (3, n)
   const float* vdt;    // (3, n), unused by the sigma kernel
   const float* lines;  // (L, 3, T, C)
+  const void* lines16; // (L, 3, T, C) bf16 copy of lines (bf16 mode)
   float* out;          // (4, n)
   const float* dW[NKT_MAX_LAYERS];  // (in, out) row-major each
   const float* db[NKT_MAX_LAYERS];  // (out,)
@@ -47,6 +57,22 @@ struct FusedArgs {
   int d_in[NKT_MAX_LAYERS], d_out[NKT_MAX_LAYERS];
   int c_in[NKT_MAX_LAYERS], c_out[NKT_MAX_LAYERS];
   CPLevels cp;
+  // bf16 mode: the layers' weights packed for the tensor cores by the host
+  // (ops/ngp_fused_cuda.py::mma_pack), offsets and row strides in bf16
+  // elements, layer li = density layers then color layers. Forward blocks
+  // (rows = output columns) come first, density then color, then the
+  // backward blocks (rows = input rows).
+  const void* wpk;
+  int pk_off[2 * NKT_MAX_LAYERS], pk_ld[2 * NKT_MAX_LAYERS];
+  int pk_boff[2 * NKT_MAX_LAYERS], pk_bld[2 * NKT_MAX_LAYERS];
+  int pk_dens;  // elements of the density layers' forward blocks
+  int pk_fwd;   // elements of all forward blocks
+  int pk_all;   // elements of the buffer
+  // bf16 mode: per-warp slots of device scratch, each the encoding of a
+  // warp's 16 points (16 x L*C bf16), read back to sum a layer-0 output
+  // again (nkt_mma_finish). A launch uses at most enc_slots warps.
+  void* enc;
+  long long enc_slots;
 };
 
 // The gradient kernels' arguments (ngp_fused_bwd.cu; the whole-step call of
@@ -55,8 +81,9 @@ struct FusedArgs {
 struct BwdArgs {
   FusedArgs f;         // the forward's arguments; f.out is (4, n) scratch
   const float* g;      // (4, n) cotangent of f.out (the VJP)
-  float* act;          // (act_rows, n) saved layer inputs and feature 0
-  float* gs;           // (gs_rows, n) masked f32 cotangent of every layer
+  void* act;           // (act_rows, ld) saved layer inputs, bf16 in bf16 mode
+  float* z0;           // (ld,) the f32 feature 0
+  float* gs;           // (gs_rows, ld) masked f32 cotangent of every layer
   float* partial;      // (n_part, total) per-block sums of the MLP leaves
   float* flat;         // (total,) the MLP leaves' gradients
   float* dlines;       // (L, 3, T, C), zeroed by the caller
@@ -69,6 +96,8 @@ struct BwdArgs {
   int white_bg;
   float inv_denom;     // dL/d(rgb_map) = 2 * inv_denom * diff
   int n_part;          // rows of `partial`
+  long long ld;        // row stride of act and gs: n in f32 mode, n rounded
+                       // up to a multiple of 64 in bf16 mode
 };
 
 // Offsets (in floats) into dynamic shared memory.
@@ -108,7 +137,6 @@ static FusedLayout make_layout(const FusedArgs& a, bool color,
 struct SaveRows {
   int d_row[NKT_MAX_LAYERS];   // act: first row of density layer li's input
   int c_row[NKT_MAX_LAYERS];   // act: first row of color layer li's input
-  int z0_row;                  // act: the f32 feature 0
   int act_rows;
   int dg_row[NKT_MAX_LAYERS];  // gs: first row of density layer li's masked
   int cg_row[NKT_MAX_LAYERS];  //     output cotangent (color likewise)
@@ -145,8 +173,7 @@ static SaveRows make_rows(const FusedArgs& a) {
     r.cb_off[li] = flat;
     flat += a.c_out[li];
   }
-  r.z0_row = act;
-  r.act_rows = act + 1;
+  r.act_rows = act;
   r.gs_rows = gs;
   r.total = flat;
   return r;
@@ -260,12 +287,12 @@ __device__ __forceinline__ void nkt_sh4(float x, float y, float z, float* s) {
   s[15] = 0.59004358992664352f * x * (-xx + 3.0f * yy);
 }
 
-// act: (rows.act_rows, n) scratch, read only when SAVE.
+// act: (rows.act_rows, n) scratch and z0s: (n,), written only when SAVE.
 template <bool COLOR, bool SAVE>
 __device__ __forceinline__ void nkt_fused_body(const FusedArgs& a,
                                                const FusedLayout& lay,
                                                const SaveRows& rows,
-                                               float* act) {
+                                               float* act, float* z0s) {
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
   const bool bf = a.cp.use_bf16 != 0;
@@ -355,7 +382,7 @@ __device__ __forceinline__ void nkt_fused_body(const FusedArgs& a,
     // acc[0] is the f32 feature 0; hs rows [0, dout) hold the rounded
     // features, the first part of the color MLP's input.
     const float sigma = expf(fminf(fmaxf(acc[0], -15.0f), 15.0f));
-    if (SAVE) act[(long long)rows.z0_row * n + i] = acc[0];
+    if (SAVE) z0s[i] = acc[0];
 
     if (COLOR) {
       const int dout = a.d_out[a.nd - 1];

@@ -19,7 +19,8 @@
 //       divides by 1) at the edges near + b step. Writes z_c and the coarse
 //       points in unit-cube coordinates.
 //   (b) the density-only fused forward of ngp_fused.cu (row 2's code, its
-//       C entry nkt_fused_forward) on the R * Sc coarse points.
+//       C entry nkt_fused_forward) on the R * Sc coarse points: in bf16
+//       mode the tensor-core body of nkt_mma.cuh.
 //   (c) nkf_fine_inputs_kernel, one thread per ray: stages C-D. Coarse
 //       compositing with the 1e10 * |d| sentinel and T * (1 - a + 1e-10),
 //       err_c of the grey composite 0.5 acc (+ 1 - acc on white), then the
@@ -27,7 +28,9 @@
 //       coarse weights. Writes the fine points, their intervals and the
 //       view directions, ray-major (sample s of ray r at r * S + s).
 //   (d) nkt_fused_train of ngp_fused_bwd.cu, as it stands: the fine
-//       forward, compositing, squared error and the whole backward.
+//       forward, compositing, squared error and the whole backward (in bf16
+//       mode on the tensor cores: the forward with saves, the per-point
+//       backward and the weight gradients in one launch).
 //
 // The proposal arithmetic is built with -fmad=false (as every source here),
 // so each product and sum rounds as in the plain version: one contracted
@@ -36,9 +39,11 @@
 // (bin centres and edges) are computed in double and rounded once.
 //
 // Bound on this card: operations, those of (b) and (d) (row 2's 43.0 kFLOP
-// per coarse point and three times row 3's per fine point); (a) and (c)
-// are a few thousand scalar operations per ray, one thread per ray: simple
-// and right first.
+// per coarse point and three times row 3's per fine point) at the bf16
+// tensor-core rate; what holds (b) and (d) once their products run there is
+// in ngp_fused.cu and ngp_fused_bwd.cu (the encoder's gathers and scatter,
+// the saved activations). (a) and (c) are a few thousand scalar operations
+// per ray, one thread per ray: simple and right first.
 #include "ngp_fused.cuh"
 
 #define NKF_MAX_BINS 256

@@ -80,6 +80,7 @@ class FusedArgs(ctypes.Structure):
         ("xt", ctypes.c_void_p),
         ("vdt", ctypes.c_void_p),
         ("lines", ctypes.c_void_p),
+        ("lines16", ctypes.c_void_p),
         ("out", ctypes.c_void_p),
         ("dW", ctypes.c_void_p * MAX_LAYERS),
         ("db", ctypes.c_void_p * MAX_LAYERS),
@@ -93,6 +94,16 @@ class FusedArgs(ctypes.Structure):
         ("c_in", ctypes.c_int * MAX_LAYERS),
         ("c_out", ctypes.c_int * MAX_LAYERS),
         ("cp", CPLevels),
+        ("wpk", ctypes.c_void_p),
+        ("pk_off", ctypes.c_int * (2 * MAX_LAYERS)),
+        ("pk_ld", ctypes.c_int * (2 * MAX_LAYERS)),
+        ("pk_boff", ctypes.c_int * (2 * MAX_LAYERS)),
+        ("pk_bld", ctypes.c_int * (2 * MAX_LAYERS)),
+        ("pk_dens", ctypes.c_int),
+        ("pk_fwd", ctypes.c_int),
+        ("pk_all", ctypes.c_int),
+        ("enc", ctypes.c_void_p),
+        ("enc_slots", ctypes.c_longlong),
     ]
 
 
@@ -103,6 +114,7 @@ class BwdArgs(ctypes.Structure):
         ("f", FusedArgs),
         ("g", ctypes.c_void_p),
         ("act", ctypes.c_void_p),
+        ("z0", ctypes.c_void_p),
         ("gs", ctypes.c_void_p),
         ("partial", ctypes.c_void_p),
         ("flat", ctypes.c_void_p),
@@ -116,6 +128,7 @@ class BwdArgs(ctypes.Structure):
         ("white_bg", ctypes.c_int),
         ("inv_denom", ctypes.c_float),
         ("n_part", ctypes.c_int),
+        ("ld", ctypes.c_longlong),
     ]
 
 

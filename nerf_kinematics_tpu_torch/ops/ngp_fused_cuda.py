@@ -13,7 +13,10 @@ Replaces, from ``nerf_kinematics_tpu/ops/ngp_fused_pallas.py``:
 
 Kernel sources: ``csrc/ngp_fused.cu`` (forward), ``csrc/ngp_fused_bwd.cu``
 (gradients), ``csrc/ngp_fused_full.cu`` (the whole train step),
-``csrc/ngp_fused.cuh`` (shared). Channels-first IO: ``(3, N)``
+``csrc/ngp_fused.cuh`` (shared, and the f32 mode's body), ``csrc/nkt_mma.cuh``
+(bf16 mode: the tensor-core body). In bf16 mode the wrappers hand the kernels
+a bf16 copy of the line tables and the weights packed for the tensor cores
+(:func:`mma_pack`); f32 mode takes neither and runs the FMA body. Channels-first IO: ``(3, N)``
 unit-cube points and ``(3, N)`` unit view directions -> ``(4, N)``, rows 0-2
 rgb logits and row 3 sigma (already exp-activated). ``params`` is the
 raw-array dict the reference's kernels take: ``{"lines": (L,3,T,C),
@@ -30,6 +33,7 @@ own level (what the reference's ``fold_dlines`` does to its dup-row operand).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -40,6 +44,7 @@ from .sh import sh_encode
 
 REF_CHUNK = 1 << 19  # points per chunk of the plain versions
 BWD_CHUNK = 1 << 19  # points per launch of the gradient kernels (scratch size)
+ENC_SLOTS_PER_SM = 32  # warps of the tensor-core forward one SM holds at most
 
 
 def _mlp_ref(h, weights, biases, use_bf16: bool):
@@ -95,9 +100,126 @@ def ngp_fused_apply_cf_ref(params: dict, xt: torch.Tensor, vdt: torch.Tensor,
     return _chunked_cf(one, xt.shape[1], xt.device)
 
 
-def _fused_args(params: dict, xt, vdt, out, cfg: CPGridConfig, color: bool):
+# ------------------------------------------- bf16 mode: the tensor-core operands
+
+def _ceil(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+@dataclasses.dataclass(frozen=True)
+class MmaPackLayout:
+    """Where :func:`mma_pack` puts each layer (bf16 elements). Layers are the
+    density layers then the color layers. A forward block holds W^T (a row
+    per output column, ``ceil(out, 8)`` rows, the inputs zero-padded to a
+    multiple of 16); a backward block holds W (a row per input, ``ceil(in,
+    8)`` rows, the outputs padded to 16). Each row is ``ld`` elements with
+    ``ld = 8 (mod 16)``: 4 (mod 8) 32-bit words, so the eight rows one
+    fragment load touches fall in distinct shared-memory banks, and every
+    row starts 16-byte aligned. The forward blocks come first, density then
+    color (``dens``: where the color blocks start; ``fwd``: where the
+    backward blocks start)."""
+
+    f_off: tuple
+    f_ld: tuple
+    b_off: tuple
+    b_ld: tuple
+    dens: int
+    fwd: int
+    total: int
+
+
+def mma_layout(shapes, nd: int, backward: bool = True) -> MmaPackLayout:
+    """The packing of layers of ``shapes`` ((in, out) each, ``nd`` density
+    layers first); backward blocks only when ``backward``."""
+    f_off, f_ld, b_off, b_ld = [], [], [], []
+    off, dens = 0, None
+    for i, (k, j) in enumerate(shapes):
+        if i == nd:
+            dens = off
+        ld = _ceil(k, 16) + 8
+        f_off.append(off)
+        f_ld.append(ld)
+        off += _ceil(j, 8) * ld
+    fwd = off
+    if backward:
+        for k, j in shapes:
+            ld = _ceil(j, 16) + 8
+            b_off.append(off)
+            b_ld.append(ld)
+            off += _ceil(k, 8) * ld
+    return MmaPackLayout(tuple(f_off), tuple(f_ld), tuple(b_off), tuple(b_ld),
+                         fwd if dens is None else dens, fwd, off)
+
+
+def _block(buf, off: int, rows: int, ld: int):
+    return buf[off : off + rows * ld].view(rows, ld)
+
+
+def mma_pack(Ws, nd: int, backward: bool = True):
+    """Pack the layers' weights ``Ws`` ((in, out) each, f32, density then
+    color) into one bf16 buffer laid out as :func:`mma_layout` says:
+    rounded to nearest even, zero-padded. Returns ``(buffer, layout)``."""
+    lay = mma_layout([tuple(w.shape) for w in Ws], nd, backward)
+    buf = torch.zeros(lay.total, dtype=torch.bfloat16, device=Ws[0].device)
+    for i, w in enumerate(Ws):
+        k, j = w.shape
+        _block(buf, lay.f_off[i], _ceil(j, 8), lay.f_ld[i])[:j, :k].copy_(w.T)
+        if backward:
+            _block(buf, lay.b_off[i], _ceil(k, 8), lay.b_ld[i])[:k, :j].copy_(w)
+    return buf, lay
+
+
+def mma_dims_ok(shapes, nd: int, n_comp: int, color: bool) -> bool:
+    """What the tensor-core kernels take (``csrc/nkt_mma.cuh::mma_dims_ok``):
+    ``n_comp`` a multiple of 16; every width at most 64 and a multiple of 16
+    where it feeds another product; with color, the density output plus the
+    16 SH4 values at most 64 and a last layer of at most 8."""
+    if n_comp % 16 or nd < 1:
+        return False
+    dens, col = shapes[:nd], shapes[nd:]
+    for i, (_, j) in enumerate(dens):
+        if j > cuda_lib.MAX_WIDTH or ((i < nd - 1 or color) and j % 16):
+            return False
+    if not color:
+        return True
+    dout = dens[-1][1]
+    if not col or dout + 16 > cuda_lib.MAX_WIDTH or col[0][0] != dout + 16:
+        return False
+    for i, (_, j) in enumerate(col):
+        last = i == len(col) - 1
+        if j > cuda_lib.MAX_WIDTH or (not last and j % 16) or (last and j > 8):
+            return False
+    return True
+
+
+def mma_operands(params: dict, cfg: CPGridConfig, color: bool,
+                 backward: bool = False):
+    """What the kernels' bf16 mode reads besides the f32 parameters: the bf16
+    copy of the line tables (exact: the kernels round every table entry to
+    bf16 before use) and the packed weights. ``None`` in f32 mode, whose FMA
+    body reads the f32 parameters alone. Raises where the widths are not
+    what the tensor-core kernels take."""
+    if not cfg.use_bf16:
+        return None
+    Ws = list(params["dW"]) + (list(params["cW"]) if color else [])
+    nd = len(params["dW"])
+    shapes = [tuple(w.shape) for w in Ws]
+    if not mma_dims_ok(shapes, nd, cfg.n_components, color):
+        raise ValueError(
+            f"bf16 mode: the tensor-core kernels take n_components a multiple "
+            f"of 16 and layer widths of at most {cuda_lib.MAX_WIDTH}, multiples "
+            f"of 16 where they feed another layer; got n_components="
+            f"{cfg.n_components}, layers {shapes}")
+    wpk, lay = mma_pack([w.detach() for w in Ws], nd, backward)
+    return params["lines"].detach().to(torch.bfloat16), wpk, lay
+
+
+def _fused_args(params: dict, xt, vdt, out, cfg: CPGridConfig, color: bool,
+                backward: bool = False):
     """Check everything the kernel assumes and fill its argument struct.
-    Every pointer in it belongs to a tensor the caller holds."""
+    Returns ``(args, keep)``: every pointer in ``args`` belongs to a tensor
+    the caller holds or to ``keep`` (bf16 mode's operands), which the caller
+    holds until the launch is queued."""
     dev = xt.device
     n = xt.shape[1]
     cuda_lib.check_tensor(xt, "xt", (3, None))
@@ -148,7 +270,25 @@ def _fused_args(params: dict, xt, vdt, out, cfg: CPGridConfig, color: bool):
                     args.cW, args.cb, args.c_in, args.c_out)
         if last != 3:
             raise ValueError(f"the color MLP must end in 3 channels, got {last}")
-    return args
+    keep = mma_operands(params, cfg, color, backward)
+    if keep is not None:
+        lines16, wpk, lay = keep
+        args.lines16, args.wpk = lines16.data_ptr(), wpk.data_ptr()
+        for i in range(len(lay.f_off)):
+            args.pk_off[i], args.pk_ld[i] = lay.f_off[i], lay.f_ld[i]
+        for i in range(len(lay.b_off)):
+            args.pk_boff[i], args.pk_bld[i] = lay.b_off[i], lay.b_ld[i]
+        args.pk_dens, args.pk_fwd, args.pk_all = lay.dens, lay.fwd, lay.total
+        if color:
+            # one slot per warp the card can hold at once: a warp's 16
+            # points' encodings, read back where a layer-0 output is summed
+            # again (the density-only kernel keeps them on chip)
+            slots = ENC_SLOTS_PER_SM * cuda_lib.sm_count(dev)
+            enc = torch.empty(slots * 16 * cfg.out_dim, dtype=torch.bfloat16,
+                              device=dev)
+            args.enc, args.enc_slots = enc.data_ptr(), slots
+            keep = (*keep, enc)
+    return args, keep
 
 
 def _launch(params, xt, vdt, cfg: CPGridConfig, color: bool, name: str):
@@ -156,7 +296,7 @@ def _launch(params, xt, vdt, cfg: CPGridConfig, color: bool, name: str):
     out = torch.empty((4, n), dtype=torch.float32, device=xt.device)
     if n == 0:
         return out
-    args = _fused_args(params, xt, vdt, out, cfg, color)
+    args, keep = _fused_args(params, xt, vdt, out, cfg, color)
     lib = cuda_lib.load_library()
     need = lib.nkt_fused_smem_bytes(ctypes.byref(args), int(color))
     if need > cuda_lib.SMEM_LIMIT:
@@ -520,6 +660,33 @@ def _grad_layout(params: dict):
     return order
 
 
+@dataclasses.dataclass(frozen=True)
+class GradScratch:
+    """Device scratch of one call of the gradient kernels over ``n`` points
+    (``csrc/ngp_fused_bwd.cu::nkt_fused_bwd_sizes`` says the same): ``act``
+    (act_rows, ld) saved layer inputs, bf16 in bf16 mode (each saved value
+    is bf16-rounded already) and f32 in f32 mode; ``z0`` (ld,) f32; ``gs``
+    (gs_rows, ld) f32; the flat MLP gradient of ``total`` floats. ``ld`` is
+    n in f32 mode and n rounded up to 64 in bf16 mode (the weight-gradient
+    kernel's 64-point tiles start 128-byte aligned)."""
+
+    act_rows: int
+    gs_rows: int
+    total: int
+    ld: int
+    act_dtype: torch.dtype
+
+
+def grad_scratch(params: dict, cfg: CPGridConfig, n: int) -> GradScratch:
+    shapes = [tuple(w.shape) for w in (*params["dW"], *params["cW"])]
+    act_rows = sum(k for k, _ in shapes)
+    gs_rows = sum(j for _, j in shapes)
+    total = sum(k * j + j for k, j in shapes)
+    if cfg.use_bf16:
+        return GradScratch(act_rows, gs_rows, total, _ceil(n, 64), torch.bfloat16)
+    return GradScratch(act_rows, gs_rows, total, n, torch.float32)
+
+
 def _launch_grad(params, xt, vdt, cfg: CPGridConfig, g=None, train=None,
                  full=None):
     """One launch sequence of the gradient kernels over all of ``xt``.
@@ -532,23 +699,30 @@ def _launch_grad(params, xt, vdt, cfg: CPGridConfig, g=None, train=None,
     f32 = dict(dtype=torch.float32, device=dev)
     out4 = torch.empty((4, n), **f32)
     b = cuda_lib.BwdArgs()
-    b.f = _fused_args(params, xt, vdt, out4, cfg, True)
+    b.f, keep = _fused_args(params, xt, vdt, out4, cfg, True, backward=True)
     lib = cuda_lib.load_library()
-    sizes = (ctypes.c_longlong * 4)()
+    sizes = (ctypes.c_longlong * 6)()
     lib.nkt_fused_bwd_sizes(ctypes.byref(b.f), sizes)
-    act_rows, gs_rows, total, smem = (int(v) for v in sizes)
+    act_rows, gs_rows, total, smem, ld, act_bytes = (int(v) for v in sizes)
+    scratch = grad_scratch(params, cfg, n)
+    if (act_rows, gs_rows, total, ld, act_bytes) != (
+            scratch.act_rows, scratch.gs_rows, scratch.total, scratch.ld,
+            scratch.act_dtype.itemsize):
+        raise RuntimeError(
+            f"scratch layout: the library says {tuple(sizes)}, the host {scratch}")
     if smem > cuda_lib.SMEM_LIMIT:
         raise ValueError(
             f"the layers need {smem} B of shared memory, above the "
             f"{cuda_lib.SMEM_LIMIT} B one block may use")
     n_sm = cuda_lib.sm_count(dev)
     n_part = 2 * n_sm
-    act = torch.empty((act_rows, n), **f32)
-    gs = torch.empty((gs_rows, n), **f32)
+    act = torch.empty((act_rows, ld), dtype=scratch.act_dtype, device=dev)
+    z0 = torch.empty((ld,), **f32)
+    gs = torch.empty((gs_rows, ld), **f32)
     partial = torch.empty((n_part, total), **f32)
     flat = torch.empty((total,), **f32)
     dlines = torch.zeros_like(params["lines"])
-    b.act, b.gs = act.data_ptr(), gs.data_ptr()
+    b.act, b.z0, b.gs, b.ld = act.data_ptr(), z0.data_ptr(), gs.data_ptr(), ld
     b.partial, b.flat = partial.data_ptr(), flat.data_ptr()
     b.dlines, b.n_part = dlines.data_ptr(), n_part
     err = maps = None
