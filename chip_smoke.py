@@ -29,9 +29,17 @@ width through the entry points a user calls:
     beside the canonical run's; one step of the whole-step and of the
     two-call route from one state and one set of draws.
 
-It prints one JSON object per phase, then a ``{"kernels": [...]}`` line, the
-card's name and power limit as ``nvidia-smi`` gives them, and as the last
-line ``{"ok": true, "device": {...}}``. Any failed phase raises: the process
+The kernel phases also hold row 1 to its plain version on NaN and +-inf
+points, launch each gradient kernel (rows 5-8, 10) twice on the same inputs
+and require the same bits, split row 10 by kernel beside a cuBLAS f32
+yardstick, and the ``scene`` phase takes the whole step twice from one state
+and requires the same parameters.
+
+It prints one JSON object per phase, then a ``{"kernels": [...]}`` line (with
+each kernel's points on the main paths by the body that ran, and their time
+at that body's ns a point measured here, beside the bound), the card's name
+and power limit as ``nvidia-smi`` gives them, and as the last line
+``{"ok": true, "device": {...}}``. Any failed phase raises: the process
 exits non-zero and prints no result line. It needs a CUDA device and exits
 non-zero without one.
 """
@@ -39,6 +47,7 @@ non-zero without one.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import os
@@ -51,8 +60,10 @@ import numpy as np
 import torch
 
 # Published peaks of one H100 SXM (dense): the roofline a bound is taken from.
+# "f32x3": f32 work on the tensor cores in 3xTF32, three TF32 products for
+# each f32 one (the classic kernels' f32 mode).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "f32x3": 495e12 / 3}
 
 PHASES = ("kernels", "grad_kernels", "serve", "golden", "train", "train_autodiff",
           "classic", "scene")
@@ -177,28 +188,37 @@ def phase_kernels(fx, dev, quick: bool, reps: int):
     proj_t = pair_projections(grid).contiguous()
     proj_r = torch.rand((3, occ_R, occ_R), generator=gen, device=dev) * 50.0
     xt, _ = random_points(n_hull, gen, dev)
-    # Only a NaN point takes the plain version's index out of range (clamp
-    # keeps NaN; the kernel's fmaxf maps it to cell 0), so a corrupted input
-    # is named here, and a fault of the kernel at its own launch.
-    if not torch.isfinite(xt).all():
-        raise AssertionError("occupancy_at_hull: non-finite points from torch.rand")
+    # non-finite points: a NaN in one or two coordinates (each pair that
+    # reads it gives 0, as the reference's all-zero one-hot row does), +-inf
+    # (the end cells); the kernel and the plain version agree exactly
+    xt_nf = random_points(4096, gen, dev)[0].clone()
+    nan, inf = float("nan"), float("inf")
+    for i, axes in enumerate(((0,), (1,), (2,), (0, 1), (0, 2), (1, 2), (0, 1, 2))):
+        xt_nf[list(axes), i::8] = nan
+    xt_nf[0, 7::16], xt_nf[1, 15::16], xt_nf[2, 7::24] = inf, -inf, -inf
     err = 0.0
     for proj in (proj_t, proj_r):
-        k = occupancy_at_hull_cuda(proj, xt)
-        torch.cuda.synchronize()
-        p = occupancy_at_hull_cuda_ref(proj, xt)
-        torch.cuda.synchronize()
-        err = max(err, (k - p).abs().max().item())
+        for pts in (xt, xt_nf):
+            k = occupancy_at_hull_cuda(proj, pts)
+            torch.cuda.synchronize()
+            p = occupancy_at_hull_cuda_ref(proj, pts)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(k).all() and torch.isfinite(p).all()):
+                raise AssertionError("occupancy_at_hull: non-finite output")
+            err = max(err, (k - p).abs().max().item())
     if err != 0.0:
-        raise AssertionError(f"occupancy_at_hull: max abs err {err} != 0")
+        raise AssertionError(f"occupancy_at_hull: max abs err {err} != 0 "
+                             "(finite, NaN and inf points)")
     b, by = bound_ms(n_hull * 16 + proj_t.numel() * 4, n_hull * 12, "f32")
     rows.append({
         "name": "occupancy_at_hull", "route": "cuda",
         "source": "nerf_kinematics_tpu_torch/csrc/occupancy_hull.cu",
         "replaces": "nerf_kinematics_tpu/ops/occupancy_pallas.py:68",
         "n_points": n_hull, "max_abs_err": err, "max_rel_err": 0.0,
-        "tolerance": "exact",
-        "ms": time_ms(lambda: occupancy_at_hull_cuda(proj_t, xt), reps, 2, flush),
+        "nonfinite_points": int(xt_nf.shape[1]),
+        "tolerance": "exact (also on NaN and +-inf points)",
+        "ms": (ms := time_ms(lambda: occupancy_at_hull_cuda(proj_t, xt), reps, 2, flush)),
+        "ms_by_body": {"kernel": ms},
         "plain_ms": time_ms(lambda: occupancy_at_hull_cuda_ref(proj_t, xt), 3, 1, flush),
         "bound_ms": b, "bound_by": by, "library_ms": None,
     })
@@ -224,7 +244,8 @@ def phase_kernels(fx, dev, quick: bool, reps: int):
         "replaces": "nerf_kinematics_tpu/ops/cp_grid_pallas.py:211",
         "n_points": n_enc, "max_abs_err": err, "max_rel_err": None,
         "tolerance": f"abs {tol} (same roundings, same order of the two products)",
-        "ms": time_ms(lambda: cp_encode_cuda(lines, x_enc, cp), reps, 2, flush),
+        "ms": (ms := time_ms(lambda: cp_encode_cuda(lines, x_enc, cp), reps, 2, flush)),
+        "ms_by_body": {"kernel": ms},
         "plain_ms": time_ms(lambda: cp_encode_cuda_ref(lines, x_enc, cp), 3, 1, flush),
         "bound_ms": b, "bound_by": by, "library_ms": None,
     })
@@ -281,7 +302,11 @@ def phase_kernels(fx, dev, quick: bool, reps: int):
                 f"{FUSED_MAX_TOL} (the sums run in another order than the plain "
                 "version's matmul, which can flip the bf16 rounding of a hidden "
                 "activation); f32 mode max abs 2e-3"),
-            "ms": time_ms(lambda: kern(params, cp), reps, 2, flush),
+            "ms": (ms := time_ms(lambda: kern(params, cp), reps, 2, flush)),
+            # f32 mode runs other kernels (the FMA bodies)
+            "ms_by_body": {"bf16": ms, "f32": time_ms(
+                lambda: kern(f32_eng._fused_params(detach=True), f32_eng.ngp_config.cp),
+                reps, 2, flush)},
             "plain_ms": time_ms(lambda: plain(params, cp), 2, 1, flush),
             "bound_ms": b, "bound_by": by, "library_ms": None,
         })
@@ -385,6 +410,7 @@ def classic_forward_row(dev, quick: bool, reps: int, flush):
     """Row 9 at the classic main path's shape (the fine pass of a train step
     and of a 1024-ray render chunk: 1024 x 128 points), f32 and bf16, plus a
     ragged size."""
+    from nerf_kinematics_tpu_torch.ops import classic_fused_cuda as cfc
     from nerf_kinematics_tpu_torch.ops.classic_fused_cuda import (
         classic_fused_apply_cf, classic_fused_apply_cf_ref)
 
@@ -407,6 +433,19 @@ def classic_forward_row(dev, quick: bool, reps: int, flush):
             mx, mean = classic_rel_errors(k, p)
             worst = {"max": max(worst["max"], mx), "mean": max(worst["mean"], mean),
                      "max_abs": max(worst.get("max_abs", 0.0), (k - p).abs().max().item())}
+        if mode == "f32":
+            # a forward whose gradient is taken runs the FMA body (the one
+            # row 10 runs again for its masks): held to the same tolerance
+            grad_prm = {k: [t.detach().requires_grad_(True) for t in v]
+                        for k, v in params.items()}
+            with torch.enable_grad():
+                k = classic_fused_apply_cf(grad_prm, xt, vd, mcfg).detach()
+            p = classic_fused_apply_cf_ref(params, xt, vd, mcfg)
+            torch.cuda.synchronize()
+            mx, mean = classic_rel_errors(k, p)
+            errs["f32_differentiable"] = {"max": mx, "mean": mean}
+            worst = {**worst, "max": max(worst["max"], mx), "mean": max(worst["mean"], mean)}
+            del grad_prm
         tol = CLASSIC_FWD_TOL[mode]
         if not (worst["max"] <= tol["max"] and worst["mean"] <= tol["mean"]):
             raise AssertionError(
@@ -415,17 +454,25 @@ def classic_forward_row(dev, quick: bool, reps: int, flush):
     eng = engines["f32"]
     mcfg = eng.cfg.model_coarse
     params = eng._fused_params(eng.model_coarse)
-    b, by = bound_ms(n * 40 + eng.layout.total * 2, n * classic_flops(mcfg), "f32")
+    # f32 mode runs in 3xTF32 on the tensor cores: its bound is taken at
+    # that rate; the bound at the FMA pipe's rate stays beside it
+    io, flops = n * 40 + eng.layout.total * 2, n * classic_flops(mcfg)
+    b, by = bound_ms(io, flops, "f32x3")
+    b_fma, _ = bound_ms(io, flops, "f32")
     return {
         "name": "classic_fused_apply_cf", "route": "cuda",
         "source": "nerf_kinematics_tpu_torch/csrc/classic_fused.cu",
         "replaces": "nerf_kinematics_tpu/ops/classic_fused_pallas.py:312",
         "n_points": n, "max_abs_err": errs["f32"]["max_abs"], "errors": errs,
         "tolerance": f"per output row, over the row's largest entry: {CLASSIC_FWD_TOL}",
-        "ms": time_ms(lambda: classic_fused_apply_cf(params, xt, vd, mcfg), reps, 2, flush),
+        "ms": (ms := time_ms(lambda: classic_fused_apply_cf(params, xt, vd, mcfg),
+                             reps, 2, flush)),
+        # the FMA body: the forward of a call whose gradient is taken
+        "ms_by_body": {"3xtf32": ms, "fma": time_ms(
+            lambda: cfc._forward(params, xt, vd, mcfg, tc=False), reps, 2, flush)},
         "plain_ms": time_ms(lambda: classic_fused_apply_cf_ref(params, xt, vd, mcfg),
                             3, 1, flush),
-        "bound_ms": b, "bound_by": by, "library_ms": None,
+        "bound_ms": b, "bound_by": by, "bound_ms_f32_fma": b_fma, "library_ms": None,
     }
 
 
@@ -488,8 +535,22 @@ def classic_grad_row(dev, quick: bool, reps: int, flush):
     mcfg = eng.cfg.model_coarse
     prm = {k: [t.detach() for t in v]
            for k, v in eng._fused_params(eng.model_coarse).items()}
-    b, by = bound_ms(n * (24 + 16) + eng.layout.total * 2,
-                     3 * n * classic_flops(mcfg), "f32")
+    run = lambda: cfc.classic_fused_apply_cf_bwd(prm, xt, vd, g4, mcfg)
+    # deterministic: two launches on the same inputs, the same bits
+    d1, d2 = run(), run()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b_) for (_, a), (_, b_) in zip(leaves(d1), leaves(d2)))
+    if not same:
+        raise AssertionError("classic_fused_apply_cf_bwd: two launches differ")
+    del d1, d2
+    # f32 mode runs in 3xTF32 on the tensor cores: its bound is taken at
+    # that rate (the work's own bytes: points, directions, cotangent,
+    # weights); the bound at the FMA pipe's rate stays beside it
+    io, flops = n * (24 + 16) + eng.layout.total * 2, 3 * n * classic_flops(mcfg)
+    b, by = bound_ms(io, flops, "f32x3")
+    b_fma, _ = bound_ms(io, flops, "f32")
+    parts = profile_parts(run, ROW10_PARTS)
+    yard = classic_wgrad_yardstick(prm, n, reps, flush)
     return {
         "name": "classic_fused_apply_cf_bwd", "route": "cuda",
         "source": "nerf_kinematics_tpu_torch/csrc/classic_fused.cu",
@@ -497,12 +558,93 @@ def classic_grad_row(dev, quick: bool, reps: int, flush):
         "n_points": n, "max_abs_err": abs_err, "max_rel_err": max(reports.values()),
         "errors": reports,
         "tolerance": f"per leaf, max abs over the leaf's largest entry: {GRAD_TOL}",
-        "ms": time_ms(lambda: cfc.classic_fused_apply_cf_bwd(prm, xt, vd, g4, mcfg),
-                      reps, 2, flush),
+        "ms": (ms := time_ms(run, reps, 2, flush)),
+        "ms_by_body": {"3xtf32": ms},
         "plain_ms": time_ms(lambda: cfc.classic_fused_apply_cf_bwd_ref(prm, xt, vd, g4, mcfg),
                             2, 1, flush),
-        "bound_ms": b, "bound_by": by, "library_ms": None,
+        "bound_ms": b, "bound_by": by, "bound_ms_f32_fma": b_fma, "library_ms": None,
+        "deterministic": same, "parts_ms": parts, "yardsticks": yard,
     }
+
+
+# Row 10's parts by kernel name (either mode's kernels), for the profiles.
+ROW10_PARTS = {
+    "row 10: weight packing": ("nkc_pack",),
+    "row 10: forward with saves, cotangents": ("nkc_tc_bwd_tile", "nkc_bwd_tile"),
+    "row 10: weight gradients": ("nkc_tc_wgrad", "nkt_wgrad"),
+    "row 10: sum of the partials": ("nkt_reduce_partials",),
+}
+# The classic step's profile: row 9's forward, then row 10's parts (the
+# packing serves both rows).
+CLASSIC_PARTS = {
+    "row 9: forward": ("nkc_tc_forward", "nkc_forward"),
+    "rows 9, 10: weight packing": ("nkc_pack",),
+    **{k: v for k, v in ROW10_PARTS.items() if "packing" not in k},
+}
+
+
+def device_ms_by_group(prof, groups, other="other kernels"):
+    """Device milliseconds of a torch.profiler run by kernel group (name ->
+    kernel name prefixes), the rest under ``other``, and the kernels sorted
+    by their time."""
+    by_group = dict.fromkeys(groups, 0.0)
+    by_group[other] = 0.0
+    kernels = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if not dev_us or "cuda" not in str(getattr(e, "device_type", "cuda")).lower():
+            continue
+        kernels.append((e.key, dev_us / 1e3, e.count))
+        for g, keys in groups.items():
+            if any(k in e.key for k in keys):
+                by_group[g] += dev_us / 1e3
+                break
+        else:
+            by_group[other] += dev_us / 1e3
+    kernels.sort(key=lambda t: -t[1])
+    return by_group, kernels
+
+
+def profile_parts(fn, groups, reps: int = 5):
+    """Device ms per call of ``fn`` by kernel group (torch.profiler over
+    ``reps`` calls after one untraced call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_group, _ = device_ms_by_group(prof, groups)
+    out = {k: v / reps for k, v in by_group.items()}
+    out["total"] = sum(by_group.values()) / reps
+    return out
+
+
+def classic_wgrad_yardstick(prm, n: int, reps: int, flush):
+    """cuBLAS in full f32 (``allow_tf32`` is False, set in ``main``) on row
+    10's weight-gradient products: (K x n) . (n x J) for the eight layers,
+    n points, one call each. A yardstick for the hand-written kernel; the
+    port never calls it."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the f32 yardstick needs full-f32 matmuls")
+    dev = prm["W"][0].device
+    gen = torch.Generator(device=dev).manual_seed(78)
+    shapes = [tuple(w.shape) for w in prm["W"]]
+    mats = [(torch.randn((k, n), generator=gen, device=dev),
+             torch.randn((j, n), generator=gen, device=dev)) for k, j in shapes]
+
+    def all_layers():
+        for a, g in mats:
+            torch.matmul(a, g.T)
+
+    out = {"n_points": n, "layers": shapes, "allow_tf32": False,
+           "matmul_f32_all_layers_ms": time_ms(all_layers, reps, 2, flush)}
+    del mats
+    return out
 
 
 GRAD_TOL = {"bf16": 5e-3, "f32": 2e-4}  # per leaf, relative to its largest entry
@@ -605,14 +747,17 @@ def phase_grad_kernels(fx, dev, quick: bool, reps: int):
         "n_points": n, "max_abs_err": abs_err,
         "max_rel_err": worst_of(reports.values()), "errors": reports,
         "tolerance": f"per leaf, max abs over the leaf's largest entry: {GRAD_TOL} "
-                     "(atomicAdd sums in another order than index_add_)",
-        "ms": time_ms(lambda: cp_encode_cuda_bwd(lines, x_enc, g_enc, cp), reps, 2, flush),
+                     "(chunk sums, in another order than index_add_)",
+        "ms": (ms := time_ms(lambda: cp_encode_cuda_bwd(lines, x_enc, g_enc, cp),
+                             reps, 2, flush)),
+        "ms_by_body": {"kernel": ms},
         "plain_ms": time_ms(lambda: cp_encode_cuda_bwd_ref(lines, x_enc, g_enc, cp), 2, 1, flush),
         "bound_ms": b, "bound_by": by, "library_ms": None,
     })
 
     # ---- rows 6 and 7: fused VJP and fused train objective -------------
     params = engines["bf16"]._fused_params(detach=True)
+    p32, c32 = engines["f32"]._fused_params(detach=True), engines["f32"].ngp_config.cp
     Ws = params["dW"] + params["cW"]
     flops = n * (3 * mlp_flops(Ws) + LC * 12 + LC * 30)
     pbytes = param_bytes(params, True)
@@ -637,7 +782,10 @@ def phase_grad_kernels(fx, dev, quick: bool, reps: int):
         "max_rel_err": worst_of(reports.values()), "errors": reports,
         "tolerance": f"per leaf, max abs over the leaf's largest entry: {GRAD_TOL} "
                      "(other summation order; a flipped bf16 rounding of a cotangent)",
-        "ms": time_ms(lambda: ngp_fused_apply_cf_bwd(params, xt, vd, g4, cp), reps, 2, flush),
+        "ms": (ms := time_ms(lambda: ngp_fused_apply_cf_bwd(params, xt, vd, g4, cp),
+                             reps, 2, flush)),
+        "ms_by_body": {"bf16": ms, "f32": time_ms(
+            lambda: ngp_fused_apply_cf_bwd(p32, xt, vd, g4, c32), reps, 2, flush)},
         "plain_ms": time_ms(lambda: ngp_fused_apply_cf_bwd_ref(params, xt, vd, g4, cp), 2, 1, flush),
         "bound_ms": b, "bound_by": by, "library_ms": None,
     })
@@ -671,8 +819,12 @@ def phase_grad_kernels(fx, dev, quick: bool, reps: int):
         "err_maps_max_abs_err": out_err,
         "tolerance": f"err, maps: abs {TRAIN_OUT_TOL}; gradients per leaf, max abs "
                      f"over the leaf's largest entry: {GRAD_TOL}",
-        "ms": time_ms(lambda: ngp_fused_train_cf(params, xt, vd, dists, tgt, cp, S, True, inv),
-                      reps, 2, flush),
+        "ms": (ms := time_ms(
+            lambda: ngp_fused_train_cf(params, xt, vd, dists, tgt, cp, S, True, inv),
+            reps, 2, flush)),
+        "ms_by_body": {"bf16": ms, "f32": time_ms(
+            lambda: ngp_fused_train_cf(p32, xt, vd, dists, tgt, c32, S, True, inv),
+            reps, 2, flush)},
         "plain_ms": time_ms(lambda: ngp_fused_train_cf_ref(params, xt, vd, dists, tgt, cp, S, True, inv),
                             2, 1, flush),
         "bound_ms": b, "bound_by": by, "library_ms": None,
@@ -715,10 +867,33 @@ def phase_grad_kernels(fx, dev, quick: bool, reps: int):
                        {"lines": p5, "dW": [], "db": [], "cW": [], "cb": []})
     check("cp_encode_bwd, ragged", "bf16", rep5)
     ragged["row_5_max_rel"] = worst_of([rep5])
+    # ---- determinism: two launches on the same inputs give the same bits
+    # (rows 5-7 here, row 8 in full_step_row, row 10 in classic_grad_row)
+    det = {}
+    for mode, eng in engines.items():
+        prm, c = eng._fused_params(detach=True), eng.ngp_config.cp
+        lines = prm["lines"]
+        calls = {
+            "cp_encode_bwd": lambda: {"lines": cp_encode_cuda_bwd(lines, x_enc, g_enc, c),
+                                      "dW": [], "db": [], "cW": [], "cb": []},
+            "ngp_fused_apply_cf_bwd": lambda: ngp_fused_apply_cf_bwd(prm, xt, vd, g4, c),
+            "ngp_fused_train_cf": lambda: ngp_fused_train_cf(
+                prm, xt, vd, dists, tgt, c, S, True, inv)[2],
+        }
+        for name, fn in calls.items():
+            a, b_ = fn(), fn()
+            torch.cuda.synchronize()
+            det[f"{name}_{mode}"] = all(
+                torch.equal(u, v) for (_, u), (_, v) in zip(_leaf_list(a), _leaf_list(b_)))
+            del a, b_
     rows.append(full_step_row(fx, engines, dev, quick, reps, flush))
     rows.append(classic_grad_row(dev, quick, reps, flush))
+    det["ngp_fused_train_full_cf"] = rows[-2]["deterministic"]
+    det["classic_fused_apply_cf_bwd"] = rows[-1]["deterministic"]
     emit({"phase": "grad_kernels", "quick": quick, "kernels": rows,
-          "ragged_999_points": ragged})
+          "ragged_999_points": ragged, "deterministic": det})
+    if not all(det.values()):
+        raise AssertionError(f"grad_kernels: two launches differ: {det}")
     return rows
 
 
@@ -775,51 +950,6 @@ def wgrad_yardsticks(params, n: int, reps: int, flush):
     return out
 
 
-def scatter_atomics(run_plain, cfg):
-    """atomicAdds per point of the encoder scatter, counted from the tap
-    rows of the fine points that ``run_plain`` (row 8's plain version) hands
-    to its fine stage: before (one per tap and channel, as the f32 kernel
-    issues them) and after (one per run of points with the same pair of
-    rows within a warp's 16 consecutive points, as the tensor-core kernel
-    issues them). Taps of zero weight issue none; zero cotangents are not
-    counted."""
-    from nerf_kinematics_tpu_torch.ops import ngp_fused_cuda
-    from nerf_kinematics_tpu_torch.ops.cp_grid import level_taps
-
-    seen = {}
-    orig = ngp_fused_cuda.ngp_fused_train_cf_ref
-
-    def spy(params, xt, *args, **kw):
-        seen["xt"] = xt
-        return orig(params, xt, *args, **kw)
-
-    ngp_fused_cuda.ngp_fused_train_cf_ref = spy
-    try:
-        run_plain()
-    finally:
-        ngp_fused_cuda.ngp_fused_train_cf_ref = orig
-    x = torch.clamp(seen["xt"], 0.0, 1.0)
-    n = x.shape[1]
-    idx = torch.arange(n, device=x.device)
-    before = after = 0
-    for l in range(cfg.n_levels):
-        for a in range(3):
-            r0, r1, _, w1 = level_taps(x[a], cfg, l, a)
-            two = w1 != 0.0
-            before += n + int(two.sum())
-            new = (idx % 16 == 0) | (r0 != torch.roll(r0, 1)) | (r1 != torch.roll(r1, 1))
-            run = torch.cumsum(new.to(torch.int64), 0) - 1
-            n_runs = int(new.sum())
-            any_two = torch.zeros(n_runs, device=x.device).scatter_reduce(
-                0, run, two.to(torch.float32), "amax")
-            after += n_runs + int(any_two.sum())
-    C = cfg.n_components
-    # per channel; the tensor-core kernel adds a lane's two adjacent
-    # channels in one 8-byte atomicAdd, so it issues half as many operations
-    return {"n_points": n, "before": before * C / n, "after": after * C / n,
-            "after_float2_ops": after * C / 2 / n}
-
-
 def full_step_row(fx, engines, dev, quick: bool, reps: int, flush):
     """Row 8 at the flagship step's shape: 8192 rays, 48 + 48 samples, 64
     proposal bins on the fixture's 96^3 grid; bf16 and f32 mode, both
@@ -874,9 +1004,16 @@ def full_step_row(fx, engines, dev, quick: bool, reps: int, flush):
                                  for a, b in ((ek, ep), (mk, mp), (eck, ecp))))
         reports[f"bf16_37_rays_{label.replace(' ', '_')}"] = grad_errors(k, p)
     prm, c = engines["bf16"]._fused_params(detach=True), engines["bf16"].ngp_config.cp
+    same = True
+    for mode, eng in engines.items():
+        p_m, c_m = eng._fused_params(detach=True), eng.ngp_config.cp
+        k1 = call(ngp_fused_train_full_cf, p_m, c_m, True)
+        k2 = call(ngp_fused_train_full_cf, p_m, c_m, True)
+        torch.cuda.synchronize()
+        same = same and all(torch.equal(a, b_) for a, b_ in zip(k1[:3], k2[:3])) and all(
+            torch.equal(a, b_) for (_, a), (_, b_) in zip(_leaf_list(k1[3]), _leaf_list(k2[3])))
+        del k1, k2
     yard = wgrad_yardsticks(prm, R * S, reps, flush)
-    yard["scatter_atomics_per_point"] = scatter_atomics(
-        lambda: call(ngp_fused_train_full_cf_ref, prm, c, True), c)
     LC = c.out_dim
     n_c, n_f = R * Sc, R * S
     flops = n_c * (mlp_flops(prm["dW"]) + LC * 12) + \
@@ -894,11 +1031,15 @@ def full_step_row(fx, engines, dev, quick: bool, reps: int, flush):
         "err_maps_errc_max_abs_err": out_err,
         "tolerance": f"err, maps, err_c: abs {FULL_OUT_TOL}; gradients per leaf, "
                      f"max abs over the leaf's largest entry: {FULL_GRAD_TOL}",
-        "ms": time_ms(lambda: call(ngp_fused_train_full_cf, prm, c, True), reps, 2, flush),
+        "ms": (ms := time_ms(lambda: call(ngp_fused_train_full_cf, prm, c, True),
+                             reps, 2, flush)),
+        "ms_by_body": {"bf16": ms, "f32": time_ms(
+            lambda: call(ngp_fused_train_full_cf, engines["f32"]._fused_params(detach=True),
+                         engines["f32"].ngp_config.cp, True), reps, 2, flush)},
         "plain_ms": time_ms(lambda: call(ngp_fused_train_full_cf_ref, prm, c, True),
                             2, 1, flush),
         "bound_ms": b, "bound_by": by, "library_ms": None,
-        "yardsticks": yard,
+        "yardsticks": yard, "deterministic": same,
     }
     bad = {k: {n: v for n, v in rep.items()
                if not v["max_rel"] <= FULL_GRAD_TOL[k.split("_")[0]]}
@@ -910,6 +1051,41 @@ def full_step_row(fx, engines, dev, quick: bool, reps: int, flush):
             f"ngp_fused_train_full_cf: outputs {out_err} (tolerance {FULL_OUT_TOL}), "
             f"gradients beyond {FULL_GRAD_TOL}: {bad}")
     return row
+
+
+def main_path_time(r, points) -> None:
+    """A kernel's time on the main paths: for each body that ran there, its
+    points times that body's time a point, measured in this run at the row's
+    shape (``ms_by_body``), and the part of that above the bound. A body
+    that ran on the main paths without a timing here is an error."""
+    n = r["n_points"]
+    r["bound_ns_per_point"] = r["bound_ms"] * 1e6 / n
+    by_body = {}
+    for (name, body), pts in sorted(points.items()):
+        if name != r["name"] or body == "in_fused_bwd" or pts == 0:
+            continue
+        if body not in r["ms_by_body"]:
+            raise AssertionError(f"{name}: body {body} ran on the main path "
+                                 "but was not timed")
+        ns = r["ms_by_body"][body] * 1e6 / n
+        by_body[body] = {"points": pts, "ns_per_point": ns,
+                         "ms": pts * ns / 1e6,
+                         "gap_ms": pts * (ns - r["bound_ns_per_point"]) / 1e6}
+    r["main_path_by_body"] = by_body
+    r["main_path_points"] = sum(v["points"] for v in by_body.values())
+    r["main_path_ms"] = sum(v["ms"] for v in by_body.values())
+    r["main_path_gap_ms"] = sum(v["gap_ms"] for v in by_body.values())
+
+
+def fused_dlines_time(row5, points) -> dict:
+    """Row 5's kernel inside the fused gradient kernels (rows 6-8) on the
+    main paths: the points it walked there times its time a point measured
+    in this run at the same shape. Part of those rows' times, not added to
+    row 5's own."""
+    pts = points["cp_encode_bwd", "in_fused_bwd"]
+    ns = row5["ms_by_body"]["kernel"] * 1e6 / row5["n_points"]
+    return {"points": pts, "ns_per_point": ns, "ms": pts * ns / 1e6,
+            "gap_ms": pts * (ns - row5["bound_ns_per_point"]) / 1e6}
 
 
 def _replace_cp(ngp, **kw):
@@ -979,6 +1155,7 @@ def phase_serve(fx, dev, quick: bool):
         lambda: engine.update_occupancy(engine.init_aux(), full=True, generator=gen))
     dgrid, ms_dgrid = timed(lambda: engine.density_grid(resolution=128))
     counts = dict(cuda_lib.LAUNCHES)
+    points = collections.Counter(cuda_lib.POINTS)
     # ---------------------------------------------------------------------
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
 
@@ -1022,7 +1199,7 @@ def phase_serve(fx, dev, quick: bool):
         "foreground_share": fg, "mean_acc": mean_acc,
         "swept_cells_above_1": above, "peak_memory_gib": peak_gb,
     })
-    return counts, engine, aux
+    return (counts, points), engine, aux
 
 
 def phase_golden(fx, engine, aux):
@@ -1130,6 +1307,7 @@ def phase_train(fx, dev, quick: bool, dataset, profile: bool):
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         counts = dict(cuda_lib.LAUNCHES)
+        points = collections.Counter(cuda_lib.POINTS)
         # -----------------------------------------------------------------
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         val = trainer.validate(res.state)
@@ -1195,7 +1373,7 @@ def phase_train(fx, dev, quick: bool, dataset, profile: bool):
             f"{VAL_PSNR_FLOOR_DB} dB")
     if not same:
         raise AssertionError("train: the restored state differs from the saved one")
-    return counts
+    return counts, points
 
 
 def time_step_parts(trainer, state):
@@ -1223,8 +1401,10 @@ def time_step_parts(trainer, state):
 def profile_steps(trainer, state, n_steps: int = 10, groups=None):
     """torch.profiler over ``n_steps`` train steps: device time by kernel
     group (``groups``: name -> kernel name prefixes; the fast engine's by
-    default), the top operations and the device's idle share of the
-    window."""
+    default), the top operations and the device's idle share: busy ms a
+    step from the trace over the host-clock ms a step of the same steps run
+    without the profiler (the profiler slows the host; the share against
+    the profiled wall clock stays beside it)."""
     from torch.profiler import ProfilerActivity, profile
 
     step = trainer._train_step
@@ -1235,6 +1415,14 @@ def profile_steps(trainer, state, n_steps: int = 10, groups=None):
         for _ in range(3):
             state, _ = step(state, *args)
         torch.cuda.synchronize()
+    start = state.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        state, _ = step(state, *args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    state = start.clone()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
@@ -1246,29 +1434,16 @@ def profile_steps(trainer, state, n_steps: int = 10, groups=None):
         "coarse density (row 2)": ("nkt_fused_sigma", "nkt_mma_sigma"),
         "fused train objective (row 7)": (
             "nkt_fused_apply_save", "nkt_mma_apply_save", "nkt_train_rays",
-            "nkt_fused_point_bwd", "nkt_mma_point_bwd", "nkt_wgrad",
-            "nkt_reduce_partials")}
-    by_group = {k: 0.0 for k in groups}
-    by_group["PyTorch ops (sampling, compositing, gathers, Adam)"] = 0.0
-    kernels = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        if not dev_us or "cuda" not in str(getattr(e, "device_type", "cuda")).lower():
-            continue
-        kernels.append((e.key, dev_us / 1e3, e.count))
-        for g, keys in groups.items():
-            if any(k in e.key for k in keys):
-                by_group[g] += dev_us / 1e3
-                break
-        else:
-            by_group["PyTorch ops (sampling, compositing, gathers, Adam)"] += dev_us / 1e3
+            "nkt_fused_point_bwd", "nkt_mma_point_bwd", "nkt_cp_encode_bwd",
+            "nkt_wgrad", "nkt_reduce_partials")}
+    by_group, kernels = device_ms_by_group(
+        prof, groups, other="PyTorch ops (sampling, compositing, gathers, Adam)")
     busy_ms = sum(by_group.values())
-    kernels.sort(key=lambda t: -t[1])
     return {
-        "steps": n_steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-        "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms) if busy_ms else None,
+        "steps": n_steps, "wall_ms": wall_ms, "wall_ms_unprofiled": plain_ms,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": max(0.0, 1.0 - busy_ms / plain_ms) if busy_ms else None,
+        "device_idle_share_profiled": max(0.0, 1.0 - busy_ms / wall_ms) if busy_ms else None,
         "ms_per_step_by_group": {k: v / n_steps for k, v in by_group.items()},
         "top": [{"name": k[:80], "ms_per_step": ms / n_steps, "calls": c}
                 for k, ms, c in kernels[:12]],
@@ -1361,6 +1536,7 @@ def phase_train_autodiff(fx, dev, quick: bool, dataset):
             _, ms = timed(lambda: [step(state, images, poses, buf) for _ in range(16)])
             times[name] = ms / 16
         counts = dict(cuda_lib.LAUNCHES)
+        points = collections.Counter(cuda_lib.POINTS)
     report["ms_per_step"] = times
     report["launches"] = counts
     report["tolerance"] = {
@@ -1370,7 +1546,7 @@ def phase_train_autodiff(fx, dev, quick: bool, dataset):
     for k in ("ngp_fused_apply_cf_bwd", "cp_encode_bwd", "ngp_fused_train_cf"):
         if counts[k] <= 0:
             raise AssertionError(f"train_autodiff: {k} was not launched")
-    return counts
+    return counts, points
 
 
 # machina400 as configs/machina_ngp.yml's comment generates it: 400x400,
@@ -1420,7 +1596,10 @@ ROW8_PARTS = {
     "row 8: sigma pass (row 2's body)": ("nkt_mma_sigma", "nkt_fused_sigma"),
     "row 8: forward with saves": ("nkt_mma_apply_save", "nkt_fused_apply_save"),
     "row 8: per-point backward": ("nkt_mma_point_bwd", "nkt_fused_point_bwd"),
-    "row 8: weight gradients": ("nkt_wgrad", "nkt_reduce_partials"),
+    "row 8: line-table gradient (row 5's kernel)": ("nkt_cp_encode_bwd",),
+    # the partial sums: the weight gradients' and the line tables' chunks
+    "row 8: weight gradients, sums of the partials": ("nkt_wgrad",
+                                                      "nkt_reduce_partials"),
     "row 8: proposal, fine inputs, ray kernel": ("nkf_", "nkt_train_rays"),
 }
 
@@ -1472,6 +1651,7 @@ def phase_scene(fx, dev, quick: bool, profile: bool):
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         counts = dict(cuda_lib.LAUNCHES)
+        points = collections.Counter(cuda_lib.POINTS)
         # -------------------------------------------------------------------
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         val = trainer.validate(res.state)
@@ -1479,6 +1659,18 @@ def phase_scene(fx, dev, quick: bool, profile: bool):
         with open(os.path.join(trainer.rundir, "metrics.jsonl")) as f:
             val_log = {r["step"]: r["value"] for r in map(json.loads, f)
                        if r["tag"] == "val/psnr"}
+        # the whole step twice from one cloned state: the same parameters
+        # and Adam moments, bit for bit (the line tables' gradient too)
+        step = trainer._train_step
+        args = (trainer.images, trainer.poses, trainer.ray_buf)
+        twins = [step(res.state.clone(), *args)[0] for _ in range(2)]
+        torch.cuda.synchronize()
+        step_same = all(torch.equal(getattr(twins[0], k), getattr(twins[1], k))
+                        for k in ("params", "step")) and all(
+            torch.equal(getattr(twins[0].opt_state, k), getattr(twins[1].opt_state, k))
+            for k in ("mu", "nu"))
+        changed = not torch.equal(twins[0].params, res.state.params)
+        del twins
         prof = profile_steps(trainer, res.state, groups=ROW8_PARTS) \
             if profile else None
         if prof is not None:
@@ -1550,6 +1742,7 @@ def phase_scene(fx, dev, quick: bool, profile: bool):
         "occupancy_refreshes": [[i, k, s * 1e3] for i, k, s in res.occupancy_refreshes],
         "launches": counts, "peak_memory_gib": peak_gb,
         "routes": route_rep, "routes_tolerance": {"grad": SCENE_ROUTE_TOL, "loss": 1e-3},
+        "step_twice_bit_identical": step_same,
     })
     if prof is not None:
         report["profile"] = prof
@@ -1574,11 +1767,14 @@ def phase_scene(fx, dev, quick: bool, profile: bool):
         if not (r["grad_max_rel"] <= SCENE_ROUTE_TOL[mode] and r["loss_rel"] <= 1e-3
                 and r["loss_coarse_rel"] <= 1e-3):
             raise AssertionError(f"scene ({mode}): routes differ: {r}")
+    if not (step_same and changed):
+        raise AssertionError(f"scene: two steps from one state differ ({step_same}) "
+                             f"or moved nothing ({not changed})")
     if not float(losses[-64:].mean()) < 0.5 * float(losses[:16].mean()):
         raise AssertionError("scene: the loss did not fall")
     if floor is not None and not val["val_psnr"] >= floor:
         raise AssertionError(f"scene: val PSNR {val['val_psnr']:.2f} dB under {floor}")
-    return counts
+    return counts, points
 
 
 CLASSIC_STEPS = 1000
@@ -1642,6 +1838,7 @@ def phase_classic(fx, dev, quick: bool, engine, aux, profile: bool):
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t1
         counts_fit = dict(cuda_lib.LAUNCHES)
+        points_fit = collections.Counter(cuda_lib.POINTS)
         # ---- the main path: serving the held-out views --------------------
         eng = trainer.engine
         ds = dataset
@@ -1652,6 +1849,7 @@ def phase_classic(fx, dev, quick: bool, engine, aux, profile: bool):
             cuda_lib.reset_launch_counts()
             frames, ms_frames = timed(lambda: [render(p) for p in val_poses])
             counts_serve = dict(cuda_lib.LAUNCHES)
+            points_serve = collections.Counter(cuda_lib.POINTS)
             # the same views through the plain version of row 9
             kernel_fn = cfc.classic_fused_apply_cf
             cfc.classic_fused_apply_cf = lambda p, x, v, c: \
@@ -1685,11 +1883,11 @@ def phase_classic(fx, dev, quick: bool, engine, aux, profile: bool):
                    **{f"fine.{k}": v for k, v in legacy["state_fine"].items()}}
             legacy_same = legacy["step"] == steps and set(got) == set(want) and all(
                 torch.equal(got[k], want[k].cpu()) for k in want)
-        prof = profile_steps(trainer, res.state, groups={
-            "classic fused forward (row 9)": ("nkc_forward", "nkc_pack"),
-            "classic fused gradient (row 10)": ("nkc_bwd_tile", "nkt_wgrad",
-                                                "nkt_reduce_partials")}) \
+        prof = profile_steps(trainer, res.state, groups=CLASSIC_PARTS) \
             if profile else None
+        if prof is not None:
+            prof["row_10_ms_per_step"] = sum(
+                v for k, v in prof["ms_per_step_by_group"].items() if "row 10" in k)
         trainer.close()
 
     # ---- the two gradient routes from one state and one set of draws ------
@@ -1803,7 +2001,8 @@ def phase_classic(fx, dev, quick: bool, engine, aux, profile: bool):
         raise AssertionError(f"classic: routes differ: grads {worst}, loss {loss_rel}")
     if not (same and legacy_same):
         raise AssertionError("classic: a checkpoint round trip failed")
-    return {k: counts_fit[k] + counts_serve[k] for k in counts_fit}
+    return ({k: counts_fit[k] + counts_serve[k] for k in counts_fit},
+            points_fit + points_serve)
 
 
 def main(argv=None) -> int:
@@ -1832,6 +2031,10 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     torch.manual_seed(1234)
+    # The plain versions and the cuBLAS yardsticks are full f32: no TF32 in
+    # matmuls or convolutions.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
@@ -1852,10 +2055,13 @@ def main(argv=None) -> int:
     # Launches on the main path: every path is driven with the counts at 0
     # just before it and read just after; a kernel's figure is their sum.
     counts = dict.fromkeys(cuda_lib.LAUNCHES, 0)
+    points = collections.Counter()  # by (kernel, body)
 
     def add(phase_counts):
-        for k, v in phase_counts.items():
-            counts[k] += v
+        launched, taken = phase_counts
+        for k in counts:
+            counts[k] += launched[k]
+        points.update(taken)
 
     engine = aux = dataset = None
     if {"serve", "golden", "train", "train_autodiff", "classic"} & set(phases):
@@ -1880,12 +2086,18 @@ def main(argv=None) -> int:
         return 3
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "main_path_points", "bound_ns_per_point", "main_path_by_body",
+            "main_path_ms", "main_path_gap_ms")
     for r in rows:
         r["launches"] = counts[r["name"]]
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']}: not launched on the main path")
-    emit({"kernels": [{k: r[k] for k in keys} for r in rows]})
+        main_path_time(r, points)
+    row5 = next(r for r in rows if r["name"] == "cp_encode_bwd")
+    row5["in_fused_bwd"] = fused_dlines_time(row5, points)
+    keys += ("in_fused_bwd",)
+    emit({"kernels": [{k: r.get(k) for k in keys} for r in rows]})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {

@@ -86,7 +86,10 @@ struct BwdArgs {
   float* gs;           // (gs_rows, ld) masked f32 cotangent of every layer
   float* partial;      // (n_part, total) per-block sums of the MLP leaves
   float* flat;         // (total,) the MLP leaves' gradients
-  float* dlines;       // (L, 3, T, C), zeroed by the caller
+  float* dlines;       // (L, 3, T, C), written whole by nkt_dlines_launch
+  float* denc;         // (n, L*C) f32 cotangent of the encoding (scratch)
+  float* lpart;        // (l_chunks, L, 3, T, C) chunk sums of dlines (scratch)
+  int l_chunks;        // point chunks of the line-table gradient
   const float* dists;  // (1, n) compositing intervals, ray-major (train)
   const float* tgt;    // (3, R) target pixels (train)
   float* err;          // (1, R) squared error per ray (train)

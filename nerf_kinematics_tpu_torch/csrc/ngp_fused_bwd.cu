@@ -22,14 +22,15 @@
 //   3. per-point backward: the layers backwards. The masked cotangent g of
 //      each layer goes to `gs` in f32 (db sums that), is rounded to bf16
 //      once and meets the bf16 weights in d_inp = W g. sigma's cotangent
-//      enters feature row 0 where -15 < z0 < 15. Then the encoder's scatter
-//      into the line tables' gradient by atomicAdd.
+//      enters feature row 0 where -15 < z0 < 15. The encoding's f32
+//      cotangent d_enc = W0 g goes to `denc` (n, L*C).
+//   3b. nkt_dlines_launch (csrc/cp_encode.cu, row 5's kernel): d_enc into
+//      the line tables' gradient, chunk by chunk, the chunks added in order.
 //   4. weight gradients dW = inp g^T over the points, db = sum of the f32 g,
 //      as per-block partial sums.
 //   5. nkt_reduce_partials_kernel: adds the partial sums in block order.
 //
-// The MLP gradients are therefore deterministic; dlines is summed by
-// atomicAdd and differs in the last bits from run to run.
+// Every sum runs in a fixed order, so the gradients are deterministic.
 //
 // Two sets of kernels, picked by the mode (nothing falls back):
 //
@@ -38,11 +39,8 @@
 //       bf16: every saved value is bf16-rounded already, so this is exact.
 //    3. nkt_mma_point_bwd_kernel: a warp per 16 points, the C fragments of
 //       one layer's d_inp are the A fragments of the next product. The
-//       encoder's d_enc goes through a per-warp f32 tile; the lanes then walk
-//       the 16 points (consecutive samples of a ray) with their lanes on
-//       channel pairs and add each tap into a register while the point's
-//       (row0, row1) stays the same, issuing the atomicAdds when it changes
-//       (one 8-byte atomicAdd for the lane's two adjacent channels).
+//       encoder's d_enc goes through a per-warp f32 tile to `denc`, a
+//       point's 64 channels of a level in one 256-byte row.
 //    4. nkt_wgrad_mma_kernel: all layers in one launch, a grid over (point
 //       chunk, layer job); each block accumulates its job's whole K x J in
 //       registers over 64-point tiles of bf16(act) and bf16(gs) that
@@ -53,8 +51,8 @@
 //  * f32 mode, on the FMA pipe (simple and right first):
 //    1. nkt_fused_apply_save_kernel, 3. nkt_fused_point_bwd_kernel (one
 //    thread per point; for the encoder the point's 256 d_enc values pass
-//    through shared memory one level at a time, and the warp then handles
-//    its 32 points one after the other with its lanes on the channels),
+//    through shared memory one level at a time, and the warp then writes
+//    its 32 points' rows to `denc` with its lanes on the channels),
 //    4. nkt_wgrad_kernel once per layer (32 points per tile in shared
 //    memory, each thread owns up to 16 groups of four (in, out) entries in
 //    registers across its tiles).
@@ -251,24 +249,18 @@ __global__ void __launch_bounds__(NKT_THREADS, 1)
         g[j] = j < a.d_in[li] ? hs[j * NKT_HS] : 0.0f;
     }
 
-    // ---- encoder: d_enc = W0 g one level at a time, then the tables -----
-    const float px = a.xt[ii], py = a.xt[n + ii], pz = a.xt[2 * n + ii];
+    // ---- encoder: d_enc = W0 g one level at a time, to denc -------------
+    const long long LC = (long long)a.cp.n_levels * C;
     for (int l = 0; l < a.cp.n_levels; ++l) {
       nkt_dense_t_any(smem + lay.w_off[0] + (l * C) * NKT_W, g, C, a.d_out[0],
                       hs);
       __syncwarp();
       for (int pp = 0; pp < 32; ++pp) {
-        if (base + warp0 + pp >= n) break;  // the same for the whole warp
-        const float qx = __shfl_sync(0xffffffffu, px, pp);
-        const float qy = __shfl_sync(0xffffffffu, py, pp);
-        const float qz = __shfl_sync(0xffffffffu, pz, pp);
-        const NktTaps tx = nkt_taps(qx, a.cp, l, 0);
-        const NktTaps ty = nkt_taps(qy, a.cp, l, 1);
-        const NktTaps tz = nkt_taps(qz, a.cp, l, 2);
+        const long long ip = base + warp0 + pp;
+        if (ip >= n) break;  // the same for the whole warp
         const float* col = smem + lay.hs_off + warp0 + pp;
         for (int c = lane; c < C; c += 32)
-          nkt_enc_bwd_channel(a.lines, b.dlines, a.cp, l, c, tx, ty, tz,
-                              col[c * NKT_HS]);
+          b.denc[ip * LC + l * C + c] = col[c * NKT_HS];
       }
       __syncwarp();
     }
@@ -291,7 +283,7 @@ static MmaLayout make_mma_layout_bwd(const FusedArgs& a) {
   lay.tile_off = lay.b_off;
   lay.lde = NKT_LDF;
   lay.ldh = 0;
-  lay.tile_bytes = NKT_MT * NKT_LDF * (int)sizeof(float) + NKT_TAP_BYTES;
+  lay.tile_bytes = NKT_MT * NKT_LDF * (int)sizeof(float);
   const int warps = (NKT_SMEM_MAX - lay.tile_off) / lay.tile_bytes;
   lay.warps = warps > NKT_MMA_MAX_WARPS ? NKT_MMA_MAX_WARPS : (warps < 1 ? 1 : warps);
   lay.total = lay.tile_off + lay.warps * lay.tile_bytes;
@@ -327,46 +319,6 @@ __device__ __forceinline__ void nkt_mma_mask_store(float (*gc)[4], int J,
   }
 }
 
-// Pending sums of one line table (level, axis) for one lane's channel pair:
-// the taps' rows and, per tap, the two channels' sums.
-struct NktRun {
-  int r0, r1;
-  float a0, a1, b0, b1;
-};
-
-__device__ __forceinline__ void nkt_run_flush(const NktRun& s, float* base,
-                                              int C) {
-  if (s.r0 < 0) return;
-  // the lane's two channels are adjacent: one 8-byte atomic (sm_90) each tap
-  if (s.a0 != 0.0f || s.a1 != 0.0f)
-    atomicAdd(reinterpret_cast<float2*>(base + (long long)s.r0 * C),
-              make_float2(s.a0, s.a1));
-  if (s.b0 != 0.0f || s.b1 != 0.0f)
-    atomicAdd(reinterpret_cast<float2*>(base + (long long)s.r1 * C),
-              make_float2(s.b0, s.b1));
-}
-
-// dlines[row] += w * g for the point's two taps, in registers while the
-// point's rows are the pending ones; a new pair of rows flushes them.
-__device__ __forceinline__ void nkt_run_add(NktRun& s, const NktTapS& q,
-                                            float g0, float g1, float* base,
-                                            int C) {
-  if (q.r0 != s.r0 || q.r1 != s.r1) {
-    nkt_run_flush(s, base, C);
-    s.r0 = q.r0;
-    s.r1 = q.r1;
-    s.a0 = s.a1 = s.b0 = s.b1 = 0.0f;
-  }
-  if (g0 != 0.0f) {
-    s.a0 += q.w0 * g0;
-    s.b0 += q.w1 * g0;
-  }
-  if (g1 != 0.0f) {
-    s.a1 += q.w0 * g1;
-    s.b1 += q.w1 * g1;
-  }
-}
-
 __global__ void __launch_bounds__(NKT_MMA_MAX_WARPS * 32, 1)
     nkt_mma_point_bwd_kernel(BwdArgs b, MmaLayout lay, SaveRows rows) {
   extern __shared__ __align__(16) unsigned char smem_mma[];
@@ -379,10 +331,7 @@ __global__ void __launch_bounds__(NKT_MMA_MAX_WARPS * 32, 1)
   const uint32_t* sw = reinterpret_cast<const uint32_t*>(smem_mma);
   float* ft = reinterpret_cast<float*>(smem_mma + lay.tile_off +
                                        warp * lay.tile_bytes);
-  NktTapS* taps = reinterpret_cast<NktTapS*>(ft + NKT_MT * NKT_LDF);
-  const __nv_bfloat162* lines16 =
-      reinterpret_cast<const __nv_bfloat162*>(a.lines16);
-  const int C = a.cp.n_comp, C2 = C / 2, T = a.cp.table;
+  const int C = a.cp.n_comp;
   const long long n = a.n;
   const long long n_tiles = (n + NKT_MT - 1) / NKT_MT;
   const int Jlast = a.c_out[a.nc - 1];
@@ -443,28 +392,14 @@ __global__ void __launch_bounds__(NKT_MMA_MAX_WARPS * 32, 1)
                     a.pk_bld[li] / 2, a.d_in[li] / 8, gc, g, t);
     }
 
-    // ---- encoder: d_enc = W0 g a level (64 channels) at a time, then the
-    // tables, lanes on channel pairs, points in order ----------------------
+    // ---- encoder: d_enc = W0 g a level (64 channels) at a time, through
+    // the warp's f32 tile to denc, one point's channels a row ---------------
     const int KT0 = (a.d_out[0] + 15) / 16;
     const uint32_t* W0 = sw + (a.pk_boff[0] - a.pk_fwd) / 2;
     const int ld0 = a.pk_bld[0] / 2;
-    const long long pl = p0 + (lane & 15);
-    float px = 0.0f, py = 0.0f, pz = 0.0f;
-    if (pl < n) {
-      px = a.xt[pl];
-      py = a.xt[n + pl];
-      pz = a.xt[2 * n + pl];
-    }
     const int np = n - p0 < NKT_MT ? (int)(n - p0) : NKT_MT;
+    const long long LC = (long long)a.cp.n_levels * C;
     for (int l = 0; l < a.cp.n_levels; ++l) {
-      if (lane < NKT_MT) {
-        taps[lane * 3 + 0] = nkt_tap_s(nkt_taps(px, a.cp, l, 0));
-        taps[lane * 3 + 1] = nkt_tap_s(nkt_taps(py, a.cp, l, 1));
-        taps[lane * 3 + 2] = nkt_tap_s(nkt_taps(pz, a.cp, l, 2));
-      }
-      const __nv_bfloat162* tx = lines16 + (long long)(l * 3 + 0) * T * C2;
-      const __nv_bfloat162* ty = lines16 + (long long)(l * 3 + 1) * T * C2;
-      const __nv_bfloat162* tz = lines16 + (long long)(l * 3 + 2) * T * C2;
       for (int cb = 0; cb < C; cb += 64) {
         const int NTc = (C - cb < 64 ? C - cb : 64) / 8;
         nkt_mma_dense(af, KT0, W0 + (l * C + cb) * ld0, ld0, NTc, gc, g, t);
@@ -478,40 +413,10 @@ __global__ void __launch_bounds__(NKT_MMA_MAX_WARPS * 32, 1)
           }
         }
         __syncwarp();
-        const int c2 = cb / 2 + lane;
-        const bool mine = lane < NTc * 4;
-        const long long cofs = 2LL * c2;
-        float* bx = b.dlines + (long long)(l * 3 + 0) * T * C + cofs;
-        float* by = b.dlines + (long long)(l * 3 + 1) * T * C + cofs;
-        float* bz = b.dlines + (long long)(l * 3 + 2) * T * C + cofs;
-        NktRun sx = {-1, -1, 0.0f, 0.0f, 0.0f, 0.0f};
-        NktRun sy = sx, sz = sx;
-        for (int pp = 0; mine && pp < np; ++pp) {
-          const NktTapS* q = taps + pp * 3;
-          const float2 gl = *reinterpret_cast<const float2*>(ft + pp * NKT_LDF + 2 * lane);
-          const float2 x0 = __bfloat1622float2(__ldg(tx + q[0].r0 * C2 + c2));
-          const float2 x1 = __bfloat1622float2(__ldg(tx + q[0].r1 * C2 + c2));
-          const float2 y0 = __bfloat1622float2(__ldg(ty + q[1].r0 * C2 + c2));
-          const float2 y1 = __bfloat1622float2(__ldg(ty + q[1].r1 * C2 + c2));
-          const float2 z0 = __bfloat1622float2(__ldg(tz + q[2].r0 * C2 + c2));
-          const float2 z1 = __bfloat1622float2(__ldg(tz + q[2].r1 * C2 + c2));
-          const float ux0 = q[0].w0 * x0.x + q[0].w1 * x1.x;
-          const float ux1 = q[0].w0 * x0.y + q[0].w1 * x1.y;
-          const float uy0 = q[1].w0 * y0.x + q[1].w1 * y1.x;
-          const float uy1 = q[1].w0 * y0.y + q[1].w1 * y1.y;
-          const float uz0 = q[2].w0 * z0.x + q[2].w1 * z1.x;
-          const float uz1 = q[2].w0 * z0.y + q[2].w1 * z1.y;
-          nkt_run_add(sx, q[0], nkt_bf16r(gl.x * (uy0 * uz0)),
-                      nkt_bf16r(gl.y * (uy1 * uz1)), bx, C);
-          nkt_run_add(sy, q[1], nkt_bf16r(gl.x * (ux0 * uz0)),
-                      nkt_bf16r(gl.y * (ux1 * uz1)), by, C);
-          nkt_run_add(sz, q[2], nkt_bf16r(gl.x * (ux0 * uy0)),
-                      nkt_bf16r(gl.y * (ux1 * uy1)), bz, C);
-        }
-        if (mine) {
-          nkt_run_flush(sx, bx, C);
-          nkt_run_flush(sy, by, C);
-          nkt_run_flush(sz, bz, C);
+        if (lane < NTc * 4) {
+          for (int pp = 0; pp < np; ++pp)
+            *reinterpret_cast<float2*>(b.denc + (p0 + pp) * LC + l * C + cb + 2 * lane) =
+                *reinterpret_cast<const float2*>(ft + pp * NKT_LDF + 2 * lane);
         }
         __syncwarp();
       }
@@ -930,6 +835,20 @@ extern "C" int nkt_reduce_partials_launch(const float* partial, float* flat,
   return (int)cudaGetLastError();
 }
 
+extern "C" int nkt_dlines_launch(const float* x, long long xs_i, long long xs_a,
+                                 const float* lines, const float* g,
+                                 long long gs_i, float* partial, float* dlines,
+                                 long long n, const CPLevels* cp, int chunks,
+                                 void* stream);
+
+// 3b. the line tables' gradient from denc, in a fixed order (row 5's kernel)
+static int launch_dlines(const BwdArgs& b, cudaStream_t st) {
+  const FusedArgs& a = b.f;
+  return nkt_dlines_launch(a.xt, 1, a.n, a.lines, b.denc,
+                           (long long)a.cp.n_levels * a.cp.n_comp, b.lpart,
+                           b.dlines, a.n, &a.cp, b.l_chunks, st);
+}
+
 static int launch_wgrad(const float* A, const float* G, int K, int J,
                         const BwdArgs& b, const SaveRows& rows, int w_off,
                         int b_off, int blocks, cudaStream_t st) {
@@ -980,6 +899,8 @@ static int run_backward_mma(const BwdArgs& b, bool train, int n_sm,
   nkt_mma_point_bwd_kernel<<<(unsigned)blocks, lb.warps * 32, lb.total, st>>>(
       bb, lb, rows);
   NKT_CHECK(cudaGetLastError());
+  int rc = launch_dlines(b, st);
+  if (rc) return rc;
 
   // 4. weight gradients of every layer in one launch
   WgPlan p = wg_plan(a.n, b.ld, rows.total);
@@ -996,7 +917,7 @@ static int run_backward_mma(const BwdArgs& b, bool train, int n_sm,
       return (int)cudaErrorInvalidValue;
   const long long wt = (a.n + NKT_WG_TP - 1) / NKT_WG_TP;
   const int chunks = (int)(wt < b.n_part ? wt : b.n_part);
-  const int rc = wg_launch<true>(p, b.partial, chunks, st);
+  rc = wg_launch<true>(p, b.partial, chunks, st);
   if (rc) return rc;
 
   // 5. the sum over blocks
@@ -1044,6 +965,8 @@ static int run_backward(const BwdArgs& b, bool train, int n_sm,
   nkt_fused_point_bwd_kernel<<<(unsigned)blocks, NKT_THREADS, bytes_b, st>>>(
       bb, lay_b, rows);
   NKT_CHECK(cudaGetLastError());
+  const int rcl = launch_dlines(b, st);
+  if (rcl) return rcl;
 
   // 4. weight gradients, per-block partial sums
   const long long tiles = (a.n + NKT_TP - 1) / NKT_TP;

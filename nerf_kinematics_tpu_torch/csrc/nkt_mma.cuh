@@ -308,20 +308,6 @@ struct MmaLayout {
   int total;
 };
 
-// A tap pair as a warp keeps it in shared memory (12 bytes; rows < 32768).
-struct NktTapS {
-  short r0, r1;
-  float w0, w1;
-};
-
-__device__ __forceinline__ NktTapS nkt_tap_s(const NktTaps& q) {
-  NktTapS s;
-  s.r0 = (short)q.r0;
-  s.r1 = (short)q.r1;
-  s.w0 = q.w0;
-  s.w1 = q.w1;
-  return s;
-}
 
 // The weights (packed bf16, copied as they are) and biases one block uses.
 __device__ __forceinline__ void nkt_mma_stage(const FusedArgs& a,

@@ -9,7 +9,11 @@
 //   i = floor(clip(u * R, 0, R - 1)),
 //
 // with each projection value rounded to bf16 (the reference's operands are
-// bf16) and returned as f32.
+// bf16) and returned as f32. A NaN coordinate matches no cell of the
+// reference's one-hot rows (|NaN - iota| < 0.5 is false), so every pair
+// projection that reads that axis contributes 0 to the minimum; here the
+// pair is set to 0 after a lookup at the clamped cell (fmaxf maps NaN to 0).
+// +-inf clamp to the end cells, as in the reference.
 //
 // Bound on this card: bytes. 12 B in and 4 B out per point; the (3, R, R)
 // table (110 KB at R = 96) stays in L1/L2 and is read through the read-only
@@ -25,12 +29,14 @@ __global__ void nkt_hull_kernel(const float* __restrict__ xt,
   const int RR = R * R;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const int ix = (int)floorf(fminf(fmaxf(xt[i] * fR, 0.0f), hi));
-    const int iy = (int)floorf(fminf(fmaxf(xt[n + i] * fR, 0.0f), hi));
-    const int iz = (int)floorf(fminf(fmaxf(xt[2 * n + i] * fR, 0.0f), hi));
-    const float a = nkt_bf16r(__ldg(proj + ix * R + iy));
-    const float b = nkt_bf16r(__ldg(proj + RR + ix * R + iz));
-    const float c = nkt_bf16r(__ldg(proj + 2 * RR + iy * R + iz));
+    const float ux = xt[i] * fR, uy = xt[n + i] * fR, uz = xt[2 * n + i] * fR;
+    const bool nx = isnan(ux), ny = isnan(uy), nz = isnan(uz);
+    const int ix = (int)floorf(fminf(fmaxf(ux, 0.0f), hi));
+    const int iy = (int)floorf(fminf(fmaxf(uy, 0.0f), hi));
+    const int iz = (int)floorf(fminf(fmaxf(uz, 0.0f), hi));
+    const float a = nx || ny ? 0.0f : nkt_bf16r(__ldg(proj + ix * R + iy));
+    const float b = nx || nz ? 0.0f : nkt_bf16r(__ldg(proj + RR + ix * R + iz));
+    const float c = ny || nz ? 0.0f : nkt_bf16r(__ldg(proj + 2 * RR + iy * R + iz));
     out[i] = fminf(a, fminf(b, c));
   }
 }

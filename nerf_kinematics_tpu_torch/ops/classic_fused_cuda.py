@@ -8,8 +8,16 @@ Replaces, from ``nerf_kinematics_tpu/ops/classic_fused_pallas.py``:
     the backward of the ``autograd.Function`` behind
     :func:`classic_fused_apply_cf`
 
-Kernel source: ``csrc/classic_fused.cu`` (its weight gradients go through
-the launcher of ``csrc/ngp_fused_bwd.cu``). Channels-first IO: ``(3, N)``
+Kernel source: ``csrc/classic_fused.cu``. In f32 mode (the shipped
+configs) the products run in 3xTF32 on the tensor cores (each f32 operand
+split into two TF32 halves, three ``mma.sync`` products, near-f32 results):
+the forward of a call without gradient (rendering, evaluation), and the
+gradient's cotangent and weight products (all layers' in one launch). The
+forward whose gradient is taken, and the gradient's own forward again, keep
+the FMA body, whose sums run in the plain version's order, so that the ReLU
+masks are the plain version's. bf16 mode keeps the FMA kernels, its weight
+gradients through the launcher of ``csrc/ngp_fused_bwd.cu``. Channels-first
+IO: ``(3, N)``
 points and ``(3, N)`` unit view directions -> ``(4, N)``, rows 0-2 rgb
 logits and row 3 the **raw** sigma (no activation: the compositing adds the
 density noise before its ReLU). ``params`` is the reference's structure,
@@ -38,6 +46,8 @@ REF_CHUNK = 1 << 18  # points per chunk of the plain versions
 BWD_CHUNK = 1 << 18  # points per launch of the gradient kernels (scratch size)
 MAX_WIDTH = 128      # widest layer output the kernels take
 TILE = 64            # points per tile (NKC_P)
+FRAG = 256           # floats of one packed 16 x 8 TF32 A tile, hi and lo
+TC_LDP = 72          # NKC_LDP: words per buffer row of the tensor-core tile
 
 
 def fused_supported(cfg) -> bool:
@@ -245,7 +255,19 @@ class _Layout:
             bo += self.outs[L] * self.wb_ld[L]
             co += -(-self.outs[L] // 4) * 4
         self.wf_size, self.wb_size, self.b_size = fo, bo, co
+        # f32 mode: the 3xTF32 A fragments, forward W^T (out x in) and
+        # backward W (wb_cols x out), whole 16 x 8 tiles
+        self.tf_off, self.tb_off = [], []
+        fo = bo = 0
+        for L in range(self.nw):
+            self.tf_off.append(fo)
+            self.tb_off.append(bo)
+            fo += -(-self.outs[L] // 16) * -(-self.ins[L] // 8) * FRAG
+            if self.wb_cols[L]:
+                bo += -(-self.wb_cols[L] // 16) * -(-self.outs[L] // 8) * FRAG
+        self.tf_size, self.tb_size = fo, bo
         self.buf_rows = max(dx, H + dd, 3)
+        self.tc_rows = -(-self.buf_rows // 8) * 8  # whole k-tiles
         # saved inputs of every layer, in rows of `act`
         act = [0] * self.nw
         row = dx
@@ -276,7 +298,8 @@ class _Layout:
 
 
 def _args(params, xt, vdt, out, cfg, lay: _Layout, scratch: dict):
-    """Check everything the kernels assume and fill their argument struct.
+    """Check everything the kernels assume and fill their argument struct
+    (the tensor-core kernels when ``scratch`` holds their packed weights).
     Every pointer in it belongs to a tensor the caller holds."""
     dev = xt.device
     n = xt.shape[1]
@@ -296,10 +319,14 @@ def _args(params, xt, vdt, out, cfg, lay: _Layout, scratch: dict):
         a.b[L], a.b_s[L] = bv.data_ptr(), bv.stride(0)
     a.wf, a.wb = scratch["wf"].data_ptr(), scratch["wb"].data_ptr()
     a.bias = scratch["bias"].data_ptr()
+    a.tc = int("tf" in scratch)
+    if a.tc:
+        a.tf, a.tb = scratch["tf"].data_ptr(), scratch["tb"].data_ptr()
     a.n, a.nw, a.trunk, a.hidden = n, lay.nw, lay.t, cfg.hidden_size
     a.buf_rows = lay.buf_rows
     for name in ("rnd", "wf_off", "wf_ld", "wb_off", "wb_ld", "wb_cols",
-                 "b_off", "act_row", "gs_row", "dw_off", "db_off"):
+                 "b_off", "tf_off", "tb_off", "act_row", "gs_row", "dw_off",
+                 "db_off"):
         dst = getattr(a, name)
         for L, v in enumerate(getattr(lay, name)):
             dst[L] = int(v)
@@ -317,33 +344,50 @@ def _args(params, xt, vdt, out, cfg, lay: _Layout, scratch: dict):
     return a
 
 
-def _scratch(lay: _Layout, dev):
+def _scratch(lay: _Layout, dev, cfg, tc: bool = True):
+    """The packed weights; with ``tc`` in f32 mode also the 3xTF32
+    fragments, which make the kernels take the tensor-core bodies."""
     f32 = dict(dtype=torch.float32, device=dev)
-    return {"wf": torch.empty(lay.wf_size, **f32),
-            "wb": torch.empty(lay.wb_size, **f32),
-            "bias": torch.empty(lay.b_size, **f32)}
+    out = {"wf": torch.empty(lay.wf_size, **f32),
+           "wb": torch.empty(lay.wb_size, **f32),
+           "bias": torch.empty(lay.b_size, **f32)}
+    if tc and not _bf16(cfg):
+        out["tf"] = torch.empty(lay.tf_size, **f32)
+        out["tb"] = torch.empty(lay.tb_size, **f32)
+    return out
 
 
-def _smem_check(lay: _Layout) -> None:
-    need = 2 * lay.buf_rows * TILE * 4
+def tile_smem_bytes(lay: _Layout, cfg) -> int:
+    """Shared memory of a tile kernel (two activation buffers): rows of
+    ``TC_LDP`` words on the tensor cores (f32 mode), of ``TILE`` words on the
+    FMA body (bf16 mode)."""
+    if _bf16(cfg):
+        return 2 * lay.buf_rows * TILE * 4
+    return 2 * lay.tc_rows * TC_LDP * 4
+
+
+def _smem_check(lay: _Layout, cfg) -> None:
+    need = tile_smem_bytes(lay, cfg)
     if need > cuda_lib.SMEM_LIMIT:
         raise ValueError(f"the tile needs {need} B of shared memory, above the "
                          f"{cuda_lib.SMEM_LIMIT} B one block may use")
 
 
-def _launch_forward(params, xt, vdt, cfg):
+def _launch_forward(params, xt, vdt, cfg, tc: bool = True):
     dev = xt.device
     n = xt.shape[1]
     out = torch.empty((4, n), dtype=torch.float32, device=dev)
     if n == 0:
         return out
     lay = _Layout(params, cfg)
-    _smem_check(lay)
-    scratch = _scratch(lay, dev)
+    _smem_check(lay, cfg)
+    scratch = _scratch(lay, dev, cfg, tc)
     a = _args(params, xt, vdt, out, cfg, lay, scratch)
     lib = cuda_lib.load_library()
     code = lib.nkt_classic_forward(ctypes.byref(a), cuda_lib.current_stream(dev))
     cuda_lib.LAUNCHES["classic_fused_apply_cf"] += 1
+    body = "bf16" if _bf16(cfg) else "3xtf32" if "tf" in scratch else "fma"
+    cuda_lib.POINTS["classic_fused_apply_cf", body] += n
     cuda_lib.raise_on_error(code, "classic_fused_apply_cf")
     return out
 
@@ -354,9 +398,9 @@ def _launch_grad(params, xt, vdt, g, cfg):
     n = xt.shape[1]
     f32 = dict(dtype=torch.float32, device=dev)
     lay = _Layout(params, cfg)
-    _smem_check(lay)
+    _smem_check(lay, cfg)
     cuda_lib.check_tensor(g, "g", (4, n), dev)
-    scratch = _scratch(lay, dev)
+    scratch = _scratch(lay, dev, cfg)
     out4 = torch.empty((4, n), **f32)
     a = _args(params, xt, vdt, out4, cfg, lay, scratch)
     n_part = 2 * cuda_lib.sm_count(dev)
@@ -372,6 +416,7 @@ def _launch_grad(params, xt, vdt, g, cfg):
     # is queued behind them on the same stream.
     code = lib.nkt_classic_backward(ctypes.byref(a), cuda_lib.current_stream(dev))
     cuda_lib.LAUNCHES["classic_fused_apply_cf_bwd"] += 1
+    cuda_lib.POINTS["classic_fused_apply_cf_bwd", "bf16" if _bf16(cfg) else "3xtf32"] += n
     cuda_lib.raise_on_error(code, "classic_fused_apply_cf_bwd")
     d = {"W": [], "b": []}
     for L, (i, o) in enumerate(zip(lay.ins, lay.outs)):
@@ -403,23 +448,27 @@ def classic_fused_apply_cf_bwd(params: dict, xt: torch.Tensor,
     return _sum_grads(parts)
 
 
-def _forward(params, xt, vdt, cfg):
+def _forward(params, xt, vdt, cfg, tc: bool = True):
     if not xt.is_cuda:
         return classic_fused_apply_cf_ref(params, xt, vdt, cfg)
-    return _launch_forward(params, xt, vdt, cfg)
+    return _launch_forward(params, xt, vdt, cfg, tc)
 
 
 class _ClassicApply(torch.autograd.Function):
     """:func:`classic_fused_apply_cf` under autograd: the backward is the
     gradient kernel (or its plain version for CPU tensors); points and
-    directions get no gradient."""
+    directions get no gradient. In f32 mode the forward here is the FMA
+    body, the one the gradient kernel runs again for its ReLU masks: the
+    loss and its gradient then come from one forward. (The 3xTF32 forward
+    sits a few f32 bits away from it, enough to move a sample across the
+    density noise's ReLU now and then.)"""
 
     @staticmethod
     def forward(ctx, xt, vdt, cfg, nw, *leaves):
         ctx.cfg, ctx.nw = cfg, nw
         ctx.save_for_backward(xt, vdt, *leaves)
         return _forward({"W": list(leaves[:nw]), "b": list(leaves[nw:])},
-                        xt, vdt, cfg)
+                        xt, vdt, cfg, tc=False)
 
     @staticmethod
     def backward(ctx, g):
@@ -435,9 +484,10 @@ def classic_fused_apply_cf(params: dict, xt: torch.Tensor, vdt: torch.Tensor,
                            cfg) -> torch.Tensor:
     """Fused classic point pipeline, channels-first IO: (3, N) points and
     (3, N) unit view directions -> (4, N), rows 0-2 rgb logits, row 3 raw
-    sigma. A CUDA tensor goes through the kernel; a CPU tensor through the
-    plain version. Differentiable in ``params`` only (see the module
-    docstring)."""
+    sigma. A CUDA tensor goes through the kernel (in f32 mode: 3xTF32 on
+    the tensor cores, or the FMA body when a gradient will be taken); a CPU
+    tensor through the plain version. Differentiable in ``params`` only
+    (see the module docstring)."""
     leaves = [*params["W"], *params["b"]]
     if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
         return _ClassicApply.apply(xt.detach(), vdt.detach(), cfg,

@@ -7,11 +7,13 @@ shared library under ``build/`` beside the package and loaded with ``ctypes``.
 Nothing here runs at import time: CPU-only machines import every module.
 
 Each kernel's wrapper adds one to ``LAUNCHES[name]`` where it launches its
-kernel and nowhere else, so a run can show which kernels it went through.
+kernel and nowhere else, so a run can show which kernels it went through,
+and the launch's points to ``POINTS[name, body]``.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -52,9 +54,19 @@ LAUNCHES = {
 }
 
 
+# Points each kernel's launches took (row 8: coarse and fine points), by the
+# same names and by the body that ran: "bf16" / "f32" where the mode picks the
+# fast engine's kernels, "3xtf32" / "fma" / "bf16" for the classic ones,
+# "kernel" where one kernel serves every call. ("cp_encode_bwd", "in_fused_bwd"):
+# the points that kernel walks inside the fused gradient kernels' launches. A
+# kernel's time on a path is its points times its body's time a point.
+POINTS: collections.Counter = collections.Counter()
+
+
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    POINTS.clear()
 
 
 class CPLevels(ctypes.Structure):
@@ -119,6 +131,9 @@ class BwdArgs(ctypes.Structure):
         ("partial", ctypes.c_void_p),
         ("flat", ctypes.c_void_p),
         ("dlines", ctypes.c_void_p),
+        ("denc", ctypes.c_void_p),
+        ("lpart", ctypes.c_void_p),
+        ("l_chunks", ctypes.c_int),
         ("dists", ctypes.c_void_p),
         ("tgt", ctypes.c_void_p),
         ("err", ctypes.c_void_p),
@@ -176,6 +191,8 @@ class ClassicArgs(ctypes.Structure):
         ("wf", ctypes.c_void_p),
         ("wb", ctypes.c_void_p),
         ("bias", ctypes.c_void_p),
+        ("tf", ctypes.c_void_p),
+        ("tb", ctypes.c_void_p),
         ("n", ctypes.c_longlong),
         ("nw", ctypes.c_int),
         ("trunk", ctypes.c_int),
@@ -190,6 +207,9 @@ class ClassicArgs(ctypes.Structure):
         ("wb_ld", ctypes.c_int * _CL),
         ("wb_cols", ctypes.c_int * _CL),
         ("b_off", ctypes.c_int * _CL),
+        ("tf_off", ctypes.c_int * _CL),
+        ("tb_off", ctypes.c_int * _CL),
+        ("tc", ctypes.c_int),
         ("n_freq_x", ctypes.c_int),
         ("n_freq_d", ctypes.c_int),
         ("inc_x", ctypes.c_int),
@@ -335,7 +355,7 @@ def load_library(verbose: bool = False):
     lib.nkt_fused_smem_bytes.argtypes = [ctypes.POINTER(FusedArgs), ci]
     lib.nkt_fused_smem_bytes.restype = ll
     lib.nkt_cp_encode_bwd.argtypes = [
-        vp, vp, vp, vp, ll, ctypes.POINTER(CPLevels), ci, vp]
+        vp, vp, vp, vp, vp, ll, ctypes.POINTER(CPLevels), ci, vp]
     lib.nkt_cp_encode_bwd.restype = ci
     lib.nkt_fused_bwd_sizes.argtypes = [
         ctypes.POINTER(FusedArgs), ctypes.POINTER(ll)]

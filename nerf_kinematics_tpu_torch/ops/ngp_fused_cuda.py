@@ -39,7 +39,7 @@ import torch
 
 from . import cuda_lib
 from .cp_grid import CPGridConfig, _round_bf16, cp_encode_stacked
-from .cp_grid_cuda import cp_encode_cuda_bwd_ref
+from .cp_grid_cuda import cp_encode_cuda_bwd_ref, dlines_scratch
 from .sh import sh_encode
 
 REF_CHUNK = 1 << 19  # points per chunk of the plain versions
@@ -309,6 +309,7 @@ def _launch(params, xt, vdt, cfg: CPGridConfig, color: bool, name: str):
         cuda_lib.current_stream(xt.device),
     )
     cuda_lib.LAUNCHES[name] += 1
+    cuda_lib.POINTS[name, "bf16" if cfg.use_bf16 else "f32"] += n
     cuda_lib.raise_on_error(code, name)
     return out
 
@@ -721,10 +722,15 @@ def _launch_grad(params, xt, vdt, cfg: CPGridConfig, g=None, train=None,
     gs = torch.empty((gs_rows, ld), **f32)
     partial = torch.empty((n_part, total), **f32)
     flat = torch.empty((total,), **f32)
-    dlines = torch.zeros_like(params["lines"])
+    # the line tables' gradient: the encoding's cotangent, then row 5's
+    # kernel over it in a fixed order (csrc/cp_encode.cu)
+    dlines = torch.empty_like(params["lines"])
+    denc = torch.empty((n, cfg.out_dim), **f32)
+    lpart, l_chunks = dlines_scratch(n, cfg, dev)
     b.act, b.z0, b.gs, b.ld = act.data_ptr(), z0.data_ptr(), gs.data_ptr(), ld
     b.partial, b.flat = partial.data_ptr(), flat.data_ptr()
     b.dlines, b.n_part = dlines.data_ptr(), n_part
+    b.denc, b.lpart, b.l_chunks = denc.data_ptr(), lpart.data_ptr(), l_chunks
     err = maps = None
     if train is None:
         cuda_lib.check_tensor(g, "g", (4, n), dev)
@@ -753,6 +759,9 @@ def _launch_grad(params, xt, vdt, cfg: CPGridConfig, g=None, train=None,
     else:
         code = fn(ctypes.byref(b), n_sm, cuda_lib.current_stream(dev))
     cuda_lib.LAUNCHES[name] += 1
+    cuda_lib.POINTS[name, "bf16" if cfg.use_bf16 else "f32"] += n + (
+        full.R * full.Sc if full is not None else 0)
+    cuda_lib.POINTS["cp_encode_bwd", "in_fused_bwd"] += n
     cuda_lib.raise_on_error(code, name)
     d = {"lines": dlines, "dW": [], "db": [], "cW": [], "cb": []}
     off = 0

@@ -15,14 +15,23 @@ from . import cuda_lib
 def occupancy_at_hull_cuda_ref(proj2: torch.Tensor,
                                xt: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: ``min(Pxy[x,y], Pxz[x,z], Pyz[y,z])`` at cell
-    ``floor(clip(u*R, 0, R-1))``, the projections rounded to bf16."""
+    ``floor(clip(u*R, 0, R-1))``, the projections rounded to bf16. A pair
+    that reads a NaN coordinate is 0, as in the reference, whose one-hot row
+    of a NaN matches no cell; the cell of a NaN is taken at 0 so that no
+    index is made from it. +-inf clamp to the end cells."""
     R = proj2.shape[-1]
-    idx = torch.floor(torch.clamp(xt * float(R), 0.0, float(R - 1))).to(torch.int64)
+    u = xt * float(R)
+    nan = torch.isnan(u)
+    u = torch.where(nan, torch.zeros_like(u), u)
+    idx = torch.floor(torch.clamp(u, 0.0, float(R - 1))).to(torch.int64)
     ix, iy, iz = idx[0], idx[1], idx[2]
+    nx, ny, nz = nan[0], nan[1], nan[2]
     p2 = proj2.to(torch.bfloat16).to(torch.float32)
-    return torch.minimum(
-        p2[0][ix, iy], torch.minimum(p2[1][ix, iz], p2[2][iy, iz])
-    )
+    zero = torch.zeros((), dtype=torch.float32, device=xt.device)
+    a = torch.where(nx | ny, zero, p2[0][ix, iy])
+    b = torch.where(nx | nz, zero, p2[1][ix, iz])
+    c = torch.where(ny | nz, zero, p2[2][iy, iz])
+    return torch.minimum(a, torch.minimum(b, c))
 
 
 def occupancy_at_hull_cuda(proj2: torch.Tensor, xt: torch.Tensor) -> torch.Tensor:
@@ -43,5 +52,6 @@ def occupancy_at_hull_cuda(proj2: torch.Tensor, xt: torch.Tensor) -> torch.Tenso
             cuda_lib.sm_count(xt.device), cuda_lib.current_stream(xt.device),
         )
         cuda_lib.LAUNCHES["occupancy_at_hull"] += 1
+        cuda_lib.POINTS["occupancy_at_hull", "kernel"] += n
         cuda_lib.raise_on_error(code, "occupancy_at_hull")
     return out

@@ -1,0 +1,224 @@
+#!/usr/bin/env python3
+"""A/B of two trees of the port on one card, in one call: rows 9 and 10 (the
+classic engine's fused kernels, f32), the classic train step, row 8 (the
+fast engine's whole-step kernel) and the ``fused_train: full`` train step.
+
+    git archive <rev> nerf_kinematics_tpu_torch | tar -x -C build/ab_parent
+    python3 scripts/torch_ab_classic.py --parent build/ab_parent
+
+The change is this checkout's ``nerf_kinematics_tpu_torch``; the parent is
+the one under ``--parent`` (a directory that ``.gitignore`` lists). Each
+run is a process of its own that imports one tree and builds its kernels
+into a build directory of its own; the runs go in the order ``--order``
+(parent, change, change, parent by default), so that drift of the card
+over the call shows. Prints the card's ``nvidia-smi`` line, one JSON object
+per run and a summary with each tree's medians. Kernel times are CUDA-event
+medians with the L2 cache overwritten between launches; step times are the
+host clock over steps that end in a synchronise, and the device ms a step
+comes from ``torch.profiler`` over other steps of the same state.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+CLASSIC_N = 1024 * 128   # row 9 / 10 at the classic step's fine pass
+STEPS = 40               # timed steps a route, after WARM
+WARM = 5
+PROFILED = 10
+
+
+def _worker(tree: str, build: str) -> dict:
+    """Measure the tree whose package lies under ``tree``."""
+    os.environ["NKT_TORCH_BUILD_DIR"] = build
+    sys.path.insert(0, tree)
+    sys.path.append(ROOT)  # chip_smoke's shapes and config (no package import)
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from nerf_kinematics_tpu_torch.ops import cuda_lib
+
+    pkg = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(cuda_lib.__file__))))
+    if os.path.abspath(pkg) != os.path.abspath(tree):
+        raise RuntimeError(f"imported {pkg}, expected the tree {tree}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cuda_lib.load_library()
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    out = {"tree": tree, "build_seconds": cuda_lib.BUILD_INFO["seconds"]}
+
+    # ---- rows 9 and 10 at 131 072 points, f32 ---------------------------
+    from nerf_kinematics_tpu_torch.ops import classic_fused_cuda as cfc
+
+    eng = cs.classic_engines(dev, modes=("f32",))["f32"]
+    mcfg = eng.cfg.model_coarse
+    prm = {k: [t.detach() for t in v]
+           for k, v in eng._fused_params(eng.model_coarse).items()}
+    gen = torch.Generator(device=dev).manual_seed(99)
+    xt, vd = cs.classic_points(CLASSIC_N, gen, dev)
+    g4 = torch.randn((4, CLASSIC_N), generator=gen, device=dev)
+    with torch.no_grad():
+        out["row9_ms"] = cs.time_ms(
+            lambda: cfc.classic_fused_apply_cf(prm, xt, vd, mcfg), 9, 2, flush)
+        out["row10_ms"] = cs.time_ms(
+            lambda: cfc.classic_fused_apply_cf_bwd(prm, xt, vd, g4, mcfg), 9, 2, flush)
+        out["row10_plain_ms"] = cs.time_ms(
+            lambda: cfc.classic_fused_apply_cf_bwd_ref(prm, xt, vd, g4, mcfg), 3, 1, flush)
+        out["row10_parts_ms"] = cs.profile_parts(
+            lambda: cfc.classic_fused_apply_cf_bwd(prm, xt, vd, g4, mcfg), cs.ROW10_PARTS)
+    del eng, prm, xt, vd, g4
+
+    # ---- the classic train step (machina_classic, 1024 rays x 64 + 64) ---
+    from nerf_kinematics_tpu_torch.data.machina import machina_intrinsics, orbit_poses
+    from nerf_kinematics_tpu_torch.data.types import dataset_from_arrays
+    from nerf_kinematics_tpu_torch.train.config import config_from_dict
+    from nerf_kinematics_tpu_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(5)
+
+    def dataset(size, views):
+        poses = np.concatenate([orbit_poses(views // 2, elev_deg=e) for e in (15.0, 40.0)]
+                               + [orbit_poses(4, elev_deg=25.0)[:2]])
+        images = torch.tensor(rng.uniform(size=(len(poses), size, size, 3)).astype(np.float32),
+                              device=dev)
+        return dataset_from_arrays(images, poses, machina_intrinsics(size), 2.0, 6.0, n_val=2)
+
+    import dataclasses
+    import tempfile
+
+    quiet = dict(print_every=0, validate_every=0, save_every=0)
+    with tempfile.TemporaryDirectory() as logdir:
+        base = config_from_dict(cs.CLASSIC_CONFIG)
+        cfg = base.replace(experiment=dataclasses.replace(
+            base.experiment, logdir=logdir, id="ab_classic", **quiet))
+        trainer = Trainer(cfg, dataset(200, 40))
+        out["classic_step"] = _time_steps(trainer, trainer.init_or_resume(), cs,
+                                          cs.CLASSIC_PARTS)
+        trainer.close()
+
+    # ---- row 8 and the fused_train: full step (machina_ngp) --------------
+    from nerf_kinematics_tpu_torch.io.convert import grid_from_numpy
+    from nerf_kinematics_tpu_torch.io.fixture import read_fixture
+    from nerf_kinematics_tpu_torch.ops.ngp_fused_cuda import ngp_fused_train_full_cf
+    from nerf_kinematics_tpu_torch.ops.occupancy import pair_projections
+    from nerf_kinematics_tpu_torch.train.ngp_engine import NGPEngine
+
+    fx = read_fixture()
+    ngp, t = fx.config.ngp, fx.config.nerf.train
+    R = fx.config.nerf.num_random_rays
+    S, Sc, NB = t.num_fine, t.num_coarse, ngp.occ_bins
+    near, far = fx.config.dataset.near, fx.config.dataset.far
+    proj2 = pair_projections(grid_from_numpy(fx.grid_density, fx.grid_bound,
+                                             device=dev)).contiguous()
+    e = NGPEngine(fx.config, 1.0, device=dev)
+    e.load_flax_params(fx.params)
+    p8, c8 = e._fused_params(detach=True), e.ngp_config.cp
+    rays = cs.full_step_inputs(R, S, Sc, torch.Generator(device=dev).manual_seed(8888), dev)
+    with torch.no_grad():
+        out["row8_ms"] = cs.time_ms(lambda: ngp_fused_train_full_cf(
+            p8, *rays, proj2, c8, S, Sc, NB, True, 1.0 / (3.0 * R), near, far, 1.0,
+            ngp.occ_floor), 9, 2, flush)
+    del e, p8, rays
+    with tempfile.TemporaryDirectory() as logdir:
+        c = fx.config
+        cfg = c.replace(
+            ngp=dataclasses.replace(c.ngp, fused_train="full"),
+            experiment=dataclasses.replace(c.experiment, logdir=logdir, id="ab_full",
+                                           **quiet))
+        trainer = Trainer(cfg, dataset(400, 40))
+        trainer.engine.load_flax_params(fx.params)
+        state = trainer.engine.init_state(keep_weights=True)
+        state.aux = grid_from_numpy(fx.grid_density, fx.grid_bound, device=dev)
+        out["full_step"] = _time_steps(trainer, state, cs, cs.ROW8_PARTS)
+        trainer.close()
+    return out
+
+
+def _time_steps(trainer, state, cs, groups) -> dict:
+    """ms a step on the host clock over STEPS steps (after WARM), and the
+    profile of PROFILED more (chip_smoke.profile_steps: device ms a step by
+    kernel group, idle share against these same steps unprofiled)."""
+    import torch
+
+    step = trainer._train_step
+    args = (trainer.images, trainer.poses, trainer.ray_buf)
+    for _ in range(WARM):
+        state, _ = step(state, *args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        state, _ = step(state, *args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    prof = cs.profile_steps(trainer, state, n_steps=PROFILED, groups=groups)
+    return {"ms_per_step": ms, "device_ms_per_step": prof["device_busy_ms"] / PROFILED,
+            "device_idle_share": prof["device_idle_share"],
+            "ms_per_step_by_group": prof["ms_per_step_by_group"]}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="directory holding the parent's nerf_kinematics_tpu_torch")
+    ap.add_argument("--order", default="parent,change,change,parent")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--build", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.worker:
+        print(json.dumps(_worker(args.worker, args.build)), flush=True)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_ab_classic: no CUDA device available", file=sys.stderr)
+        return 2
+    if not args.parent or not os.path.isdir(
+            os.path.join(args.parent, "nerf_kinematics_tpu_torch")):
+        print("torch_ab_classic: --parent must hold nerf_kinematics_tpu_torch",
+              file=sys.stderr)
+        return 2
+    trees = {"parent": os.path.abspath(args.parent), "change": ROOT}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], stdout=subprocess.PIPE,
+                         text=True, check=True).stdout.strip()
+    print(json.dumps({"nvidia_smi": smi}), flush=True)
+    runs = []
+    for label in args.order.split(","):
+        tree = trees[label]
+        build = os.path.join(ROOT, "build", f"ab_{label}")
+        done = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tree,
+                               "--build", build], stdout=subprocess.PIPE, text=True)
+        if done.returncode != 0:
+            print(f"torch_ab_classic: the {label} run failed", file=sys.stderr)
+            return 1
+        rec = {"run": label, **json.loads(done.stdout.strip().splitlines()[-1])}
+        runs.append(rec)
+        print(json.dumps(rec), flush=True)
+
+    def med(label, get):
+        return statistics.median(get(r) for r in runs if r["run"] == label)
+
+    keys = {"row9_ms": lambda r: r["row9_ms"], "row10_ms": lambda r: r["row10_ms"],
+            "row10_plain_ms": lambda r: r["row10_plain_ms"],
+            "classic_step_ms": lambda r: r["classic_step"]["ms_per_step"],
+            "classic_step_device_ms": lambda r: r["classic_step"]["device_ms_per_step"],
+            "row8_ms": lambda r: r["row8_ms"],
+            "full_step_ms": lambda r: r["full_step"]["ms_per_step"],
+            "full_step_device_ms": lambda r: r["full_step"]["device_ms_per_step"]}
+    summary = {label: {k: med(label, f) for k, f in keys.items()} for label in trees
+               if any(r["run"] == label for r in runs)}
+    print(json.dumps({"nvidia_smi": smi, "medians": summary}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -234,3 +234,121 @@ def test_kernel_layout_of_the_main_config():
         ClassicNerf(Config(model_coarse=wide, model_fine=None), device="cpu").model_coarse)
     with pytest.raises(ValueError, match="too large|above the kernel"):
         _Layout(wide_params, wide)
+
+
+# ---- f32 mode on the tensor cores: the 3xTF32 product, emulated ----------
+
+def _tf32_rna(x):
+    """cvt.rna.tf32.f32: round an f32 to 10 mantissa bits, ties away from
+    zero (the bit pattern rounded at bit 13, the low 13 bits cleared)."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x):
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna((x - hi).astype(np.float32))
+
+
+def _mma_f32(terms, M, N, K, partial=False):
+    """The kernel's k-tile loop: per k-tile of 8, one mma.sync per term in
+    the order given, each adding its exact 8-product dot to an f32 sum with
+    one f32 rounding. ``partial``: the k-tile's terms go into a sum started
+    from zero, which is then added to the accumulator (the tile products of
+    rows 9 and 10); else they add to the accumulator itself (the weight
+    gradients)."""
+    acc = np.zeros((M, N), np.float32)
+    for k0 in range(0, K, 8):
+        sl = slice(k0, k0 + 8)
+        s = np.zeros((M, N), np.float32) if partial else acc
+        for a, b in terms:
+            dot = a[:, sl].astype(np.float64) @ b[sl].astype(np.float64)
+            s = (s.astype(np.float64) + dot).astype(np.float32)
+        acc = (acc + s).astype(np.float32) if partial else s
+    return acc
+
+
+def tf32x3_matmul(A, B, partial=False):
+    """(M, K) @ (K, N) as the kernels take it: A and B split into TF32 hi and
+    lo halves, the small terms (a_lo b_hi, a_hi b_lo) first, then a_hi b_hi."""
+    (ah, al), (bh, bl) = _split(A), _split(B)
+    return _mma_f32([(al, bh), (ah, bl), (ah, bh)], A.shape[0], B.shape[1], A.shape[1],
+                    partial)
+
+
+def tf32_matmul(A, B):
+    """One TF32 product a_hi b_hi, the same f32 accumulation."""
+    return _mma_f32([(_tf32_rna(A), _tf32_rna(B))], A.shape[0], B.shape[1], A.shape[1])
+
+
+@pytest.mark.parametrize("k,j", [(63, 128), (128, 128), (155, 64), (64, 3)],
+                         ids=["layer1", "trunk", "layers_dir", "fc_rgb"])
+@pytest.mark.parametrize("what", ["forward", "d_inp", "dW"])
+def test_tf32x3_products_keep_f32_accuracy_at_the_classic_widths(k, j, what):
+    """The three products the f32 kernels take at the classic layer widths
+    (machina_classic: hidden 128, gamma(xyz) 63 rows, gamma(dir) 27): the
+    forward W^T h and the backward W g (each k-tile's three products summed
+    from zero, then added to the f32 sum) and the weight gradient A G^T over
+    512 points (the products added to the sum itself). 3xTF32 stays within
+    1e-6 of the largest entry of the float64 product; one TF32 product misses that by more than 1e-4, which is why
+    the tolerances of rows 9 and 10 (1e-4 of a row, 2e-4 of a leaf) need the
+    split."""
+    rng = np.random.default_rng(k * 1000 + j)
+    P = 512
+    W = rng.uniform(-1, 1, (k, j)).astype(np.float32) * np.float32(np.sqrt(6.0 / (k + j)))
+    if what == "forward":   # (j, k) @ (k, P): inputs are encodings or ReLU outputs
+        A, B = W.T.copy(), np.abs(rng.standard_normal((k, P))).astype(np.float32)
+        if k == 63:
+            B = np.sin(rng.uniform(-3000, 3000, (k, P))).astype(np.float32)
+    elif what == "d_inp":   # (k, j) @ (j, P): masked cotangents of either sign
+        A, B = W, (rng.standard_normal((j, P)) * (rng.uniform(size=(j, P)) < 0.6)).astype(np.float32)
+    else:                   # (k, P) @ (P, j): saved inputs times cotangents
+        A = np.abs(rng.standard_normal((k, P))).astype(np.float32)
+        B = rng.standard_normal((P, j)).astype(np.float32) * np.float32(1e-3)
+    exact = A.astype(np.float64) @ B.astype(np.float64)
+    scale = np.abs(exact).max()
+    err3 = np.abs(tf32x3_matmul(A, B, partial=what != "dW") - exact).max() / scale
+    err1 = np.abs(tf32_matmul(A, B) - exact).max() / scale
+    assert err3 <= 1e-6, err3
+    assert err1 > 1e-4, err1
+
+
+def test_tf32_rounding_and_split():
+    """rna rounds ties away from zero at bit 13; the halves add back to the
+    operand to about 22 bits, exactly for a value with 11 significant bits."""
+    x = np.array([1.0 + 2.0**-11, -(1.0 + 2.0**-11), 1.0 + 2.0**-12, 1.0 + 3 * 2.0**-11],
+                 np.float32)
+    assert np.array_equal(_tf32_rna(x), np.array([1.0 + 2.0**-10, -(1.0 + 2.0**-10), 1.0,
+                                                  1.0 + 2.0**-9], np.float32))
+    v = np.random.default_rng(0).standard_normal(10000).astype(np.float32)
+    hi, lo = _split(v)
+    assert np.array_equal(_tf32_rna(hi), hi) and np.array_equal(_tf32_rna(lo), lo)
+    rel = np.abs((hi.astype(np.float64) + lo) - v) / np.abs(v)
+    assert rel.max() <= 2.0**-21
+    assert np.array_equal(_split(x[:2])[0] + _split(x[:2])[1], x[:2])
+
+
+def test_tensor_core_layout_of_the_main_config():
+    """The f32 kernels' host-side layout: whole 16 x 8 A tiles of 256 floats
+    (hi and lo), forward W^T of every layer and backward W of the layers
+    whose input gets a cotangent, and activation buffers of whole k-tiles
+    (the direction layer's 155 inputs -> 160 rows) within one block's shared
+    memory, two blocks an SM."""
+    from nerf_kinematics_tpu_torch.ops.classic_fused_cuda import FRAG, tile_smem_bytes
+
+    cfg = FlexibleNeRFConfig()
+    model = ClassicNerf(Config(model_coarse=cfg, model_fine=None), device="cpu")
+    lay = _Layout(ClassicNerf._fused_params(model.model_coarse), cfg)
+    ceil = lambda a, b: -(-a // b)
+    tiles_f = [ceil(o, 16) * ceil(i, 8) for i, o in zip(lay.ins, lay.outs)]
+    assert tiles_f == [64, 128, 128, 128, 16, 128, 80, 8]
+    tiles_b = [ceil(c, 16) * ceil(o, 8) if c else 0 for c, o in zip(lay.wb_cols, lay.outs)]
+    assert tiles_b == [0, 128, 128, 128, 0, 128, 64, 4]
+    assert lay.tf_size == FRAG * sum(tiles_f) and lay.tb_size == FRAG * sum(tiles_b)
+    assert lay.tf_off == [FRAG * sum(tiles_f[:L]) for L in range(8)]
+    assert lay.tb_off == [FRAG * sum(tiles_b[:L]) for L in range(8)]
+    assert lay.tc_rows == 160
+    assert tile_smem_bytes(lay, cfg) == 2 * 160 * 72 * 4
+    assert 2 * tile_smem_bytes(lay, cfg) <= cuda_lib.SMEM_LIMIT
+    bf = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    assert tile_smem_bytes(lay, bf) == 2 * 155 * 64 * 4

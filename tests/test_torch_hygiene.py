@@ -160,6 +160,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     ("nkc_pack_kernel", "classic_fused.cu"),
     ("nkc_forward_kernel", "classic_fused.cu"),
     ("nkc_bwd_tile_kernel", "classic_fused.cu"),
+    ("nkc_tc_forward_kernel", "classic_fused.cu"),
+    ("nkc_tc_bwd_tile_kernel", "classic_fused.cu"),
+    ("nkc_tc_wgrad_kernel", "classic_fused.cu"),
     ("nkf_propose_kernel", "ngp_fused_full.cu"),
     ("nkf_fine_inputs_kernel", "ngp_fused_full.cu"),
 ])

@@ -55,6 +55,49 @@ def test_hull_lookup_equals_pallas_and_xla_exactly():
     assert np.array_equal(got, got.astype(jnp.bfloat16).astype(np.float32))
 
 
+def _nonfinite_points():
+    """Unit coordinates with a NaN in one or two coordinates (every choice of
+    axes), +-inf in one or more, and finite points between them."""
+    rng = np.random.default_rng(12)
+    xt = rng.uniform(-0.1, 1.1, (3, 64)).astype(np.float32)
+    nan, inf = np.float32(np.nan), np.float32(np.inf)
+    cases = [(0,), (1,), (2,), (0, 1), (0, 2), (1, 2)]
+    for i, axes in enumerate(cases):
+        xt[list(axes), 2 * i] = nan
+    xt[0, 20], xt[1, 21], xt[2, 22] = inf, -inf, inf
+    xt[:, 23] = [-inf, inf, -inf]
+    xt[0, 24], xt[2, 24] = nan, inf
+    xt[:, 25] = nan
+    return xt
+
+
+@pytest.mark.parametrize("seed", [1, 7])
+def test_hull_lookup_nan_and_inf_points_match_the_reference(seed):
+    """A NaN coordinate makes the reference's one-hot row all zero, so each
+    pair projection that reads that axis contributes 0 to the minimum; +-inf
+    clamp to the end cells. The port's plain version gives exactly that: the
+    Pallas kernel in interpret mode and the XLA form, bit for bit."""
+    gj, gt = _grids(seed)
+    xt = _nonfinite_points()
+    pj, pt = jo.pair_projections(gj), to.pair_projections(gt)
+    pallas = np.asarray(occupancy_at_hull_pallas(pj, jnp.asarray(xt), 512, True))
+    got = occupancy_at_hull_cuda_ref(pt, torch.tensor(xt)).numpy()
+    assert np.isfinite(got).all()
+    assert np.array_equal(got, pallas)
+    assert np.array_equal(occupancy_at_hull_cuda(pt, torch.tensor(xt)).numpy(), pallas)
+    pts = (xt.T * 2.0 - 1.0).astype(np.float32)
+    xla = np.asarray(jo.occupancy_at_hull(pj, jnp.asarray(pts), jo._linear_to_unit(gj)))
+    mine = to.occupancy_at_hull(pt, torch.tensor(pts), to._linear_to_unit(gt)).numpy()
+    assert np.array_equal(mine, xla) and np.array_equal(mine, pallas)
+    # the NaN points read 0 from a pair, so their minimum is at most 0
+    assert (got[[0, 2, 4, 6, 8, 10, 24, 25]] <= 0.0).all()
+    # +-inf: the end cells, as the clamped finite coordinates 1 and 0
+    ends = xt[:, 20:24].copy()
+    ends[np.isposinf(ends)], ends[np.isneginf(ends)] = 1.0, 0.0
+    at_ends = occupancy_at_hull_cuda_ref(pt, torch.tensor(ends)).numpy()
+    assert np.array_equal(got[20:24], at_ends)
+
+
 @pytest.mark.parametrize("bound", [1.0, 1.5])
 def test_update_grid_with_injected_jitter(bound, monkeypatch):
     gj, gt = _grids(3, bound)
