@@ -148,6 +148,30 @@ def fused_errors(out, ref, color: bool):
     return d.max().item(), d.mean().item(), rel
 
 
+def other_cp_configs():
+    """CP encoders other than the flagship's, for rows 4 and 5: fox_ngp.yml's
+    (C = 96, T = 256, five levels: its three f32 tables of a level exceed a
+    block's shared memory, so the kernels split the channels, and row 5 the
+    16 row tiles too) with the hash fold, and a narrow one (C = 40, padded to
+    48 in row 5's B operand), each in both modes."""
+    from nerf_kinematics_tpu_torch.ops.cp_grid import CPGridConfig
+
+    out = []
+    for bf in (True, False):
+        out.append(CPGridConfig(n_levels=5, n_components=96, table_size=256,
+                                base_resolution=16, max_resolution=2048,
+                                use_bf16=bf, fold="hash"))
+        out.append(CPGridConfig(n_levels=3, n_components=40, table_size=64,
+                                base_resolution=16, max_resolution=256,
+                                use_bf16=bf))
+    return out
+
+
+def cp_label(c) -> str:
+    return (f"L{c.n_levels} C{c.n_components} T{c.table_size} {c.fold} "
+            f"{'bf16' if c.use_bf16 else 'f32'}")
+
+
 def phase_kernels(fx, dev, quick: bool, reps: int):
     from nerf_kinematics_tpu_torch.io.convert import grid_from_numpy
     from nerf_kinematics_tpu_torch.ops.cp_grid import CPGridConfig
@@ -232,10 +256,21 @@ def phase_kernels(fx, dev, quick: bool, reps: int):
         p = cp_encode_cuda_ref(lines, x_enc, c)
         torch.cuda.synchronize()
         err = max(err, (k - p).abs().max().item())
+    other, gen_o = {}, torch.Generator(device=dev).manual_seed(96)
+    for c in other_cp_configs():
+        lo = torch.randn((c.n_levels, 3, c.table_size, c.n_components),
+                         generator=gen_o, device=dev) * 0.5
+        xo = random_points(4099, gen_o, dev)[0].T.contiguous()
+        k = cp_encode_cuda(lo, xo, c)
+        p = cp_encode_cuda_ref(lo, xo, c)
+        torch.cuda.synchronize()
+        other[cp_label(c)] = e = (k - p).abs().max().item()
+        err = max(err, e)
     tol = 1e-6
     if not err <= tol:
-        raise AssertionError(f"cp_encode: max abs err {err} > {tol}")
+        raise AssertionError(f"cp_encode: max abs err {err} > {tol} ({other})")
     lines = trained.model.cp_lines.detach()
+    l32, c32 = f32_eng.model.cp_lines.detach(), f32_eng.ngp_config.cp
     enc_flops = n_enc * LC * 11
     b, by = bound_ms(n_enc * (12 + 4 * LC) + lines.numel() * 4, enc_flops, "f32")
     rows.append({
@@ -243,9 +278,12 @@ def phase_kernels(fx, dev, quick: bool, reps: int):
         "source": "nerf_kinematics_tpu_torch/csrc/cp_encode.cu",
         "replaces": "nerf_kinematics_tpu/ops/cp_grid_pallas.py:211",
         "n_points": n_enc, "max_abs_err": err, "max_rel_err": None,
+        "other_configs_max_abs_err": other,
         "tolerance": f"abs {tol} (same roundings, same order of the two products)",
         "ms": (ms := time_ms(lambda: cp_encode_cuda(lines, x_enc, cp), reps, 2, flush)),
-        "ms_by_body": {"kernel": ms},
+        # f32 mode is the kernel's other instance (f32 tables)
+        "ms_by_body": {"bf16": ms, "f32": time_ms(
+            lambda: cp_encode_cuda(l32, x_enc, c32), reps, 2, flush)},
         "plain_ms": time_ms(lambda: cp_encode_cuda_ref(lines, x_enc, cp), 3, 1, flush),
         "bound_ms": b, "bound_by": by, "library_ms": None,
     })
@@ -738,7 +776,26 @@ def phase_grad_kernels(fx, dev, quick: bool, reps: int):
         check("cp_encode_bwd", mode, reports[mode])
         abs_err = (k - p).abs().max().item()
         del k, p
+    other, gen_o = {}, torch.Generator(device=dev).manual_seed(97)
+    for c in other_cp_configs():
+        lo = torch.randn((c.n_levels, 3, c.table_size, c.n_components),
+                         generator=gen_o, device=dev) * 0.5
+        xo = random_points(999 if quick else 9999, gen_o, dev)[0].T.contiguous()
+        go = torch.randn((xo.shape[0], c.out_dim), generator=gen_o, device=dev)
+        k = cp_encode_cuda_bwd(lo, xo, go, c)
+        p = cp_encode_cuda_bwd_ref(lo, xo, go, c)
+        k2 = cp_encode_cuda_bwd(lo, xo, go, c)
+        torch.cuda.synchronize()
+        mode = "bf16" if c.use_bf16 else "f32"
+        rep = grad_errors({"lines": k, "dW": [], "db": [], "cW": [], "cb": []},
+                          {"lines": p, "dW": [], "db": [], "cW": [], "cb": []})
+        check(f"cp_encode_bwd, {cp_label(c)}", mode, rep)
+        if not torch.equal(k, k2):
+            raise AssertionError(f"cp_encode_bwd, {cp_label(c)}: two launches differ")
+        other[cp_label(c)] = rep["lines"]["max_rel"]
+        del k, p, k2
     lines = engines["bf16"].model.cp_lines.detach()
+    l32, c32 = engines["f32"].model.cp_lines.detach(), engines["f32"].ngp_config.cp
     b, by = bound_ms(n * (12 + 4 * LC) + 2 * lines.numel() * 4, n * LC * 20, "f32")
     rows.append({
         "name": "cp_encode_bwd", "route": "cuda",
@@ -747,10 +804,14 @@ def phase_grad_kernels(fx, dev, quick: bool, reps: int):
         "n_points": n, "max_abs_err": abs_err,
         "max_rel_err": worst_of(reports.values()), "errors": reports,
         "tolerance": f"per leaf, max abs over the leaf's largest entry: {GRAD_TOL} "
-                     "(chunk sums, in another order than index_add_)",
+                     "(tile sums on the tensor cores and chunk sums, in another "
+                     "order than index_add_; 3xTF32 products in f32 mode)",
+        "other_configs_max_rel_err": other,
         "ms": (ms := time_ms(lambda: cp_encode_cuda_bwd(lines, x_enc, g_enc, cp),
                              reps, 2, flush)),
-        "ms_by_body": {"kernel": ms},
+        # f32 mode is the kernel's other instance (3xTF32, batches of 32)
+        "ms_by_body": {"bf16": ms, "f32": time_ms(
+            lambda: cp_encode_cuda_bwd(l32, x_enc, g_enc, c32), reps, 2, flush)},
         "plain_ms": time_ms(lambda: cp_encode_cuda_bwd_ref(lines, x_enc, g_enc, cp), 2, 1, flush),
         "bound_ms": b, "bound_by": by, "library_ms": None,
     })
@@ -861,12 +922,14 @@ def phase_grad_kernels(fx, dev, quick: bool, reps: int):
             raise AssertionError(f"ngp_fused_train_cf, ragged: err / maps differ by {out_r}")
         ragged[label] = {"rows_6_7_max_rel": max(worst_of([rep6]), worst_of([rep7])),
                          "err_maps_max_abs": out_r}
-    k5 = cp_encode_cuda_bwd(prm["lines"], xr.T.contiguous(), ger, c)
-    p5 = cp_encode_cuda_bwd_ref(prm["lines"], xr.T.contiguous(), ger, c)
-    rep5 = grad_errors({"lines": k5, "dW": [], "db": [], "cW": [], "cb": []},
-                       {"lines": p5, "dW": [], "db": [], "cW": [], "cb": []})
-    check("cp_encode_bwd, ragged", "bf16", rep5)
-    ragged["row_5_max_rel"] = worst_of([rep5])
+    for mode, eng5 in engines.items():
+        l5, c5 = eng5.model.cp_lines.detach(), eng5.ngp_config.cp
+        k5 = cp_encode_cuda_bwd(l5, xr.T.contiguous(), ger, c5)
+        p5 = cp_encode_cuda_bwd_ref(l5, xr.T.contiguous(), ger, c5)
+        rep5 = grad_errors({"lines": k5, "dW": [], "db": [], "cW": [], "cb": []},
+                           {"lines": p5, "dW": [], "db": [], "cW": [], "cb": []})
+        check("cp_encode_bwd, ragged", mode, rep5)
+        ragged[f"row_5_{mode}_max_rel"] = worst_of([rep5])
     # ---- determinism: two launches on the same inputs give the same bits
     # (rows 5-7 here, row 8 in full_step_row, row 10 in classic_grad_row)
     det = {}
@@ -1062,7 +1125,7 @@ def main_path_time(r, points) -> None:
     r["bound_ns_per_point"] = r["bound_ms"] * 1e6 / n
     by_body = {}
     for (name, body), pts in sorted(points.items()):
-        if name != r["name"] or body == "in_fused_bwd" or pts == 0:
+        if name != r["name"] or pts == 0:
             continue
         if body not in r["ms_by_body"]:
             raise AssertionError(f"{name}: body {body} ran on the main path "
@@ -1079,13 +1142,23 @@ def main_path_time(r, points) -> None:
 
 def fused_dlines_time(row5, points) -> dict:
     """Row 5's kernel inside the fused gradient kernels (rows 6-8) on the
-    main paths: the points it walked there times its time a point measured
-    in this run at the same shape. Part of those rows' times, not added to
-    row 5's own."""
-    pts = points["cp_encode_bwd", "in_fused_bwd"]
-    ns = row5["ms_by_body"]["kernel"] * 1e6 / row5["n_points"]
-    return {"points": pts, "ns_per_point": ns, "ms": pts * ns / 1e6,
-            "gap_ms": pts * (ns - row5["bound_ns_per_point"]) / 1e6}
+    main paths: for each body, the points it walked there times that body's
+    time a point measured in this run at the same shape. Part of those rows'
+    times, not added to row 5's own. A body without a timing is an error."""
+    by_body = {}
+    for (name, body), pts in sorted(points.items()):
+        if name != "cp_encode_bwd_in_fused" or pts == 0:
+            continue
+        if body not in row5["ms_by_body"]:
+            raise AssertionError(f"cp_encode_bwd: body {body} ran inside the "
+                                 "fused gradients but was not timed")
+        ns = row5["ms_by_body"][body] * 1e6 / row5["n_points"]
+        by_body[body] = {"points": pts, "ns_per_point": ns, "ms": pts * ns / 1e6,
+                         "gap_ms": pts * (ns - row5["bound_ns_per_point"]) / 1e6}
+    return {"by_body": by_body,
+            "points": sum(v["points"] for v in by_body.values()),
+            "ms": sum(v["ms"] for v in by_body.values()),
+            "gap_ms": sum(v["gap_ms"] for v in by_body.values())}
 
 
 def _replace_cp(ngp, **kw):

@@ -80,7 +80,7 @@
 // Positions and directions get no cotangent, as in the reference.
 #include <stdint.h>
 
-#include "nkt_common.cuh"
+#include "nkt_mma.cuh"
 
 #define NKC_MAX_LAYERS 16
 #define NKC_MAX_FREQS 16
@@ -217,39 +217,13 @@ __device__ __forceinline__ void nkc_layer(const float* A, int lda, int C,
 // ---------------------------------------------------------------------------
 // f32 mode: 3xTF32 on the tensor cores.
 //
-// Fragments of mma.m16n8k8 with TF32 operands (g = lane / 4, t = lane % 4):
-//   A (16 x 8, row major): a0 = (g, t), a1 = (g + 8, t), a2 = (g, t + 4),
-//       a3 = (g + 8, t + 4)
-//   B (8 x 8): b0 = (k t, n g), b1 = (k t + 4, n g)
-//   C (16 x 8, f32): c0 = (g, 2t), c1 = (g, 2t + 1), c2 = (g + 8, 2t),
-//       c3 = (g + 8, 2t + 1)
-// A packed A tile is 256 floats: lane l's hi a0..a3, then its lo a0..a3.
+// The split, the TF32 product and the fragments of mma.m16n8k8 are in
+// nkt_mma.cuh (nkt_tf32_split, nkt_mma_tf32), shared with the line tables'
+// gradient (csrc/cp_encode.cu). A packed A tile is 256 floats: lane l's hi
+// a0..a3, then its lo a0..a3.
 #define NKC_LDP 72      // words per row of the activation buffers (64 + 8)
 #define NKC_FRAG 256    // floats of one packed 16 x 8 A tile, hi and lo
 #define NKC_WARPS (NKC_THREADS / 32)
-
-// cvt.rna.tf32.f32 for a finite x: the magnitude rounded to nearest at bit
-// 13, ties away from zero, the low 13 bits cleared. Two integer operations
-// at the ALU's rate, where the conversion instruction runs on a slower pipe.
-__device__ __forceinline__ uint32_t nkc_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
-// x = hi + lo to about 22 bits; x - hi is exact.
-__device__ __forceinline__ void nkc_split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = nkc_tf32(x);
-  lo = nkc_tf32(x - __uint_as_float(hi));
-}
-
-// c += A B on the tensor cores, TF32 operands. A 3xTF32 product adds
-// a_lo b_hi and a_hi b_lo first, then a_hi b_hi.
-__device__ __forceinline__ void nkc_mma(float* c, const uint32_t* a,
-                                        uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // acc[j] = the packed A tiles `frag` (KT k-tiles of one m-tile) times rows
 // [0, 8 KT) of the (rows, NKC_LDP) buffer in_s at the points of n-tile
@@ -290,12 +264,12 @@ __device__ __forceinline__ void nkc_tc_product(const float* __restrict__ frag,
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       uint32_t bh0, bl0, bh1, bl1;
-      nkc_split(r0[j * 8], bh0, bl0);
-      nkc_split(r1[j * 8], bh1, bl1);
+      nkt_tf32_split(r0[j * 8], bh0, bl0);
+      nkt_tf32_split(r1[j * 8], bh1, bl1);
       float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      nkc_mma(p, al, bh0, bh1);
-      nkc_mma(p, ah, bl0, bl1);
-      nkc_mma(p, ah, bh0, bh1);
+      nkt_mma_tf32(p, al, bh0, bh1);
+      nkt_mma_tf32(p, ah, bl0, bl1);
+      nkt_mma_tf32(p, ah, bh0, bh1);
       acc[j][0] = acc[j][0] + p[0];
       acc[j][1] = acc[j][1] + p[1];
       acc[j][2] = acc[j][2] + p[2];
@@ -517,7 +491,7 @@ __global__ void nkc_pack_kernel(ClassicArgs a) {
       if (r < rows && c < ks)  // forward: W^T[r][c]; backward: W[r][c]
         v = pass == 0 ? W[c * sk + r * sj] : W[r * sk + c * sj];
       uint32_t hi, lo;
-      nkc_split(v, hi, lo);
+      nkt_tf32_split(v, hi, lo);
       dst[e] = __uint_as_float(sl < 4 ? hi : lo);
     }
   }
@@ -762,24 +736,24 @@ __global__ void __launch_bounds__(NKC_THREADS, 2)
         for (int mi = 0; mi < 2; ++mi) {
           const float* ar = As + ((m0 + mi) * 16 + g) * NKC_WG_LD + ks * 8 + t;
           const bool ok = mi < mc && m0 + mi < mt;
-          nkc_split(ok ? ar[0] : 0.0f, ah[mi][0], al[mi][0]);
-          nkc_split(ok ? ar[8 * NKC_WG_LD] : 0.0f, ah[mi][1], al[mi][1]);
-          nkc_split(ok ? ar[4] : 0.0f, ah[mi][2], al[mi][2]);
-          nkc_split(ok ? ar[8 * NKC_WG_LD + 4] : 0.0f, ah[mi][3], al[mi][3]);
+          nkt_tf32_split(ok ? ar[0] : 0.0f, ah[mi][0], al[mi][0]);
+          nkt_tf32_split(ok ? ar[8 * NKC_WG_LD] : 0.0f, ah[mi][1], al[mi][1]);
+          nkt_tf32_split(ok ? ar[4] : 0.0f, ah[mi][2], al[mi][2]);
+          nkt_tf32_split(ok ? ar[8 * NKC_WG_LD + 4] : 0.0f, ah[mi][3], al[mi][3]);
         }
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt) {
           if (nt < ncn && n0 + nt < ntt) {
             const float* gr = Gs + ((n0 + nt) * 8 + g) * NKC_WG_LD + ks * 8 + t;
             uint32_t bh0, bl0, bh1, bl1;
-            nkc_split(gr[0], bh0, bl0);
-            nkc_split(gr[4], bh1, bl1);
+            nkt_tf32_split(gr[0], bh0, bl0);
+            nkt_tf32_split(gr[4], bh1, bl1);
 #pragma unroll
             for (int mi = 0; mi < 2; ++mi) {
               if (mi < mc && m0 + mi < mt) {
-                nkc_mma(acc[mi][nt], al[mi], bh0, bh1);
-                nkc_mma(acc[mi][nt], ah[mi], bl0, bl1);
-                nkc_mma(acc[mi][nt], ah[mi], bh0, bh1);
+                nkt_mma_tf32(acc[mi][nt], al[mi], bh0, bh1);
+                nkt_mma_tf32(acc[mi][nt], ah[mi], bl0, bl1);
+                nkt_mma_tf32(acc[mi][nt], ah[mi], bh0, bh1);
               }
             }
           }

@@ -73,6 +73,66 @@ __device__ __forceinline__ void nkt_ldm4(uint32_t* r, const uint32_t* p) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
 }
 
+// The same, each matrix transposed: a B operand stored (k rows, n columns)
+// with n contiguous gives lane (g, t) the pair (k 2t..2t+1, n g).
+__device__ __forceinline__ void nkt_ldm4t(uint32_t* r, const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+
+// f32 products in 3xTF32 on mma.sync.m16n8k8 (TF32 operands, f32
+// accumulation). Fragments (g = lane / 4, t = lane % 4):
+//   A (16 x 8, row major): a0 = (g, t), a1 = (g + 8, t), a2 = (g, t + 4),
+//       a3 = (g + 8, t + 4)
+//   B (8 x 8): b0 = (k t, n g), b1 = (k t + 4, n g)
+//   C (16 x 8, f32): as for m16n8k16.
+// An f32 operand a is split into a_hi = cvt.rna.tf32(a) and a_lo =
+// cvt.rna.tf32(a - a_hi) (exact with -fmad=false), and a * b is taken as
+// a_lo * b_hi + a_hi * b_lo + a_hi * b_hi, the small terms first: about 22
+// bits of each operand, near f32, at a third of the TF32 rate.
+//
+// cvt.rna.tf32.f32 for a finite x: the magnitude rounded to nearest at bit
+// 13, ties away from zero, the low 13 bits cleared. Two integer operations
+// at the ALU's rate, where the conversion instruction runs on a slower pipe.
+__device__ __forceinline__ uint32_t nkt_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo to about 22 bits; x - hi is exact.
+__device__ __forceinline__ void nkt_tf32_split(float x, uint32_t& hi,
+                                               uint32_t& lo) {
+  hi = nkt_tf32(x);
+  lo = nkt_tf32(x - __uint_as_float(hi));
+}
+
+// c += A B on the tensor cores, TF32 operands (one of the three products).
+__device__ __forceinline__ void nkt_mma_tf32(float* c, const uint32_t* a,
+                                             uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += A B in 3xTF32 (ah / al: the split A fragment, b*: the split B
+// fragment), the three products summed from zero and added with IEEE adds,
+// as nkt_mma_add does for bf16.
+__device__ __forceinline__ void nkt_mma3_add(float* c, const uint32_t* ah,
+                                             const uint32_t* al, uint32_t bh0,
+                                             uint32_t bh1, uint32_t bl0,
+                                             uint32_t bl1) {
+  float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  nkt_mma_tf32(p, al, bh0, bh1);
+  nkt_mma_tf32(p, ah, bl0, bl1);
+  nkt_mma_tf32(p, ah, bh0, bh1);
+  c[0] = c[0] + p[0];
+  c[1] = c[1] + p[1];
+  c[2] = c[2] + p[2];
+  c[3] = c[3] + p[3];
+}
+
 // acc[nt] = sum over k-tiles kt < KT of af[kt] times rows [8 nt, 8 nt + 8)
 // of the packed matrix W (ld words a row), for nt < NT. Loops run to their
 // compile-time bounds so that the fragments stay in registers.

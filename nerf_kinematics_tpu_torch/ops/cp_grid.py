@@ -188,11 +188,19 @@ def level_taps(x_axis: torch.Tensor, cfg: CPGridConfig, level: int, axis: int):
 
 
 def cp_encode_stacked(stacked: torch.Tensor, x: torch.Tensor,
-                      cfg: CPGridConfig) -> torch.Tensor:
+                      cfg: CPGridConfig, point_grads: bool = False) -> torch.Tensor:
     """Plain PyTorch encoder over the stacked ``(L, 3, T, C)`` table:
-    ``x`` in [0,1]^3, shape ``(..., 3)`` -> ``(..., L*C)`` f32."""
+    ``x`` in [0,1]^3, shape ``(..., 3)`` -> ``(..., L*C)`` f32.
+
+    As in the reference, the tent weights are computed from a detached ``x``
+    unless ``point_grads`` is set: by default no gradient reaches the points
+    (training treats them as data), and ``point_grads=True`` keeps the tents
+    differentiable in ``x`` (pose refinement). The tables' gradient is the
+    same either way."""
     orig = x.shape[:-1]
     x = torch.clamp(x.reshape(-1, 3).to(torch.float32), 0.0, 1.0)
+    if not point_grads:
+        x = x.detach()
     tables = _round_bf16(stacked) if cfg.use_bf16 else stacked.to(torch.float32)
     feats = []
     for l in range(cfg.n_levels):

@@ -24,9 +24,12 @@ from .cp_grid import CPGridConfig, _round_bf16, cp_encode_stacked, level_taps
 
 REF_CHUNK = 1 << 18  # points per chunk of the plain version
 DLINES_PARTIAL_BYTES = 1 << 28  # cap of the line-table gradient's chunk sums
-DLINES_MIN_POINTS = 512         # points a chunk of that kernel walks at least
-DLINES_BATCH = 128              # NKT_DL_BATCH of csrc/cp_encode.cu
-TAP_BYTES = 12                  # sizeof(NktTapS)
+DLINES_MIN_POINTS = 512         # points a chunk of that kernel takes at least
+# what the kernels refuse (cudaErrorInvalidValue), for the error message
+ENCODE_REFUSED = "no channel slice of a level's three tables fits one block's shared memory"
+DLINES_REFUSED = ("the line-table gradient takes an even number of components "
+                  "and tables of which a 16-channel slice fits one block's "
+                  "shared memory")
 
 
 def _check_lines(lines, cfg: CPGridConfig):
@@ -70,8 +73,8 @@ def _encode(lines, x, cfg: CPGridConfig) -> torch.Tensor:
             cuda_lib.current_stream(flat.device),
         )
         cuda_lib.LAUNCHES["cp_encode"] += 1
-        cuda_lib.POINTS["cp_encode", "kernel"] += n
-        cuda_lib.raise_on_error(code, "cp_encode")
+        cuda_lib.POINTS["cp_encode", "bf16" if cfg.use_bf16 else "f32"] += n
+        cuda_lib.raise_on_error(code, "cp_encode", ENCODE_REFUSED)
     return out.reshape(*orig, cfg.out_dim)
 
 
@@ -114,37 +117,19 @@ def cp_encode_cuda_bwd_ref(lines: torch.Tensor, x: torch.Tensor,
 
 def dlines_chunks(n: int, cfg: CPGridConfig, n_sm: int) -> int:
     """Point chunks of the line-table gradient kernel (``nkt_dlines_launch``):
-    about two waves of its (level, axis) blocks (one block an SM), at least
+    about one of its blocks (a chunk's level) an SM, at least
     ``DLINES_MIN_POINTS`` points a chunk, and the chunk sums
     (chunks x L x 3 x T x C f32) under ``DLINES_PARTIAL_BYTES``."""
-    per = 3 * cfg.n_levels
-    table = per * cfg.table_size * cfg.n_components * 4
-    want = max(1, -(-2 * n_sm // per))
+    table = 3 * cfg.n_levels * cfg.table_size * cfg.n_components * 4
+    want = max(1, -(-n_sm // cfg.n_levels))
     by_points = max(1, -(-n // DLINES_MIN_POINTS))
     by_memory = max(1, DLINES_PARTIAL_BYTES // table)
     return min(want, by_points, by_memory)
 
 
-def dlines_smem_bytes(cfg: CPGridConfig) -> int:
-    """Shared memory of one block of the line-table gradient kernel: its
-    (level, axis) gradient table and the other two axes' tables (f32), and
-    two batches of staged cotangent rows, taps and row groups."""
-    C = cfg.n_components
-    return (3 * cfg.table_size + 2 * DLINES_BATCH) * C * 4 + 2 * DLINES_BATCH * (3 * TAP_BYTES + 4)
-
-
 def dlines_scratch(n: int, cfg: CPGridConfig, device):
     """The chunk-sum scratch of the line-table gradient kernel over ``n``
-    points and its chunk count; raises if one (level, axis) block's tables
-    exceed the shared memory of a block."""
-    if cfg.n_components % 2:
-        raise ValueError("the line-table gradient takes an even number of "
-                         "components (a lane adds two)")
-    smem = dlines_smem_bytes(cfg)
-    if smem > cuda_lib.SMEM_LIMIT:
-        raise ValueError(
-            f"the line-table gradient needs {smem} B of shared memory, above "
-            f"the {cuda_lib.SMEM_LIMIT} B one block may use")
+    points and its chunk count (the kernel may take fewer chunks)."""
     chunks = dlines_chunks(n, cfg, cuda_lib.sm_count(device))
     rows = chunks if chunks > 1 else 0
     shape = (rows, cfg.n_levels, 3, cfg.table_size, cfg.n_components)
@@ -155,9 +140,9 @@ def dlines_scratch(n: int, cfg: CPGridConfig, device):
 def cp_encode_cuda_bwd(lines: torch.Tensor, x: torch.Tensor, g: torch.Tensor,
                        cfg: CPGridConfig) -> torch.Tensor:
     """The VJP of :func:`cp_encode_cuda` in ``lines``: (L, 3, T, C). A CUDA
-    tensor goes through the kernel, whose sum over the points runs in a
-    fixed order (two calls give the same bits); a CPU tensor through the
-    plain version."""
+    tensor goes through the kernel (the contraction of the tent with the
+    cotangent on the tensor cores, its sum over the points in a fixed order:
+    two calls give the same bits); a CPU tensor through the plain version."""
     if not x.is_cuda:
         return cp_encode_cuda_bwd_ref(lines, x, g, cfg)
     _check_lines(lines, cfg)
@@ -179,8 +164,8 @@ def cp_encode_cuda_bwd(lines: torch.Tensor, x: torch.Tensor, g: torch.Tensor,
         cuda_lib.current_stream(flat.device),
     )
     cuda_lib.LAUNCHES["cp_encode_bwd"] += 1
-    cuda_lib.POINTS["cp_encode_bwd", "kernel"] += n
-    cuda_lib.raise_on_error(code, "cp_encode_bwd")
+    cuda_lib.POINTS["cp_encode_bwd", "bf16" if cfg.use_bf16 else "f32"] += n
+    cuda_lib.raise_on_error(code, "cp_encode_bwd", DLINES_REFUSED)
     return dl
 
 

@@ -57,9 +57,10 @@ LAUNCHES = {
 # Points each kernel's launches took (row 8: coarse and fine points), by the
 # same names and by the body that ran: "bf16" / "f32" where the mode picks the
 # fast engine's kernels, "3xtf32" / "fma" / "bf16" for the classic ones,
-# "kernel" where one kernel serves every call. ("cp_encode_bwd", "in_fused_bwd"):
-# the points that kernel walks inside the fused gradient kernels' launches. A
-# kernel's time on a path is its points times its body's time a point.
+# "kernel" where one kernel serves every call. ("cp_encode_bwd_in_fused",
+# "bf16" / "f32"): the points row 5's kernel walks inside the fused gradient
+# kernels' launches. A kernel's time on a path is its points times its body's
+# time a point.
 POINTS: collections.Counter = collections.Counter()
 
 
@@ -399,6 +400,11 @@ def current_stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def raise_on_error(code: int, what: str) -> None:
+def raise_on_error(code: int, what: str, refused: str | None = None) -> None:
+    """Raise on a launcher's nonzero CUDA error code. ``refused``: what a
+    launcher's cudaErrorInvalidValue (1) means, a configuration it does not
+    take; raised as a ValueError."""
+    if code == 1 and refused:
+        raise ValueError(f"{what}: {refused}")
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")

@@ -761,7 +761,7 @@ def _launch_grad(params, xt, vdt, cfg: CPGridConfig, g=None, train=None,
     cuda_lib.LAUNCHES[name] += 1
     cuda_lib.POINTS[name, "bf16" if cfg.use_bf16 else "f32"] += n + (
         full.R * full.Sc if full is not None else 0)
-    cuda_lib.POINTS["cp_encode_bwd", "in_fused_bwd"] += n
+    cuda_lib.POINTS["cp_encode_bwd_in_fused", "bf16" if cfg.use_bf16 else "f32"] += n
     cuda_lib.raise_on_error(code, name)
     d = {"lines": dlines, "dW": [], "db": [], "cW": [], "cb": []}
     off = 0

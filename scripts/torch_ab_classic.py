@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """A/B of two trees of the port on one card, in one call: rows 9 and 10 (the
-classic engine's fused kernels, f32), the classic train step, row 8 (the
-fast engine's whole-step kernel) and the ``fused_train: full`` train step.
+classic engine's fused kernels, f32), the classic train step, rows 4 and 5
+(the CP encoder's forward at the occupancy sweep's 96^3 points and its
+line-table gradient at the flagship step's 393 216 points, bf16), row 8 (the
+fast engine's whole-step kernel), the ``fused_train: full`` train step and
+the two-call train step (rows 7 and 2).
 
     git archive <rev> nerf_kinematics_tpu_torch | tar -x -C build/ab_parent
     python3 scripts/torch_ab_classic.py --parent build/ab_parent
@@ -41,7 +44,6 @@ def _worker(tree: str, build: str) -> dict:
     os.environ["NKT_TORCH_BUILD_DIR"] = build
     sys.path.insert(0, tree)
     sys.path.append(ROOT)  # chip_smoke's shapes and config (no package import)
-    import numpy as np
     import torch
 
     import chip_smoke as cs
@@ -56,6 +58,35 @@ def _worker(tree: str, build: str) -> dict:
     cuda_lib.load_library()
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     out = {"tree": tree, "build_seconds": cuda_lib.BUILD_INFO["seconds"]}
+
+    _classic(out, cs, dev, flush)
+    _fast(out, cs, dev, flush)
+    return out
+
+
+def _dataset(dev, size, views, rng):
+    import numpy as np
+    import torch
+
+    from nerf_kinematics_tpu_torch.data.machina import machina_intrinsics, orbit_poses
+    from nerf_kinematics_tpu_torch.data.types import dataset_from_arrays
+
+    poses = np.concatenate([orbit_poses(views // 2, elev_deg=e) for e in (15.0, 40.0)]
+                           + [orbit_poses(4, elev_deg=25.0)[:2]])
+    images = torch.tensor(rng.uniform(size=(len(poses), size, size, 3)).astype(np.float32),
+                          device=dev)
+    return dataset_from_arrays(images, poses, machina_intrinsics(size), 2.0, 6.0, n_val=2)
+
+
+QUIET = dict(print_every=0, validate_every=0, save_every=0)
+
+
+def _classic(out, cs, dev, flush) -> None:
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
 
     # ---- rows 9 and 10 at 131 072 points, f32 ---------------------------
     from nerf_kinematics_tpu_torch.ops import classic_fused_cuda as cfc
@@ -79,39 +110,34 @@ def _worker(tree: str, build: str) -> dict:
     del eng, prm, xt, vd, g4
 
     # ---- the classic train step (machina_classic, 1024 rays x 64 + 64) ---
-    from nerf_kinematics_tpu_torch.data.machina import machina_intrinsics, orbit_poses
-    from nerf_kinematics_tpu_torch.data.types import dataset_from_arrays
     from nerf_kinematics_tpu_torch.train.config import config_from_dict
     from nerf_kinematics_tpu_torch.train.trainer import Trainer
 
-    rng = np.random.default_rng(5)
-
-    def dataset(size, views):
-        poses = np.concatenate([orbit_poses(views // 2, elev_deg=e) for e in (15.0, 40.0)]
-                               + [orbit_poses(4, elev_deg=25.0)[:2]])
-        images = torch.tensor(rng.uniform(size=(len(poses), size, size, 3)).astype(np.float32),
-                              device=dev)
-        return dataset_from_arrays(images, poses, machina_intrinsics(size), 2.0, 6.0, n_val=2)
-
-    import dataclasses
-    import tempfile
-
-    quiet = dict(print_every=0, validate_every=0, save_every=0)
     with tempfile.TemporaryDirectory() as logdir:
         base = config_from_dict(cs.CLASSIC_CONFIG)
         cfg = base.replace(experiment=dataclasses.replace(
-            base.experiment, logdir=logdir, id="ab_classic", **quiet))
-        trainer = Trainer(cfg, dataset(200, 40))
+            base.experiment, logdir=logdir, id="ab_classic", **QUIET))
+        trainer = Trainer(cfg, _dataset(dev, 200, 40, np.random.default_rng(5)))
         out["classic_step"] = _time_steps(trainer, trainer.init_or_resume(), cs,
                                           cs.CLASSIC_PARTS)
         trainer.close()
 
-    # ---- row 8 and the fused_train: full step (machina_ngp) --------------
+
+def _fast(out, cs, dev, flush) -> None:
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    # ---- rows 4, 5 and 8, the full and the two-call step (machina_ngp) ---
     from nerf_kinematics_tpu_torch.io.convert import grid_from_numpy
     from nerf_kinematics_tpu_torch.io.fixture import read_fixture
+    from nerf_kinematics_tpu_torch.ops.cp_grid_cuda import cp_encode_cuda, cp_encode_cuda_bwd
     from nerf_kinematics_tpu_torch.ops.ngp_fused_cuda import ngp_fused_train_full_cf
     from nerf_kinematics_tpu_torch.ops.occupancy import pair_projections
     from nerf_kinematics_tpu_torch.train.ngp_engine import NGPEngine
+    from nerf_kinematics_tpu_torch.train.trainer import Trainer
 
     fx = read_fixture()
     ngp, t = fx.config.ngp, fx.config.nerf.train
@@ -123,25 +149,34 @@ def _worker(tree: str, build: str) -> dict:
     e = NGPEngine(fx.config, 1.0, device=dev)
     e.load_flax_params(fx.params)
     p8, c8 = e._fused_params(detach=True), e.ngp_config.cp
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    x4 = cs.random_points(ngp.occ_resolution ** 3, gen, dev)[0].T.contiguous()
+    x5 = cs.random_points(R * S, gen, dev)[0].T.contiguous()
+    g5 = torch.randn((R * S, c8.out_dim), generator=gen, device=dev)
     rays = cs.full_step_inputs(R, S, Sc, torch.Generator(device=dev).manual_seed(8888), dev)
     with torch.no_grad():
+        out["row4_ms"] = cs.time_ms(lambda: cp_encode_cuda(p8["lines"], x4, c8), 9, 2, flush)
+        out["row5_ms"] = cs.time_ms(
+            lambda: cp_encode_cuda_bwd(p8["lines"], x5, g5, c8), 9, 2, flush)
         out["row8_ms"] = cs.time_ms(lambda: ngp_fused_train_full_cf(
             p8, *rays, proj2, c8, S, Sc, NB, True, 1.0 / (3.0 * R), near, far, 1.0,
             ngp.occ_floor), 9, 2, flush)
-    del e, p8, rays
-    with tempfile.TemporaryDirectory() as logdir:
-        c = fx.config
-        cfg = c.replace(
-            ngp=dataclasses.replace(c.ngp, fused_train="full"),
-            experiment=dataclasses.replace(c.experiment, logdir=logdir, id="ab_full",
-                                           **quiet))
-        trainer = Trainer(cfg, dataset(400, 40))
-        trainer.engine.load_flax_params(fx.params)
-        state = trainer.engine.init_state(keep_weights=True)
-        state.aux = grid_from_numpy(fx.grid_density, fx.grid_bound, device=dev)
-        out["full_step"] = _time_steps(trainer, state, cs, cs.ROW8_PARTS)
-        trainer.close()
-    return out
+    del e, p8, rays, x4, x5, g5
+    data = _dataset(dev, 400, 40, np.random.default_rng(5))
+    for key, route, groups in (("full_step", "full", cs.ROW8_PARTS),
+                               ("two_call_step", "auto", None)):
+        with tempfile.TemporaryDirectory() as logdir:
+            c = fx.config
+            cfg = c.replace(
+                ngp=dataclasses.replace(c.ngp, fused_train=route),
+                experiment=dataclasses.replace(c.experiment, logdir=logdir,
+                                               id=f"ab_{route}", **QUIET))
+            trainer = Trainer(cfg, data)
+            trainer.engine.load_flax_params(fx.params)
+            state = trainer.engine.init_state(keep_weights=True)
+            state.aux = grid_from_numpy(fx.grid_density, fx.grid_bound, device=dev)
+            out[key] = _time_steps(trainer, state, cs, groups)
+            trainer.close()
 
 
 def _time_steps(trainer, state, cs, groups) -> dict:
@@ -211,9 +246,12 @@ def main(argv=None) -> int:
             "row10_plain_ms": lambda r: r["row10_plain_ms"],
             "classic_step_ms": lambda r: r["classic_step"]["ms_per_step"],
             "classic_step_device_ms": lambda r: r["classic_step"]["device_ms_per_step"],
+            "row4_ms": lambda r: r["row4_ms"], "row5_ms": lambda r: r["row5_ms"],
             "row8_ms": lambda r: r["row8_ms"],
             "full_step_ms": lambda r: r["full_step"]["ms_per_step"],
-            "full_step_device_ms": lambda r: r["full_step"]["device_ms_per_step"]}
+            "full_step_device_ms": lambda r: r["full_step"]["device_ms_per_step"],
+            "two_call_step_ms": lambda r: r["two_call_step"]["ms_per_step"],
+            "two_call_step_device_ms": lambda r: r["two_call_step"]["device_ms_per_step"]}
     summary = {label: {k: med(label, f) for k, f in keys.items()} for label in trees
                if any(r["run"] == label for r in runs)}
     print(json.dumps({"nvidia_smi": smi, "medians": summary}), flush=True)

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Where the time of the classic engine's f32 kernels (rows 9, 10: 3xTF32 on
-the tensor cores) and of the line-table gradient kernel (row 5) goes, by
-ablation: build variants of the kernel library with one part switched off
-and time the kernels at the main paths' shapes (rows 9 and 10 at 131 072
-points, row 5 at the flagship step's 393 216 points). The variants compute
-wrong values on purpose; only their times are read. A stand-in for a
+the tensor cores) goes, by ablation: build variants of the kernel library
+with one part switched off and time the kernels at the main path's shape
+(131 072 points). The variants compute wrong values on purpose; only their
+times are read. (``scripts/torch_ablate_cp.py`` does the same for rows 4
+and 5.) A stand-in for a
 profile by stall reason, which ``ncu`` cannot take on these cards.
 
     python3 scripts/torch_ablate_classic.py
@@ -27,43 +27,30 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from nerf_kinematics_tpu_torch.io.fixture import read_fixture  # noqa: E402
 from nerf_kinematics_tpu_torch.ops import classic_fused_cuda as cfc  # noqa: E402
-from nerf_kinematics_tpu_torch.ops import cp_grid_cuda, cuda_lib  # noqa: E402
-from nerf_kinematics_tpu_torch.ops.cp_grid_cuda import cp_encode_cuda_bwd  # noqa: E402
-from nerf_kinematics_tpu_torch.train.ngp_engine import NGPEngine  # noqa: E402
+from nerf_kinematics_tpu_torch.ops import cuda_lib  # noqa: E402
 
 C = "classic_fused.cu"
 # (file, old, new) edits; what each set switches off is its name
 WEIGHTS_L1 = [(C, "      h1 = __ldg(fp + (kt + 2) * FS);\n      l1 = __ldg(fp + (kt + 2) * FS + 1);",
                "      h1 = __ldg(fp);\n      l1 = __ldg(fp + 1);")]
-ONE_PRODUCT = [(C, "      nkc_mma(p, al, bh0, bh1);\n      nkc_mma(p, ah, bl0, bl1);\n", "")]
-NO_SPLIT = [(C, "  hi = nkc_tf32(x);\n  lo = nkc_tf32(x - __uint_as_float(hi));",
+ONE_PRODUCT = [(C, "      nkt_mma_tf32(p, al, bh0, bh1);\n      nkt_mma_tf32(p, ah, bl0, bl1);\n", "")]
+NO_SPLIT = [("nkt_mma.cuh", "  hi = nkt_tf32(x);\n  lo = nkt_tf32(x - __uint_as_float(hi));",
              "  hi = __float_as_uint(x);\n  lo = hi;")]
-WG_NO_MMA = [(C, "              if (mi < mc && m0 + mi < mt) {\n                nkc_mma(acc[mi][nt], al[mi]",
-              "              if (mi < 0) {\n                nkc_mma(acc[mi][nt], al[mi]")]
-DL_NO_WALK = [("cp_encode.cu", "        m = __ballot_sync(0xffffffffu, (o & 255u) == grp || (o >> 8) == grp);",
-               "        m = __ballot_sync(0xffffffffu, (o & 255u) == grp || (o >> 8) == grp) & 0u;")]
-DL_NO_PRODUCTS = [("cp_encode.cu", "      gb[e] = bf ? nkt_bf16r(v) : v;", "      gb[e] = v * 0.0f + gb[e];")]
-DL_NO_STAGE = [("cp_encode.cu", "      nkt_dl_cp4(gbuf[buf] + e, g + (p0 + pp) * gs_i + l * C + ch);",
-                "      gbuf[buf][e] = 1.0f;")]
-CHUNK_FACTORS = (0.5, 3.0, 6.0)
+WG_NO_MMA = [(C, "              if (mi < mc && m0 + mi < mt) {\n                nkt_mma_tf32(acc[mi][nt], al[mi]",
+              "              if (mi < 0) {\n                nkt_mma_tf32(acc[mi][nt], al[mi]")]
 VARIANTS = {
     "as built": [],
     "weight fragments all from one tile (L1)": WEIGHTS_L1,
     "one TF32 product instead of three": ONE_PRODUCT,
     "no split of the operands": NO_SPLIT,
     "weight gradients without products": WG_NO_MMA,
-    "line-table gradient without the walk": DL_NO_WALK,
-    "line-table gradient without the cotangent loads": DL_NO_STAGE,
-    "line-table gradient without the product pass": DL_NO_PRODUCTS,
 }
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--classic-points", type=int, default=1024 * 128)
-    ap.add_argument("--line-points", type=int, default=8192 * 48)
     args = ap.parse_args(argv)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -74,12 +61,6 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(99)
     xt, vd = chip_smoke.classic_points(args.classic_points, gen, dev)
     g4 = torch.randn((4, args.classic_points), generator=gen, device=dev)
-    fx = read_fixture()
-    ngp = NGPEngine(fx.config, 1.0, device=dev)
-    ngp.load_flax_params(fx.params)
-    lines, cp = ngp.model.cp_lines.detach(), ngp.ngp_config.cp
-    x_enc = chip_smoke.random_points(args.line_points, gen, dev)[0].T.contiguous()
-    g_enc = torch.randn((args.line_points, cp.out_dim), generator=gen, device=dev)
     root = os.path.join(cuda_lib.build_dir(), "ablation_classic")
     src = cuda_lib.CSRC_DIR
     smi = chip_smoke.nvidia_smi_line()
@@ -110,23 +91,9 @@ def main(argv=None) -> int:
                 "row10_parts_ms": chip_smoke.profile_parts(
                     lambda: cfc.classic_fused_apply_cf_bwd(prm, xt, vd, g4, mcfg),
                     chip_smoke.ROW10_PARTS),
-                "row5_ms": chip_smoke.time_ms(
-                    lambda: cp_encode_cuda_bwd(lines, x_enc, g_enc, cp), 5, 2, flush),
             }
         print(json.dumps({"variant": name, "classic_points": args.classic_points,
-                          "line_points": args.line_points, **ms, "device": smi}), flush=True)
-        if i == 0:  # the line-table kernel as built, with other chunk counts
-            base = cp_grid_cuda.dlines_chunks
-            for factor in CHUNK_FACTORS:
-                cp_grid_cuda.dlines_chunks = lambda n, c, s, f=factor: max(
-                    1, int(round(base(n, c, s) * f)))
-                ms5 = chip_smoke.time_ms(
-                    lambda: cp_encode_cuda_bwd(lines, x_enc, g_enc, cp), 5, 2, flush)
-                cp_grid_cuda.dlines_chunks = base
-                print(json.dumps({"variant": f"as built, {factor}x the chunks of row 5",
-                                  "chunks": max(1, int(round(base(args.line_points, cp, 132)
-                                                              * factor))),
-                                  "row5_ms": ms5, "device": smi}), flush=True)
+                          **ms, "device": smi}), flush=True)
     return 0
 
 

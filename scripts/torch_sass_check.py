@@ -6,9 +6,11 @@ library: ``cuobjdump -sass`` of the library, HMMA / HGMMA per kernel.
 
 Prints one JSON object: per kernel the number of HMMA (``mma.sync``) and
 HGMMA (``wgmma``) instructions, and of the HMMA those with TF32 operands.
-Exits 1 when a bf16-mode kernel of the fast engine has none, when a classic
-f32-mode kernel (3xTF32) has no TF32 HMMA, or when an FMA kernel (the fast
-engine's f32 mode, the classic engine's bf16 mode) has any. Needs the CUDA
+Exits 1 when a bf16-mode kernel of the fast engine (the line tables'
+gradient's bf16 instance too) has none, when a 3xTF32 kernel (the classic
+engine's f32 mode, the line tables' gradient's f32 instance) has no TF32
+HMMA, or when an FMA kernel (the fast engine's f32 mode, the classic
+engine's bf16 mode, the encoder's forward) has any. Needs the CUDA
 toolkit's ``cuobjdump`` (the machine with the card).
 """
 
@@ -25,14 +27,20 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from nerf_kinematics_tpu_torch.ops import cuda_lib  # noqa: E402
 
+# The line tables' gradient (row 5) has one template instance per mode:
+# bf16 (mma.m16n8k16) and f32 (3xTF32), named here as cuobjdump prints them,
+# mangled (ILb1E: <true>) or not.
+DL_BF16 = ("nkt_cp_encode_bwd_kernelILb1E", "nkt_cp_encode_bwd_kernel<true>")
+DL_F32 = ("nkt_cp_encode_bwd_kernelILb0E", "nkt_cp_encode_bwd_kernel<false>")
 TENSOR_CORE = ("nkt_mma_sigma_kernel", "nkt_mma_apply_kernel",
                "nkt_mma_apply_save_kernel", "nkt_mma_point_bwd_kernel",
-               "nkt_wgrad_mma_kernel")
-TF32 = ("nkc_tc_forward_kernel", "nkc_tc_bwd_tile_kernel", "nkc_tc_wgrad_kernel")
+               "nkt_wgrad_mma_kernel", DL_BF16)
+TF32 = ("nkc_tc_forward_kernel", "nkc_tc_bwd_tile_kernel", "nkc_tc_wgrad_kernel",
+        DL_F32)
 FMA_ONLY = ("nkt_fused_sigma_kernel", "nkt_fused_apply_kernel",
             "nkt_fused_apply_save_kernel", "nkt_fused_point_bwd_kernel",
             "nkt_wgrad_kernel", "nkc_forward_kernel", "nkc_bwd_tile_kernel",
-            "nkt_cp_encode_bwd_kernel")
+            "nkt_cp_encode_kernel")
 
 
 def main() -> int:
@@ -56,19 +64,23 @@ def main() -> int:
                     counts[name]["TF32"] += 1
 
     def of(kernel):
-        hits = {k: v for k, v in counts.items() if kernel in k}
+        names = (kernel,) if isinstance(kernel, str) else kernel
+        hits = {k: v for k, v in counts.items() if any(m in k for m in names)}
         return {"HMMA": sum(v["HMMA"] for v in hits.values()),
                 "HGMMA": sum(v["HGMMA"] for v in hits.values()),
                 "TF32": sum(v["TF32"] for v in hits.values()),
                 "functions": len(hits)}
 
-    report = {k: of(k) for k in TENSOR_CORE + TF32 + FMA_ONLY}
+    label = {k: k if isinstance(k, str) else k[1] for k in TENSOR_CORE + TF32 + FMA_ONLY}
+    report = {label[k]: of(k) for k in TENSOR_CORE + TF32 + FMA_ONLY}
     print(json.dumps({"library": os.path.basename(lib), "kernels": report}))
-    bad = [k for k in TENSOR_CORE
-           if report[k]["functions"] == 0 or report[k]["HMMA"] + report[k]["HGMMA"] == 0]
-    bad += [k for k in TF32 if report[k]["functions"] == 0 or report[k]["TF32"] == 0]
-    bad += [k for k in FMA_ONLY
-            if report[k]["functions"] == 0 or report[k]["HMMA"] + report[k]["HGMMA"] > 0]
+    tc = [report[label[k]] for k in TENSOR_CORE]
+    bad = [label[k] for k, r in zip(TENSOR_CORE, tc)
+           if r["functions"] == 0 or r["HMMA"] + r["HGMMA"] == 0]
+    bad += [label[k] for k in TF32
+            if report[label[k]]["functions"] == 0 or report[label[k]]["TF32"] == 0]
+    bad += [label[k] for k in FMA_ONLY if report[label[k]]["functions"] == 0
+            or report[label[k]]["HMMA"] + report[label[k]]["HGMMA"] > 0]
     if bad:
         print(f"torch_sass_check: unexpected tensor-core use in {bad}", file=sys.stderr)
         return 1
