@@ -29,8 +29,11 @@ width through the entry points a user calls:
     beside the canonical run's; one step of the whole-step and of the
     two-call route from one state and one set of draws.
 
-The kernel phases also hold row 1 to its plain version on NaN and +-inf
-points, launch each gradient kernel (rows 5-8, 10) twice on the same inputs
+The kernel phases also hold every kernel to its plain version on non-finite
+inputs (the cases of tests/test_torch_nonfinite.py, and row 1 on NaN and
++-inf points: equal NaN, +inf and -inf masks), time row 1 at the two-call
+step's 524 288 points too, launch each gradient kernel (rows 5-8, 10) twice
+on the same inputs
 and require the same bits, split row 10 by kernel beside a cuBLAS f32
 yardstick, and the ``scene`` phase takes the whole step twice from one state
 and requires the same parameters.
@@ -88,14 +91,19 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int, warmup: int, flush=None) -> float:
+def time_ms(fn, reps: int, warmup: int, flush=None, clean: bool = False) -> float:
     """Median milliseconds of ``fn`` over ``reps`` launches (CUDA events),
-    after ``warmup`` launches, with the L2 cache overwritten in between."""
+    after ``warmup`` launches, with the L2 cache overwritten in between:
+    by writing ``flush`` (the L2 then holds dirty lines, which a kernel that
+    streams more than the cache pays to write back), or with ``clean`` by
+    reading it."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
-        if flush is not None:
+        if flush is not None and clean:
+            flush.sum()
+        elif flush is not None:
             flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -172,6 +180,213 @@ def cp_label(c) -> str:
             f"{'bf16' if c.use_bf16 else 'f32'}")
 
 
+# ---- non-finite inputs --------------------------------------------------
+# The cases of tests/test_torch_nonfinite.py, where the plain versions are
+# held to the Pallas kernels' NaN, +inf and -inf masks on the CPU: here each
+# kernel must give exactly its plain version's masks (finite entries are held
+# to their tolerances by the finite cases above). Small shapes: the plain
+# versions' rare paths are slow.
+NONFINITE_POINTS = 4096
+POINT_CASES = ("nan_point", "inf_point")
+PARAM_CASES = ("nan_weight", "nan_line")
+COT_CASES = ("nan_cot", "inf_cot")
+
+
+def spoil(case, xt=None, params=None, g=None, w_key="dW"):
+    """Copies of the inputs with the case's entry non-finite: a NaN
+    coordinate; a +inf and a -inf one; a NaN weight; a NaN entry of a
+    line-table row the reference contracts over; a NaN, and a +inf and a
+    -inf, cotangent entry. ``xt``: (3, n) points or ray origins; ``g``:
+    (points, channels) (a transposed view where the cotangent is
+    channels-first)."""
+    nan, inf = float("nan"), float("inf")
+    if case in POINT_CASES:
+        xt = xt.clone()
+        if case == "nan_point":
+            xt[0, 3] = nan
+        else:
+            xt[1, 5], xt[2, 7] = inf, -inf
+    elif case in PARAM_CASES:
+        params = dict(params)
+        if case == "nan_weight":
+            params[w_key] = list(params[w_key])
+            params[w_key][1] = params[w_key][1].clone()
+            params[w_key][1][2, 5] = nan
+        else:
+            params["lines"] = params["lines"].clone()
+            params["lines"][1, 2, 5, 3] = nan
+    elif case in COT_CASES:
+        g = g.clone()
+        if case == "nan_cot":
+            g[3, 2] = nan
+        else:
+            g[3, 2], g[7, 1] = inf, -inf
+    else:
+        raise ValueError(case)
+    return xt, params, g
+
+
+def nonfinite_classes(t):
+    """0 finite, 1 NaN, 2 +inf, 3 -inf."""
+    c = torch.zeros(t.shape, dtype=torch.int8, device=t.device)
+    c[torch.isnan(t)] = 1
+    c[t == float("inf")] = 2
+    c[t == float("-inf")] = 3
+    return c
+
+
+def same_masks(what, pairs) -> int:
+    """``pairs``: (label, kernel tensor, plain tensor). Raises where a NaN,
+    +inf or -inf mask differs; returns the non-finite entries."""
+    total = 0
+    for label, k, p in pairs:
+        ck, cp_ = nonfinite_classes(k), nonfinite_classes(p)
+        if not torch.equal(ck, cp_):
+            count = lambda c: [int((c == i).sum()) for i in (1, 2, 3)]
+            raise AssertionError(
+                f"{what} {label}: NaN / +inf / -inf masks differ: kernel "
+                f"{count(ck)}, plain {count(cp_)}")
+        total += int((cp_ != 0).sum())
+    return total
+
+
+def nonfinite_report(name, runs) -> dict:
+    """``runs``: {case label: non-finite entries}. A case that gave no
+    non-finite entry is only allowed for the inf coordinate (it clamps)."""
+    quiet = [c for c, v in runs.items() if v == 0 and "inf_point" not in c]
+    if quiet:
+        raise AssertionError(f"{name}: cases without a non-finite entry: {quiet}")
+    return {"cases": len(runs), "nonfinite_entries": sum(runs.values())}
+
+
+def nonfinite_forwards(engines, dev) -> dict:
+    """Rows 2, 3 and 4 (both modes) and row 9 (both modes, its 3xTF32 and
+    FMA bodies) on the non-finite cases."""
+    from nerf_kinematics_tpu_torch.ops import classic_fused_cuda as cfc
+    from nerf_kinematics_tpu_torch.ops.cp_grid_cuda import cp_encode_cuda, cp_encode_cuda_ref
+    from nerf_kinematics_tpu_torch.ops.ngp_fused_cuda import (
+        ngp_fused_apply_cf, ngp_fused_apply_cf_ref, ngp_fused_sigma_cf,
+        ngp_fused_sigma_cf_ref)
+
+    gen = torch.Generator(device=dev).manual_seed(4242)
+    xt0, vd = random_points(NONFINITE_POINTS, gen, dev)
+    runs = {"ngp_fused_sigma_cf": {}, "ngp_fused_apply_cf": {}, "cp_encode": {}}
+    for mode, eng in engines.items():
+        prm0, c = eng._fused_params(detach=True), eng.ngp_config.cp
+        for case in POINT_CASES + PARAM_CASES:
+            xt, prm, _ = spoil(case, xt0, prm0)
+            key = f"{mode} {case}"
+            runs["ngp_fused_sigma_cf"][key] = same_masks("ngp_fused_sigma_cf " + key, [
+                ("out", ngp_fused_sigma_cf(prm, xt, c), ngp_fused_sigma_cf_ref(prm, xt, c))])
+            runs["ngp_fused_apply_cf"][key] = same_masks("ngp_fused_apply_cf " + key, [
+                ("out", ngp_fused_apply_cf(prm, xt, vd, c),
+                 ngp_fused_apply_cf_ref(prm, xt, vd, c))])
+            if case != "nan_weight":
+                x = xt.T.contiguous()
+                runs["cp_encode"][key] = same_masks("cp_encode " + key, [
+                    ("encoding", cp_encode_cuda(prm["lines"], x, c),
+                     cp_encode_cuda_ref(prm["lines"], x, c))])
+    runs["classic_fused_apply_cf"] = {}
+    xc0, vc = classic_points(NONFINITE_POINTS, gen, dev)
+    for mode, eng in classic_engines(dev).items():
+        mcfg = eng.cfg.model_coarse
+        prm0 = {k: [t.detach() for t in v]
+                for k, v in eng._fused_params(eng.model_coarse).items()}
+        for case in POINT_CASES + ("nan_weight",):
+            xc, prm, _ = spoil(case, xc0, prm0, w_key="W")
+            p = cfc.classic_fused_apply_cf_ref(prm, xc, vc, mcfg)
+            for body, tc in (("3xtf32", True), ("fma", False)):
+                key = f"{mode} {body} {case}"
+                runs["classic_fused_apply_cf"][key] = same_masks(
+                    "classic_fused_apply_cf " + key,
+                    [("out", cfc._forward(prm, xc, vc, mcfg, tc=tc), p)])
+    torch.cuda.synchronize()
+    return {name: nonfinite_report(name, r) for name, r in runs.items()}
+
+
+def nonfinite_grads(fx, engines, dev) -> dict:
+    """Rows 5, 6, 7, 8 and 10, both modes, on the non-finite cases (rows 7
+    and 8 take their cotangent from their own loss; row 8's coordinate cases
+    set a ray's origin)."""
+    from nerf_kinematics_tpu_torch.io.convert import grid_from_numpy
+    from nerf_kinematics_tpu_torch.ops import classic_fused_cuda as cfc
+    from nerf_kinematics_tpu_torch.ops.cp_grid_cuda import (
+        cp_encode_cuda_bwd, cp_encode_cuda_bwd_ref)
+    from nerf_kinematics_tpu_torch.ops.ngp_fused_cuda import (
+        ngp_fused_apply_cf_bwd, ngp_fused_apply_cf_bwd_ref, ngp_fused_train_cf,
+        ngp_fused_train_cf_ref, ngp_fused_train_full_cf, ngp_fused_train_full_cf_ref)
+    from nerf_kinematics_tpu_torch.ops.occupancy import pair_projections
+
+    gen = torch.Generator(device=dev).manual_seed(4343)
+    n = NONFINITE_POINTS
+    xt0, vd = random_points(n, gen, dev)
+    cp = fx.config.ngp.cp
+    g_enc0 = torch.randn((n, cp.out_dim), generator=gen, device=dev)
+    g40 = torch.randn((4, n), generator=gen, device=dev)
+    ngp, t = fx.config.ngp, fx.config.nerf.train
+    S, Sc, NB, R = t.num_fine, t.num_coarse, ngp.occ_bins, 128
+    o0, d, vr, tgt, uc, uf = full_step_inputs(R, S, Sc, gen, dev)
+    xr, vrr = random_points(R * S, gen, dev)
+    z = 2.0 + 4.0 * torch.sort(torch.rand((R, S), generator=gen, device=dev), dim=-1).values
+    dists = torch.cat([z[:, 1:] - z[:, :-1], torch.full((R, 1), 1e10, device=dev)], -1)
+    dists = dists.reshape(1, R * S).contiguous()
+    proj2 = pair_projections(grid_from_numpy(fx.grid_density, fx.grid_bound,
+                                             device=dev)).contiguous()
+    near, far, inv = fx.config.dataset.near, fx.config.dataset.far, 1.0 / (3.0 * R)
+    leaves = lambda k, p: [(n_, a, b) for (n_, a), (_, b) in zip(_leaf_list(k), _leaf_list(p))]
+    names = ("cp_encode_bwd", "ngp_fused_apply_cf_bwd", "ngp_fused_train_cf",
+             "ngp_fused_train_full_cf", "classic_fused_apply_cf_bwd")
+    runs = {k: {} for k in names}
+    for mode, eng in engines.items():
+        prm0, c = eng._fused_params(detach=True), eng.ngp_config.cp
+        for case in POINT_CASES + PARAM_CASES + COT_CASES:
+            key = f"{mode} {case}"
+            xt, prm, g_enc = spoil(case, xt0, prm0, g_enc0)
+            if case != "nan_weight":
+                x = xt.T.contiguous()
+                runs["cp_encode_bwd"][key] = same_masks("cp_encode_bwd " + key, [
+                    ("dlines", cp_encode_cuda_bwd(prm["lines"], x, g_enc, c),
+                     cp_encode_cuda_bwd_ref(prm["lines"], x, g_enc, c))])
+            _, _, g4t = spoil(case, None, None, g40.T) if case in COT_CASES else (0, 0, g40.T)
+            g4 = g4t.T.contiguous()
+            runs["ngp_fused_apply_cf_bwd"][key] = same_masks(
+                "ngp_fused_apply_cf_bwd " + key,
+                leaves(ngp_fused_apply_cf_bwd(prm, xt, vd, g4, c),
+                       ngp_fused_apply_cf_bwd_ref(prm, xt, vd, g4, c)))
+            if case in COT_CASES:
+                continue
+            xs, _, _ = spoil(case, xr) if case in POINT_CASES else (xr, 0, 0)
+            ek, mk, k = ngp_fused_train_cf(prm, xs, vrr, dists, tgt, c, S, True, inv)
+            ep, mp, p = ngp_fused_train_cf_ref(prm, xs, vrr, dists, tgt, c, S, True, inv)
+            runs["ngp_fused_train_cf"][key] = same_masks(
+                "ngp_fused_train_cf " + key, [("err", ek, ep), ("maps", mk, mp)] + leaves(k, p))
+            o = spoil(case, o0)[0] if case in POINT_CASES else o0
+            args = (o, d, vr, tgt, uc, uf, proj2, c, S, Sc, NB, True, inv, near, far,
+                    1.0, ngp.occ_floor)
+            k = ngp_fused_train_full_cf(prm, *args)
+            p = ngp_fused_train_full_cf_ref(prm, *args)
+            runs["ngp_fused_train_full_cf"][key] = same_masks(
+                "ngp_fused_train_full_cf " + key,
+                [("err", k[0], p[0]), ("maps", k[1], p[1]), ("err_c", k[2], p[2])]
+                + leaves(k[3], p[3]))
+    xc0, vc = classic_points(n, gen, dev)
+    for mode, eng in classic_engines(dev).items():
+        mcfg = eng.cfg.model_coarse
+        prm0 = {k: [t.detach() for t in v]
+                for k, v in eng._fused_params(eng.model_coarse).items()}
+        for case in POINT_CASES + ("nan_weight",) + COT_CASES:
+            xc, prm, g4t = spoil(case, xc0, prm0, g40.T, w_key="W")
+            g4 = g4t.T.contiguous()
+            k = cfc.classic_fused_apply_cf_bwd(prm, xc, vc, g4, mcfg)
+            p = cfc.classic_fused_apply_cf_bwd_ref(prm, xc, vc, g4, mcfg)
+            runs["classic_fused_apply_cf_bwd"][f"{mode} {case}"] = same_masks(
+                f"classic_fused_apply_cf_bwd {mode} {case}",
+                [(f"{key}[{i}]", a, b) for key in ("W", "b")
+                 for i, (a, b) in enumerate(zip(k[key], p[key]))])
+    torch.cuda.synchronize()
+    return {name: nonfinite_report(name, r) for name, r in runs.items()}
+
+
 def phase_kernels(fx, dev, quick: bool, reps: int):
     from nerf_kinematics_tpu_torch.io.convert import grid_from_numpy
     from nerf_kinematics_tpu_torch.ops.cp_grid import CPGridConfig
@@ -233,7 +448,25 @@ def phase_kernels(fx, dev, quick: bool, reps: int):
     if err != 0.0:
         raise AssertionError(f"occupancy_at_hull: max abs err {err} != 0 "
                              "(finite, NaN and inf points)")
+    # projections whose bf16 copy does not fit a block's shared memory
+    try:
+        occupancy_at_hull_cuda(torch.zeros((3, 197, 197), device=dev), xt_nf)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("occupancy_at_hull: R = 197 was not refused")
     b, by = bound_ms(n_hull * 16 + proj_t.numel() * 4, n_hull * 12, "f32")
+    # also at the two-call step's launch (8192 rays x 64 bins), and at 4096
+    # points, where the time is the launch and the table's staging
+    # (each also after an L2 that holds clean lines: ms_clean_l2)
+    at = {}
+    for m in (8192 * 64 // shrink, 4096):
+        xm = xt[:, :m].contiguous()
+        run = lambda xm=xm: occupancy_at_hull_cuda(proj_t, xm)
+        at[str(m)] = {
+            "ms": time_ms(run, reps, 2, flush),
+            "ms_clean_l2": time_ms(run, reps, 2, flush, clean=True),
+            "bound_ms": bound_ms(m * 16 + proj_t.numel() * 4, m * 12, "f32")[0]}
     rows.append({
         "name": "occupancy_at_hull", "route": "cuda",
         "source": "nerf_kinematics_tpu_torch/csrc/occupancy_hull.cu",
@@ -242,7 +475,12 @@ def phase_kernels(fx, dev, quick: bool, reps: int):
         "nonfinite_points": int(xt_nf.shape[1]),
         "tolerance": "exact (also on NaN and +-inf points)",
         "ms": (ms := time_ms(lambda: occupancy_at_hull_cuda(proj_t, xt), reps, 2, flush)),
-        "ms_by_body": {"kernel": ms},
+        "ms_by_body": {"kernel": ms}, "ms_at_other_sizes": at,
+        "ms_clean_l2": time_ms(lambda: occupancy_at_hull_cuda(proj_t, xt), reps, 2, flush,
+                               clean=True),
+        # the same timing of a one-element add: the launch and the events
+        "launch_floor_ms": time_ms(lambda t=torch.zeros(1, device=dev): t.add_(1.0),
+                                   reps, 2, flush, clean=True),
         "plain_ms": time_ms(lambda: occupancy_at_hull_cuda_ref(proj_t, xt), 3, 1, flush),
         "bound_ms": b, "bound_by": by, "library_ms": None,
     })
@@ -350,6 +588,9 @@ def phase_kernels(fx, dev, quick: bool, reps: int):
         })
         del xt, vd
     rows.append(classic_forward_row(dev, quick, reps, flush))
+    nonfinite = nonfinite_forwards({"bf16": trained, "f32": f32_eng}, dev)
+    for r in rows:
+        r["nonfinite"] = nonfinite.get(r["name"], r.get("nonfinite"))
     emit({"phase": "kernels", "quick": quick, "kernels": rows})
     return rows
 
@@ -953,6 +1194,9 @@ def phase_grad_kernels(fx, dev, quick: bool, reps: int):
     rows.append(classic_grad_row(dev, quick, reps, flush))
     det["ngp_fused_train_full_cf"] = rows[-2]["deterministic"]
     det["classic_fused_apply_cf_bwd"] = rows[-1]["deterministic"]
+    nonfinite = nonfinite_grads(fx, engines, dev)
+    for r in rows:
+        r["nonfinite"] = nonfinite[r["name"]]
     emit({"phase": "grad_kernels", "quick": quick, "kernels": rows,
           "ragged_999_points": ragged, "deterministic": det})
     if not all(det.values()):
@@ -1508,7 +1752,8 @@ def profile_steps(trainer, state, n_steps: int = 10, groups=None):
         "fused train objective (row 7)": (
             "nkt_fused_apply_save", "nkt_mma_apply_save", "nkt_train_rays",
             "nkt_fused_point_bwd", "nkt_mma_point_bwd", "nkt_cp_encode_bwd",
-            "nkt_wgrad", "nkt_reduce_partials")}
+            "nkt_wgrad", "nkt_reduce_partials"),
+        "non-finite checks: table scans, row 5's record and fix-up": NONFINITE_KERNELS}
     by_group, kernels = device_ms_by_group(
         prof, groups, other="PyTorch ops (sampling, compositing, gathers, Adam)")
     busy_ms = sum(by_group.values())
@@ -1520,6 +1765,12 @@ def profile_steps(trainer, state, n_steps: int = 10, groups=None):
         "ms_per_step_by_group": {k: v / n_steps for k, v in by_group.items()},
         "top": [{"name": k[:80], "ms_per_step": ms / n_steps, "calls": c}
                 for k, ms, c in kernels[:12]],
+        # each non-finite check's launches a step and device us a launch
+        "nonfinite_kernels": {
+            name: {"calls_per_step": sum(c for k, _, c in kernels if name in k) / n_steps,
+                   "us_per_launch": 1e3 * sum(ms for k, ms, _ in kernels if name in k)
+                   / max(1, sum(c for k, _, c in kernels if name in k))}
+            for name in NONFINITE_KERNELS},
     }
 
 
@@ -1665,6 +1916,12 @@ def scene_config(fx, basedir: str, logdir: str, steps: int, quick: bool,
 
 
 # Row 8's parts by kernel name (either mode's kernels), for the profile.
+# The launches that give non-finite inputs the reference's classes: the
+# line tables' scan before each encoder launch, row 5's record and fix-up
+# (each returns at once on finite inputs).
+NONFINITE_KERNELS = ("nkt_table_scan_kernel", "nkt_dl_record_kernel",
+                     "nkt_dl_nonfinite_kernel")
+
 ROW8_PARTS = {
     "row 8: sigma pass (row 2's body)": ("nkt_mma_sigma", "nkt_fused_sigma"),
     "row 8: forward with saves": ("nkt_mma_apply_save", "nkt_fused_apply_save"),
@@ -1674,6 +1931,7 @@ ROW8_PARTS = {
     "row 8: weight gradients, sums of the partials": ("nkt_wgrad",
                                                       "nkt_reduce_partials"),
     "row 8: proposal, fine inputs, ray kernel": ("nkf_", "nkt_train_rays"),
+    "non-finite checks: table scans, row 5's record and fix-up": NONFINITE_KERNELS,
 }
 
 
@@ -2161,7 +2419,7 @@ def main(argv=None) -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "main_path_points", "bound_ns_per_point", "main_path_by_body",
-            "main_path_ms", "main_path_gap_ms")
+            "main_path_ms", "main_path_gap_ms", "ms_at_other_sizes", "nonfinite")
     for r in rows:
         r["launches"] = counts[r["name"]]
         if r["launches"] <= 0:

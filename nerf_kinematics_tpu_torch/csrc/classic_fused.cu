@@ -83,6 +83,7 @@
 #include "nkt_mma.cuh"
 
 #define NKC_MAX_LAYERS 16
+#define NKC_PACK_Y 16  // pack blocks a layer
 #define NKC_MAX_FREQS 16
 #define NKC_THREADS 256
 #define NKC_P 64  // points per tile
@@ -104,6 +105,8 @@ struct ClassicArgs {
   float* tf;    // f32 mode: A fragments of W^T (outputs x inputs), hi and lo
   float* tb;    // f32 mode: A fragments of W (the first wb_cols inputs x
                 // outputs), hi and lo
+  unsigned* nonfinite;  // f32 mode: one word a pack block (nw * NKC_PACK_Y),
+                        // the launch's own: "a non-finite input"
   long long n;
   int nw;      // layers: trunk + 4
   int trunk;   // trunk depth t
@@ -233,7 +236,7 @@ __device__ __forceinline__ void nkc_layer(const float* A, int lda, int C,
 // sum with a rounded add: the tensor cores' own adds truncate, and a sum
 // chained through 3 KT of them drifts from the plain version's (enough to
 // flip the density noise's ReLU for a few samples of a train step).
-template <int NT>
+template <int NT, bool SAFE>
 __device__ __forceinline__ void nkc_tc_product(const float* __restrict__ frag,
                                                int KT, const float* in_s,
                                                int nt0, float (*acc)[4]) {
@@ -264,8 +267,8 @@ __device__ __forceinline__ void nkc_tc_product(const float* __restrict__ frag,
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       uint32_t bh0, bl0, bh1, bl1;
-      nkt_tf32_split(r0[j * 8], bh0, bl0);
-      nkt_tf32_split(r1[j * 8], bh1, bl1);
+      nkt_tf32_split_t<SAFE>(r0[j * 8], bh0, bl0);
+      nkt_tf32_split_t<SAFE>(r1[j * 8], bh1, bl1);
       float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       nkt_mma_tf32(p, al, bh0, bh1);
       nkt_mma_tf32(p, ah, bl0, bl1);
@@ -282,7 +285,7 @@ __device__ __forceinline__ void nkc_tc_product(const float* __restrict__ frag,
 // tiles `frag` (O rows, KT k-tiles) with the (rows, NKC_LDP) buffer in_s,
 // then f(j, p, sum) for every output j < O and point p of the tile. Up to
 // 64 outputs: warp w takes m-tile w % 4 and the 32 points of half w / 4.
-template <typename F>
+template <bool SAFE, typename F>
 __device__ __forceinline__ void nkc_tc_layer(const float* frag, int KT, int O,
                                              const float* in_s, F f) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -291,7 +294,7 @@ __device__ __forceinline__ void nkc_tc_layer(const float* frag, int KT, int O,
   if (MT > 4) {
     for (int mt = warp; mt < MT; mt += NKC_WARPS) {
       float acc[8][4];
-      nkc_tc_product<8>(frag + mt * KT * NKC_FRAG, KT, in_s, 0, acc);
+      nkc_tc_product<8, SAFE>(frag + mt * KT * NKC_FRAG, KT, in_s, 0, acc);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -304,7 +307,7 @@ __device__ __forceinline__ void nkc_tc_layer(const float* frag, int KT, int O,
     const int mt = warp & 3, nt0 = (warp >> 2) * 4;
     if (mt < MT) {
       float acc[4][4];
-      nkc_tc_product<4>(frag + mt * KT * NKC_FRAG, KT, in_s, nt0, acc);
+      nkc_tc_product<4, SAFE>(frag + mt * KT * NKC_FRAG, KT, in_s, nt0, acc);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -317,11 +320,11 @@ __device__ __forceinline__ void nkc_tc_layer(const float* frag, int KT, int O,
 }
 
 // Layer L's forward product: 3xTF32 in f32 mode (TC), else the FMA body.
-template <bool TC, typename F>
+template <bool TC, bool SAFE, typename F>
 __device__ __forceinline__ void nkc_fwd_layer(const ClassicArgs& a, int L,
                                               int K, const float* in_s, F f) {
   if constexpr (TC)
-    nkc_tc_layer(a.tf + a.tf_off[L], (K + 7) / 8, a.out_dim[L], in_s, f);
+    nkc_tc_layer<SAFE>(a.tf + a.tf_off[L], (K + 7) / 8, a.out_dim[L], in_s, f);
   else
     nkc_layer(a.wf + a.wf_off[L], a.wf_ld[L], K, in_s, a.out_dim[L], f);
 }
@@ -334,7 +337,7 @@ __device__ __forceinline__ float nkc_round(bool r, float v) {
 // a.act and stop before the heads; else write the heads to a.out. TC: the
 // products in 3xTF32 on the tensor cores (f32 mode), buffer rows NKC_LDP
 // words apart; else the FMA body (bf16 mode), rows NKC_P words apart.
-template <bool SAVE, bool TC>
+template <bool SAVE, bool TC, bool SAFE = false>
 __device__ void nkc_forward_tile(const ClassicArgs& a, long long base,
                                  float* bufA, float* bufB) {
   constexpr int LDB = TC ? NKC_LDP : NKC_P;
@@ -366,8 +369,8 @@ __device__ void nkc_forward_tile(const ClassicArgs& a, long long base,
     const bool rn = !last && a.rnd[L + 1];
     const float* bias = a.bias + a.b_off[L];
     float* dst = nxt;
-    nkc_fwd_layer<TC>(a, L, a.in_dim[L], cur, [&](int j, int p, float s) {
-                const float v = fmaxf(s + bias[j], 0.0f);
+    nkc_fwd_layer<TC, SAFE>(a, L, a.in_dim[L], cur, [&](int j, int p, float s) {
+                const float v = nkt_relu(s + bias[j]);
                 const long long i = base + p;
                 if (SAVE && i < n) a.act[(long long)(save_row + j) * n + i] = v;
                 dst[j * LDB + p] = nkc_round(rn, v);
@@ -399,8 +402,8 @@ __device__ void nkc_forward_tile(const ClassicArgs& a, long long base,
     const int row = a.act_row[LD];
     const float* bias = a.bias + a.b_off[LF];
     float* dst = nxt;
-    nkc_fwd_layer<TC>(a, LF, H, cur, [&](int j, int p, float s) {
-                const float v = fmaxf(s + bias[j], 0.0f);
+    nkc_fwd_layer<TC, SAFE>(a, LF, H, cur, [&](int j, int p, float s) {
+                const float v = nkt_relu(s + bias[j]);
                 const long long i = base + p;
                 if (SAVE && i < n) a.act[(long long)(row + j) * n + i] = v;
                 dst[j * LDB + p] = nkc_round(rn, v);
@@ -426,8 +429,8 @@ __device__ void nkc_forward_tile(const ClassicArgs& a, long long base,
     const int row = a.act_row[LR];
     const float* bias = a.bias + a.b_off[LD];
     float* dst = nxt;
-    nkc_fwd_layer<TC>(a, LD, a.in_dim[LD], cur, [&](int j, int p, float s) {
-                const float v = fmaxf(s + bias[j], 0.0f);
+    nkc_fwd_layer<TC, SAFE>(a, LD, a.in_dim[LD], cur, [&](int j, int p, float s) {
+                const float v = nkt_relu(s + bias[j]);
                 const long long i = base + p;
                 if (SAVE && i < n) a.act[(long long)(row + j) * n + i] = v;
                 dst[j * LDB + p] = v;
@@ -453,6 +456,21 @@ __device__ void nkc_forward_tile(const ClassicArgs& a, long long base,
 // mode also the 3xTF32 A fragments: forward W^T (outputs x inputs) and
 // backward W (the first wb_cols inputs x outputs), zero padded to whole
 // 16 x 8 tiles.
+// A non-finite value among a launch's inputs (points, directions, the
+// cotangent, the weights and biases): the pack kernel, which reads the
+// weights anyway, also reads the point-wise inputs, and each of its blocks
+// writes whether it found one to the launch's a.nonfinite. The 3xTF32
+// kernels read those words and take either the finite split
+// (nkt_tf32_split_finite) or the one that carries NaN and inf through their
+// products as the plain version's f32 products do; the finite split is two
+// integer operations fewer a value, and taking the other everywhere made
+// row 9 a third slower (PERF.md).
+__device__ __forceinline__ bool nkc_safe(const unsigned* nonfinite, int words) {
+  int bad = 0;
+  for (int e = threadIdx.x; e < words; e += blockDim.x) bad |= nonfinite[e] != 0u;
+  return __syncthreads_or(bad) != 0;
+}
+
 __global__ void nkc_pack_kernel(ClassicArgs a) {
   const int L = blockIdx.x;
   const int in = a.in_dim[L], out = a.out_dim[L];
@@ -463,9 +481,12 @@ __global__ void nkc_pack_kernel(ClassicArgs a) {
   const int first = blockIdx.y * blockDim.x + threadIdx.x;
   const int ldf = a.wf_ld[L];
   float* wf = a.wf + a.wf_off[L];
+  bool bad = false;  // a non-finite input (read unrounded)
   for (int e = first; e < in * ldf; e += step) {
     const int k = e / ldf, j = e % ldf;
-    wf[e] = j < out ? nkc_round(rn, W[k * sk + j * sj]) : 0.0f;
+    const float w = j < out ? W[k * sk + j * sj] : 0.0f;
+    bad |= !isfinite(w);
+    wf[e] = nkc_round(rn, w);
   }
   const int ldb = a.wb_ld[L], cols = a.wb_cols[L];
   float* wb = a.wb + a.wb_off[L];
@@ -473,9 +494,21 @@ __global__ void nkc_pack_kernel(ClassicArgs a) {
     const int j = e / ldb, k = e % ldb;
     wb[e] = k < cols ? nkc_round(rn, W[k * sk + j * sj]) : 0.0f;
   }
-  for (int j = first; j < out; j += step)
-    a.bias[a.b_off[L] + j] = a.b[L][j * a.b_s[L]];
+  for (int j = first; j < out; j += step) {
+    const float v = a.b[L][j * a.b_s[L]];
+    bad |= !isfinite(v);
+    a.bias[a.b_off[L] + j] = v;
+  }
   if (!a.tc) return;
+  // the point-wise inputs, over all the blocks
+  const long long pt = ((long long)L * gridDim.y + blockIdx.y) * blockDim.x + threadIdx.x;
+  const long long ps = (long long)gridDim.x * gridDim.y * blockDim.x;
+  for (long long i = pt; i < 3 * a.n; i += ps)
+    bad |= !isfinite(a.xt[i]) || !isfinite(a.vdt[i]);
+  if (a.g)
+    for (long long i = pt; i < 4 * a.n; i += ps) bad |= !isfinite(a.g[i]);
+  bad = __syncthreads_or(bad);
+  if (threadIdx.x == 0) a.nonfinite[L * gridDim.y + blockIdx.y] = bad ? 1u : 0u;
   // fragment e: tile f = e / NKC_FRAG (m-tile f / KT, k-tile f % KT), lane
   // w / 8, slot w % 8 (hi a0..a3, lo a0..a3)
   for (int pass = 0; pass < 2; ++pass) {
@@ -519,8 +552,11 @@ __global__ void __launch_bounds__(NKC_THREADS, 2)
   for (int e = threadIdx.x; e < 2 * rows * NKC_LDP; e += NKC_THREADS)
     smem[e] = 0.0f;
   __syncthreads();
-  nkc_forward_tile<false, true>(a, (long long)blockIdx.x * NKC_P, smem,
-                                smem + rows * NKC_LDP);
+  const long long base = (long long)blockIdx.x * NKC_P;
+  if (nkc_safe(a.nonfinite, a.nw * NKC_PACK_Y))
+    nkc_forward_tile<false, true, true>(a, base, smem, smem + rows * NKC_LDP);
+  else
+    nkc_forward_tile<false, true, false>(a, base, smem, smem + rows * NKC_LDP);
 }
 
 // The forward of the tile with its saves, then the cotangent back to the
@@ -533,7 +569,7 @@ __global__ void __launch_bounds__(NKC_THREADS, 2)
 // gradient leaf at 8192 points). TC: the cotangent products in 3xTF32
 // (f32 mode), buffer rows NKC_LDP words apart; the forward's buffers are
 // laid out for the FMA body over the same shared memory.
-template <bool TC>
+template <bool TC, bool SAFE = false>
 __device__ void nkc_bwd_tile(const ClassicArgs& a, float* smem) {
   constexpr int LDB = TC ? NKC_LDP : NKC_P;
   const long long base = (long long)blockIdx.x * NKC_P;
@@ -570,7 +606,7 @@ __device__ void nkc_bwd_tile(const ClassicArgs& a, float* smem) {
       dst[j * LDB + p] = nkc_round(rn, m);
     };
     if constexpr (TC)
-      nkc_tc_layer(a.tb + a.tb_off[L], (a.out_dim[L] + 7) / 8, a.wb_cols[L],
+      nkc_tc_layer<SAFE>(a.tb + a.tb_off[L], (a.out_dim[L] + 7) / 8, a.wb_cols[L],
                    in, f);
     else
       nkc_layer(a.wb + a.wb_off[L], a.wb_ld[L], a.out_dim[L], in,
@@ -607,10 +643,21 @@ __global__ void __launch_bounds__(NKC_THREADS, 2)
 
 // Every buffer row the cotangent products read is written first (rows 3-7
 // of g_rgb's k-tile by the loop above them), so nothing is zeroed here.
+// The non-finite instance apart (not inlined): its registers do not weigh
+// on the finite one's, which runs as it did alone.
+static __device__ __noinline__ void nkc_tc_bwd_tile_safe(const ClassicArgs a,
+                                                          float* smem) {
+  nkc_bwd_tile<true, true>(a, smem);
+}
+
 __global__ void __launch_bounds__(NKC_THREADS, 2)
     nkc_tc_bwd_tile_kernel(ClassicArgs a) {
   extern __shared__ float4 nkc_smem4[];
-  nkc_bwd_tile<true>(a, reinterpret_cast<float*>(nkc_smem4));
+  float* smem = reinterpret_cast<float*>(nkc_smem4);
+  if (nkc_safe(a.nonfinite, a.nw * NKC_PACK_Y))
+    nkc_tc_bwd_tile_safe(a, smem);
+  else
+    nkc_bwd_tile<true, false>(a, smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -664,8 +711,9 @@ __device__ __forceinline__ void nkc_cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__global__ void __launch_bounds__(NKC_THREADS, 2)
-    nkc_tc_wgrad_kernel(NkcWgPlan plan, float* __restrict__ partial) {
+template <bool SAFE>
+__device__ __forceinline__ void nkc_tc_wgrad_body(const NkcWgPlan& plan,
+                                                  float* __restrict__ partial) {
   extern __shared__ float4 nkc_smem4[];
   float* sm = reinterpret_cast<float*>(nkc_smem4);
   const NkcWgJob jb = plan.job[blockIdx.y];
@@ -736,18 +784,18 @@ __global__ void __launch_bounds__(NKC_THREADS, 2)
         for (int mi = 0; mi < 2; ++mi) {
           const float* ar = As + ((m0 + mi) * 16 + g) * NKC_WG_LD + ks * 8 + t;
           const bool ok = mi < mc && m0 + mi < mt;
-          nkt_tf32_split(ok ? ar[0] : 0.0f, ah[mi][0], al[mi][0]);
-          nkt_tf32_split(ok ? ar[8 * NKC_WG_LD] : 0.0f, ah[mi][1], al[mi][1]);
-          nkt_tf32_split(ok ? ar[4] : 0.0f, ah[mi][2], al[mi][2]);
-          nkt_tf32_split(ok ? ar[8 * NKC_WG_LD + 4] : 0.0f, ah[mi][3], al[mi][3]);
+          nkt_tf32_split_t<SAFE>(ok ? ar[0] : 0.0f, ah[mi][0], al[mi][0]);
+          nkt_tf32_split_t<SAFE>(ok ? ar[8 * NKC_WG_LD] : 0.0f, ah[mi][1], al[mi][1]);
+          nkt_tf32_split_t<SAFE>(ok ? ar[4] : 0.0f, ah[mi][2], al[mi][2]);
+          nkt_tf32_split_t<SAFE>(ok ? ar[8 * NKC_WG_LD + 4] : 0.0f, ah[mi][3], al[mi][3]);
         }
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt) {
           if (nt < ncn && n0 + nt < ntt) {
             const float* gr = Gs + ((n0 + nt) * 8 + g) * NKC_WG_LD + ks * 8 + t;
             uint32_t bh0, bl0, bh1, bl1;
-            nkt_tf32_split(gr[0], bh0, bl0);
-            nkt_tf32_split(gr[4], bh1, bl1);
+            nkt_tf32_split_t<SAFE>(gr[0], bh0, bl0);
+            nkt_tf32_split_t<SAFE>(gr[4], bh1, bl1);
 #pragma unroll
             for (int mi = 0; mi < 2; ++mi) {
               if (mi < mc && m0 + mi < mt) {
@@ -788,6 +836,15 @@ __global__ void __launch_bounds__(NKC_THREADS, 2)
   if (do_db) mine[jb.b_off + tid] = dbacc;
 }
 
+__global__ void __launch_bounds__(NKC_THREADS, 2)
+    nkc_tc_wgrad_kernel(NkcWgPlan plan, float* __restrict__ partial,
+                        const unsigned* __restrict__ nonfinite, int words) {
+  if (nkc_safe(nonfinite, words))
+    nkc_tc_wgrad_body<true>(plan, partial);
+  else
+    nkc_tc_wgrad_body<false>(plan, partial);
+}
+
 #define NKC_CHECK(expr)                    \
   do {                                     \
     cudaError_t e_ = (expr);               \
@@ -795,9 +852,10 @@ __global__ void __launch_bounds__(NKC_THREADS, 2)
   } while (0)
 
 static int classic_pack(const ClassicArgs& a, cudaStream_t st) {
-  if (a.nw != a.trunk + 4 || a.nw > NKC_MAX_LAYERS || a.hidden > 128)
+  if (a.nw != a.trunk + 4 || a.nw > NKC_MAX_LAYERS || a.hidden > 128 ||
+      (a.tc && !a.nonfinite))
     return (int)cudaErrorInvalidValue;
-  nkc_pack_kernel<<<dim3(a.nw, 16), 256, 0, st>>>(a);
+  nkc_pack_kernel<<<dim3(a.nw, NKC_PACK_Y), 256, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -866,7 +924,8 @@ static int classic_wgrad_tc(const ClassicArgs& a, cudaStream_t st) {
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)bytes));
   nkc_tc_wgrad_kernel<<<dim3((unsigned)chunks, (unsigned)p.n_jobs), NKC_THREADS,
-                        bytes, st>>>(p, a.partial);
+                        bytes, st>>>(p, a.partial, a.nonfinite,
+                                     a.nw * NKC_PACK_Y);
   NKC_CHECK(cudaGetLastError());
   return nkt_reduce_partials_launch(a.partial, a.flat, a.grad_total, chunks,
                                     st);

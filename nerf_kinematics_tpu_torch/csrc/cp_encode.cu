@@ -107,6 +107,8 @@ __global__ void __launch_bounds__(NKT_FW_THREADS)
   NktTapS* taps = reinterpret_cast<NktTapS*>(smem_fw);
   unsigned char* tabs = smem_fw + NKT_FW_BATCH * 3 * sizeof(NktTapS);
   nkt_stage_tables<BF>(tabs, lines, l, T, C, c0, cw, TE, tid, NKT_FW_THREADS);
+  // a non-finite table entry (nkt_poison): the stand-alone encoder's rows
+  const bool pois = nkt_poisoned(cp, l, 0) || nkt_poisoned(cp, l, 1) || nkt_poisoned(cp, l, 2);
   const long long nb = (n + NKT_FW_BATCH - 1) / NKT_FW_BATCH;
   const long long per = gridDim.x / (L * P);
   for (long long b = blockIdx.x / (L * P); b < nb; b += per) {
@@ -147,6 +149,18 @@ __global__ void __launch_bounds__(NKT_FW_THREADS)
         dst[(long long)pp * LC + c] = (u[0] * u[1]) * u[2];
       }
     }
+    if (pois) {  // rarely: NaN where a line feature is (after the writes)
+      __syncthreads();
+      for (int e = tid; e < np * cw; e += NKT_FW_THREADS) {
+        const int pp = e / cw, c = e - pp * cw;
+        bool nan = false;
+        for (int a = 0; a < 3; ++a) {
+          const NktTapS q = taps[pp * 3 + a];
+          nan |= nkt_poison(0.0f, nkt_poison_desc(cp, l, a, c0 + c), q.r0, q.r1) != 0.0f;
+        }
+        if (nan) dst[(long long)pp * LC + c] = __int_as_float(0x7FFFFFFF);
+      }
+    }
   }
 }
 
@@ -170,7 +184,8 @@ extern "C" int nkt_cp_encode(const void* x, const void* lines, void* out,
   long long per = (2LL * n_sm + L * P - 1) / (L * P);
   if (per > nb) per = nb;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
+  cudaError_t err = nkt_table_scan((const float*)lines, *cp, false, st);
+  if (err != cudaSuccess) return (int)err;
   if (cp->use_bf16) {
     err = cudaFuncSetAttribute(nkt_cp_encode_kernel<true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -247,11 +262,22 @@ extern "C" int nkt_cp_encode(const void* x, const void* lines, void* out,
 // nkt_reduce_partials_launch (csrc/ngp_fused_bwd.cu) adds the chunks in
 // chunk order.
 //
-// A non-finite cotangent: a tile's products multiply each entry's grad_u by
-// the zeros of its tent column, so a NaN or inf there reaches every row of
-// the tiles its point taps (the Pallas kernel's dense product: every row of
-// the table); the plain version's index_add_ touches the two tapped rows
-// only. On finite inputs all agree.
+// A non-finite grad_u (or a NaN coordinate, whose tent weights are NaN): the
+// Pallas kernel's dense product meets it with every row it contracts over,
+// so in its column a NaN, or an inf times a tent weight of 0, is NaN on
+// every such row, and an inf keeps its sign only on the rows that every such
+// point taps with a weight above 0. In bf16 mode the product warps flag a
+// launch whose sums they find non-finite; in f32 mode the producers test
+// the grad_u they make (a fused multiply-add for every two values) and flag
+// it. Nothing more runs in the producers' 32 registers: two launches follow
+// that end at once on finite inputs. nkt_dl_record_kernel makes the record (per
+// (level, axis, channel) a NaN flag, the signs and the count of inf entries,
+// the rows one of them taps and how many of them tap each; in the launch's
+// scratch, see nkt_dl_col), and
+// nkt_dl_nonfinite_kernel writes those columns' classes, as the plain
+// version does (ops/cp_grid.py::nonfinite_dlines). Finite columns keep the
+// products' sums. Integer atomics only: the counts, and so the result, do
+// not depend on the order.
 //
 // Bound on this card: bytes, the cotangent read once (4 * L * C B a point)
 // and the tables written once. What it runs: per k-tile of 16 entries and
@@ -352,13 +378,137 @@ __device__ __forceinline__ void nkt_bar_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// The record of non-finite grad_u (see above), at nf = cp.nonfinite +
+// nkt_nf_rec(cp) (nkt_common.cuh), zeroed by the launch's table scan: nf[0]
+// "a producer met one, or something is to be recorded"; then NKT_REC words
+// per (level, axis, channel): [0] bit 31 "a NaN", bit 30 "a -inf", bit 29
+// "a +inf" and the count of inf entries; [1] the operand rows that one inf
+// entry of the column taps with a weight above 0, (row a + 1) << 16 | (row
+// b + 1) (0: none), the only rows every inf entry can tap; [2], [3] the
+// counts of inf entries that tap row a, row b.
+__device__ __forceinline__ unsigned* nkt_dl_col(unsigned* nf, const CPLevels& cp,
+                                                int la, int c) {
+  return nf + 1 + ((long long)la * cp.n_comp + c) * NKT_REC;
+}
+
+// Channel c of one point's grad_u of the three axes, v (as the B operand
+// holds it), with the point's tap pairs q.
+__device__ __forceinline__ void nkt_dl_record(unsigned* nf, const CPLevels& cp,
+                                              int l, int c, const float* v,
+                                              const int4* q, int Fd) {
+  nf[0] = 1u;
+  for (int j = 0; j < 3; ++j) {
+    const float w0 = __int_as_float(q[j].z), w1 = __int_as_float(q[j].w);
+    const int t0 = q[j].x, t1 = nkt_operand_r1(q[j].x, q[j].y, Fd);
+    unsigned* col = nkt_dl_col(nf, cp, l * 3 + j, c);
+    if (v[j] != v[j] || w0 != w0) {
+      atomicOr(col, 0x80000000u);
+    } else if (isinf(v[j])) {
+      atomicAdd(col, 1u);
+      atomicOr(col, v[j] > 0.0f ? 0x20000000u : 0x40000000u);
+      const int ra = w0 > 0.0f ? t0 : -1;
+      const int rb = w1 > 0.0f && t1 != ra ? t1 : -1;
+      const unsigned mine = (unsigned)(ra + 1) << 16 | (unsigned)(rb + 1);
+      const unsigned old = atomicCAS(col + 1, 0u, mine);
+      const unsigned claim = old ? old : mine;
+      const int ca = (int)(claim >> 16) - 1, cb = (int)(claim & 0xFFFFu) - 1;
+      if (ca >= 0 && (ca == ra || ca == rb)) atomicAdd(col + 2, 1u);
+      if (cb >= 0 && (cb == ra || cb == rb)) atomicAdd(col + 3, 1u);
+    }
+  }
+}
+
+// The record of a launch whose producers met a non-finite grad_u (nf[0]) or
+// whose tables hold a non-finite entry (the scan's flags); returns at once
+// otherwise. grad_u of every (point, level, axis, channel) again, in the
+// producers' arithmetic, with a poisoned line feature NaN (nkt_poison), and
+// each non-finite entry recorded (nkt_dl_record).
+template <bool BF>
+__global__ void __launch_bounds__(256)
+    nkt_dl_record_kernel(const float* __restrict__ x, long long xs_i,
+                         long long xs_a, const float* __restrict__ lines,
+                         const float* __restrict__ g, long long gs_i,
+                         long long n, CPLevels cp, int dup,
+                         unsigned* __restrict__ nf) {
+  const int L = cp.n_levels, C = cp.n_comp, T = cp.table;
+  bool pois = false;
+  for (int la = 0; la < 3 * L; ++la) pois |= cp.nonfinite[la] != 0u;
+  if (*(volatile unsigned*)nf == 0u && !pois) return;
+  const long long total = n * L * C;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (long long)gridDim.x * blockDim.x) {
+    const int c = (int)(e % C), l = (int)(e / C % L);
+    const long long i = e / C / L;
+    const int Fd = nkt_dup_row(cp, l, dup != 0);
+    int4 q[3];
+    float u[3];
+    for (int a = 0; a < 3; ++a) {
+      const NktTaps t = nkt_taps(x[i * xs_i + a * xs_a], cp, l, a);
+      q[a] = nkt_tap4(t);
+      const float* tab = lines + (long long)(l * 3 + a) * T * C + c;
+      float v0 = tab[(long long)t.r0 * C], v1 = tab[(long long)t.r1 * C];
+      if (BF) {
+        v0 = nkt_bf16r(v0);
+        v1 = nkt_bf16r(v1);
+      }
+      u[a] = t.w0 * v0 + t.w1 * v1;
+      if (nkt_poisoned(cp, l, a))
+        u[a] = nkt_poison(u[a], nkt_poison_desc(cp, l, a, c), t.r0,
+                          nkt_operand_r1(t.r0, t.r1, Fd));
+    }
+    const float gc = g[i * gs_i + l * C + c];
+    float v[3] = {gc * (u[1] * u[2]), gc * (u[0] * u[2]), gc * (u[0] * u[1])};
+    bool bad = false;
+    for (int j = 0; j < 3; ++j) {
+      if (BF) v[j] = nkt_bf16r(v[j]);
+      bad |= !isfinite(v[j]) || __int_as_float(q[j].z) != __int_as_float(q[j].z);
+    }
+    if (bad) nkt_dl_record(nf, cp, l, c, v, q, Fd);
+  }
+}
+
+// The classes of the recorded columns, into dlines (L, 3, T, C): NaN on
+// every operand row, except where every inf entry of the column taps the row
+// with a weight above 0 and all have one sign (that inf); operand row F of a
+// dup level is row 0 (the classes add), rows past T are padding. One block;
+// it returns at once when nothing was recorded.
+__global__ void __launch_bounds__(1024)
+    nkt_dl_nonfinite_kernel(float* __restrict__ dlines,
+                            const unsigned* __restrict__ nf, CPLevels cp,
+                            int dup) {
+  if (nf[0] == 0u) return;
+  const int C = cp.n_comp, T = cp.table;
+  for (int e = threadIdx.x; e < cp.n_levels * 3 * C; e += blockDim.x) {
+    const unsigned* col = nf + 1 + (long long)e * NKT_REC;
+    const unsigned k = col[0];
+    if (k == 0u) continue;
+    const int la = e / C, c = e - la * C, l = la / 3;
+    const int rows = nkt_operand_rows(cp, l, dup != 0);
+    const int F = nkt_dup_row(cp, l, dup != 0);
+    const unsigned n_inf = k & 0x1FFFFFFFu, sg = (k >> 29) & 3u;
+    const int ra = (int)(col[1] >> 16) - 1, rb = (int)(col[1] & 0xFFFFu) - 1;
+    const bool one = !(k >> 31) && (sg == 1u || sg == 2u);
+    const float inf = __int_as_float(sg == 1u ? 0x7F800000 : 0xFF800000);
+    float* dst = dlines + (long long)la * T * C + c;
+    for (int j = 0; j < rows; ++j) {
+      const bool all = (j == ra && col[2] == n_inf) || (j == rb && col[3] == n_inf);
+      const float d = one && all ? inf : __int_as_float(0x7FFFFFFF);
+      if (F > 0 && j == F)
+        dst[0] = dst[0] + d;
+      else if (j < T)
+        dst[(long long)j * C] = d;
+    }
+  }
+}
+
 template <bool BF>
 __global__ void __launch_bounds__(NKT_DL_THREADS, 1)
     nkt_cp_encode_bwd_kernel(const float* __restrict__ x, long long xs_i,
                              long long xs_a, const float* __restrict__ lines,
                              const float* __restrict__ g, long long gs_i,
                              float* __restrict__ out, long long n,
-                             long long chunk, CPLevels cp, DlLayout lay) {
+                             long long chunk, CPLevels cp, DlLayout lay,
+                             unsigned* __restrict__ nf) {
   constexpr int B = NKT_DL_B(BF);
   constexpr int B1 = B + 1;  // a batch's points and the zero point B
   constexpr int PT = NKT_DL_PWARPS * 32;  // producer threads
@@ -460,6 +610,10 @@ __global__ void __launch_bounds__(NKT_DL_THREADS, 1)
       // the B operand: grad_u of each axis, (points, channels), zero past
       // the slice's channels
       const float* gb = gbuf + s * B * cw;
+      // f32 mode: a running a * b + acc over the thread's values in pairs
+      // stays finite unless one of them is not (or, harmlessly, a product
+      // overflows); in bf16 mode the product warps see it in their sums
+      float nf1 = 0.0f;
       for (int e = tid; e < np * Cp2; e += PT) {
         const int pp = e / Cp2, c = (e - pp * Cp2) * 2;
         float2 v[3];
@@ -477,13 +631,17 @@ __global__ void __launch_bounds__(NKT_DL_THREADS, 1)
 #pragma unroll
         for (int j = 0; j < 3; ++j) {
           const int o = s * gu_slot + (j * B1 + pp) * lay.ldu + c;
-          if constexpr (BF)
+          if constexpr (BF) {
             *reinterpret_cast<uint32_t*>(reinterpret_cast<__nv_bfloat16*>(gu) + o) =
                 nkt_pack2(v[j].x, v[j].y);
-          else
+          } else {
             *reinterpret_cast<float2*>(reinterpret_cast<float*>(gu) + o) = v[j];
+            nf1 = __fmaf_rn(v[j].x, v[j].y, nf1);
+          }
         }
       }
+      // rarely: the launch's record is made again by nkt_dl_record_kernel
+      if (!BF && !isfinite(nf1)) nf[0] = 1u;
       nkt_bar_arrive(2 + s, nthr);  // stage s is full
     }
     // rows no tile covers (from 16 RT up to T) are zero: the first row
@@ -576,10 +734,10 @@ __global__ void __launch_bounds__(NKT_DL_THREADS, 1)
               const int pb = point(kt * 16 + h * 8 + t4 + 4);
               const int4 qa = tq[pa * 3], qb = tq[pb * 3];
               uint32_t ah[4], al[4];
-              nkt_tf32_split(nkt_tent(qa, r_lo), ah[0], al[0]);
-              nkt_tf32_split(nkt_tent(qa, r_hi), ah[1], al[1]);
-              nkt_tf32_split(nkt_tent(qb, r_lo), ah[2], al[2]);
-              nkt_tf32_split(nkt_tent(qb, r_hi), ah[3], al[3]);
+              nkt_tf32_split_finite(nkt_tent(qa, r_lo), ah[0], al[0]);
+              nkt_tf32_split_finite(nkt_tent(qa, r_hi), ah[1], al[1]);
+              nkt_tf32_split_finite(nkt_tent(qb, r_lo), ah[2], al[2]);
+              nkt_tf32_split_finite(nkt_tent(qb, r_hi), ah[3], al[3]);
               const float* base = reinterpret_cast<const float*>(gu) + o0 +
                                   j * B1 * lay.ldu + g8;
               const float* r0 = base + pa * lay.ldu;
@@ -588,8 +746,8 @@ __global__ void __launch_bounds__(NKT_DL_THREADS, 1)
               for (int nt = 0; nt < 8; ++nt) {
                 if (nt < ntu) {
                   uint32_t bh0, bl0, bh1, bl1;
-                  nkt_tf32_split(r0[nt * 8], bh0, bl0);
-                  nkt_tf32_split(r1[nt * 8], bh1, bl1);
+                  nkt_tf32_split_finite(r0[nt * 8], bh0, bl0);
+                  nkt_tf32_split_finite(r1[nt * 8], bh1, bl1);
                   nkt_mma3_add(acc[j][nt], ah, al, bh0, bh1, bl0, bl1);
                 }
               }
@@ -602,9 +760,14 @@ __global__ void __launch_bounds__(NKT_DL_THREADS, 1)
     if (i + 2 < nbat) nkt_bar_arrive(4 + s, nthr);  // stage s is free
   }
 
-  // the warp's tiles: (chunk, level, axis) of out, the slice's channels
+  // the warp's tiles: (chunk, level, axis) of out, the slice's channels.
+  // bf16 mode: a non-finite grad_u or tent weight of a point the tile lists
+  // leaves its sums non-finite (NaN * 0 and inf * 0 are NaN), so a
+  // non-finite sum flags the launch (in f32 mode the finite 3xTF32 split
+  // loses a NaN: the producers flag it)
   float* dst = out + (ck * L + l) * 3LL * T * C + c0;
   if (active) {
+    bool bad = false;
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
       float* tab = dst + (long long)j * T * C;
@@ -618,9 +781,13 @@ __global__ void __launch_bounds__(NKT_DL_THREADS, 1)
           if (r_hi < T)
             *reinterpret_cast<float2*>(tab + r_hi * C + c) =
                 make_float2(acc[j][nt][2], acc[j][nt][3]);
+          if (BF)
+            bad |= !(isfinite(acc[j][nt][0]) && isfinite(acc[j][nt][1]) &&
+                     isfinite(acc[j][nt][2]) && isfinite(acc[j][nt][3]));
         }
       }
     }
+    if (__any_sync(0xffffffffu, bad) && lane == 0) nf[0] = 1u;
   }
 }
 
@@ -633,13 +800,17 @@ extern "C" int nkt_reduce_partials_launch(const float* partial, float* flat,
 // x[i * xs_i + q * xs_a]; g: the encoding's cotangent, row i at g + i * gs_i
 // (L * C f32). chunks > 1: partial holds chunks * L * 3 * T * C floats and
 // the chunks are added in order; chunks == 1: the block writes dlines.
-// Every entry of dlines is written. cudaErrorInvalidValue: an odd C, or no
-// channel slice whose block fits shared memory.
+// Every entry of dlines is written. Non-finite values take the classes of
+// the stand-alone Pallas kernel's contraction, or with dup those of the
+// fused kernels' (their operand rows, see nkt_common.cuh). The launch's
+// table scan (nkt_table_scan with the same dup and cp->nonfinite) comes
+// before it on the stream. cudaErrorInvalidValue: an odd C, no scratch, or
+// no channel slice whose block fits shared memory.
 extern "C" int nkt_dlines_launch(const float* x, long long xs_i, long long xs_a,
                                  const float* lines, const float* g,
                                  long long gs_i, float* partial, float* dlines,
-                                 long long n, const CPLevels* cp, int chunks,
-                                 void* stream) {
+                                 long long n, const CPLevels* cp, int dup,
+                                 int chunks, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   // the widest channel slice (all C up to 64, then 32 or 16) whose block
   // fits; slices start at multiples of 16, so each has an even width
@@ -659,9 +830,13 @@ extern "C" int nkt_dlines_launch(const float* x, long long xs_i, long long xs_a,
   const long long total = (long long)cp->n_levels * 3 * cp->table * cp->n_comp;
   if (total > INT_MAX) return (int)cudaErrorInvalidValue;
   const unsigned grid = (unsigned)(used * cp->n_levels * lay.ncs * lay.nrg);
+  // the record of non-finite grad_u, zeroed by the launch's table scan
+  if (!cp->nonfinite) return (int)cudaErrorInvalidValue;
+  unsigned* nf = cp->nonfinite + nkt_nf_rec(*cp);
+  cudaError_t err;
   // the registers setmaxnreg hands the warps come out of the block's own
   cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(
+  err = cudaFuncGetAttributes(
       &fa, cp->use_bf16 ? (const void*)nkt_cp_encode_bwd_kernel<true>
                         : (const void*)nkt_cp_encode_bwd_kernel<false>);
   if (err != cudaSuccess) return (int)err;
@@ -673,17 +848,28 @@ extern "C" int nkt_dlines_launch(const float* x, long long xs_i, long long xs_a,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return (int)err;
     nkt_cp_encode_bwd_kernel<true><<<grid, threads, bytes, st>>>(
-        x, xs_i, xs_a, lines, g, gs_i, out, n, chunk, *cp, lay);
+        x, xs_i, xs_a, lines, g, gs_i, out, n, chunk, *cp, lay, nf);
   } else {
     err = cudaFuncSetAttribute(nkt_cp_encode_bwd_kernel<false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return (int)err;
     nkt_cp_encode_bwd_kernel<false><<<grid, threads, bytes, st>>>(
-        x, xs_i, xs_a, lines, g, gs_i, out, n, chunk, *cp, lay);
+        x, xs_i, xs_a, lines, g, gs_i, out, n, chunk, *cp, lay, nf);
   }
   err = cudaGetLastError();
-  if (err != cudaSuccess || used == 1) return (int)err;
-  return nkt_reduce_partials_launch(partial, dlines, (int)total, (int)used, st);
+  if (err != cudaSuccess) return (int)err;
+  if (used > 1) {
+    const int rc = nkt_reduce_partials_launch(partial, dlines, (int)total, (int)used, st);
+    if (rc) return rc;
+  }
+  if (cp->use_bf16)
+    nkt_dl_record_kernel<true><<<256, 256, 0, st>>>(x, xs_i, xs_a, lines, g, gs_i, n,
+                                                    *cp, dup, nf);
+  else
+    nkt_dl_record_kernel<false><<<256, 256, 0, st>>>(x, xs_i, xs_a, lines, g, gs_i, n,
+                                                     *cp, dup, nf);
+  nkt_dl_nonfinite_kernel<<<1, 1024, 0, st>>>(dlines, nf, *cp, dup);
+  return (int)cudaGetLastError();
 }
 
 // x: (n, 3) f32; lines: (L, 3, T, C) f32; g: (n, L*C) f32 cotangent of the
@@ -693,8 +879,16 @@ extern "C" int nkt_cp_encode_bwd(const void* x, const void* lines,
                                  const void* g, void* partial, void* dlines,
                                  long long n, const CPLevels* cp, int chunks,
                                  void* stream) {
+  const cudaError_t scan =
+      nkt_table_scan((const float*)lines, *cp, false, (cudaStream_t)stream);
+  if (scan != cudaSuccess) return (int)scan;
   return nkt_dlines_launch((const float*)x, 3, 1, (const float*)lines,
                            (const float*)g, (long long)cp->n_levels * cp->n_comp,
-                           (float*)partial, (float*)dlines, n, cp, chunks,
+                           (float*)partial, (float*)dlines, n, cp, 0, chunks,
                            stream);
+}
+
+// u32 words of the non-finite scratch of a launch (CPLevels::nonfinite).
+extern "C" long long nkt_nonfinite_words(const CPLevels* cp) {
+  return nkt_nonfinite_words_of(*cp);
 }

@@ -81,6 +81,8 @@ static int mma_forward(const FusedArgs& a, bool color, int n_sm,
 // Returns the cudaError_t of the attribute call or the launch, 0 = success.
 extern "C" int nkt_fused_forward(const FusedArgs* args, int color, int n_sm,
                                  void* stream) {
+  const cudaError_t scan = nkt_table_scan(args->lines, args->cp, true, (cudaStream_t)stream);
+  if (scan != cudaSuccess) return (int)scan;
   if (args->cp.use_bf16)
     return mma_forward(*args, color != 0, n_sm, (cudaStream_t)stream);
   const FusedLayout lay = make_layout(*args, color != 0);

@@ -258,7 +258,7 @@ __device__ __forceinline__ void nkt_finish_layer(float* acc, const float* sb,
   for (int j = 0; j < NKT_W; ++j) {
     if (j < out) {
       float z = acc[j] + sb[j];
-      if (relu) z = fmaxf(z, 0.0f);
+      if (relu) z = nkt_relu(z);
       acc[j] = z;
       const float v = round_bf16 ? nkt_bf16r(z) : z;
       hs[(row0 + j) * NKT_THREADS] = v;
@@ -308,6 +308,7 @@ __device__ __forceinline__ void nkt_fused_body(const FusedArgs& a,
   const int C = a.cp.n_comp;
   const int T = a.cp.table;
   const long long n = a.n;
+  const unsigned pois_levels = nkt_poison_levels(a.cp);
 
   for (long long base = (long long)blockIdx.x * NKT_THREADS; base < n;
        base += (long long)gridDim.x * NKT_THREADS) {
@@ -334,6 +335,9 @@ __device__ __forceinline__ void nkt_fused_body(const FusedArgs& a,
       const float4* y1 = reinterpret_cast<const float4*>(taby + ty.r1 * C);
       const float4* z0 = reinterpret_cast<const float4*>(tabz + tz.r0 * C);
       const float4* z1 = reinterpret_cast<const float4*>(tabz + tz.r1 * C);
+      // a non-finite table entry (nkt_poison): the fused operand's rows
+      const bool pois = (pois_levels >> l) & 1u;
+      const int Fd = nkt_dup_row(a.cp, l, true);
       for (int c4 = 0; c4 < C / 4; ++c4) {
         const float4 ax0 = __ldg(x0 + c4), ax1 = __ldg(x1 + c4);
         const float4 ay0 = __ldg(y0 + c4), ay1 = __ldg(y1 + c4);
@@ -355,6 +359,12 @@ __device__ __forceinline__ void nkt_fused_body(const FusedArgs& a,
             ux = tx.w0 * vx0[q] + tx.w1 * vx1[q];
             uy = ty.w0 * vy0[q] + ty.w1 * vy1[q];
             uz = tz.w0 * vz0[q] + tz.w1 * vz1[q];
+          }
+          if (pois) {
+            const int c = c4 * 4 + q;
+            ux = nkt_poison(ux, nkt_poison_desc(a.cp, l, 0, c), tx.r0, nkt_operand_r1(tx.r0, tx.r1, Fd));
+            uy = nkt_poison(uy, nkt_poison_desc(a.cp, l, 1, c), ty.r0, nkt_operand_r1(ty.r0, ty.r1, Fd));
+            uz = nkt_poison(uz, nkt_poison_desc(a.cp, l, 2, c), tz.r0, nkt_operand_r1(tz.r0, tz.r1, Fd));
           }
           float ev = (ux * uy) * uz;
           if (bf) ev = nkt_bf16r(ev);
@@ -384,7 +394,7 @@ __device__ __forceinline__ void nkt_fused_body(const FusedArgs& a,
     }
     // acc[0] is the f32 feature 0; hs rows [0, dout) hold the rounded
     // features, the first part of the color MLP's input.
-    const float sigma = expf(fminf(fmaxf(acc[0], -15.0f), 15.0f));
+    const float sigma = expf(nkt_clamp(acc[0], -15.0f, 15.0f));
     if (SAVE) z0s[i] = acc[0];
 
     if (COLOR) {

@@ -236,7 +236,7 @@ __global__ void __launch_bounds__(NKT_THREADS, 1)
     // sigma = exp(clip(z0)): its cotangent enters feature 0 where unclipped.
     const float z0 = b.z0[ii];
     if (z0 > -15.0f && z0 < 15.0f)
-      g[0] = g[0] + g_sigma * expf(fminf(fmaxf(z0, -15.0f), 15.0f));
+      g[0] = g[0] + g_sigma * expf(nkt_clamp(z0, -15.0f, 15.0f));
 
     // ---- density MLP down to layer 0's output --------------------------
     for (int li = a.nd - 1; li >= 0; --li) {
@@ -372,12 +372,12 @@ __global__ void __launch_bounds__(NKT_MMA_MAX_WARPS * 32, 1)
       if (pg < n) {
         const float z0 = b.z0[pg];
         if (z0 > -15.0f && z0 < 15.0f)
-          gc[0][0] = gc[0][0] + b.g[3 * n + pg] * expf(fminf(fmaxf(z0, -15.0f), 15.0f));
+          gc[0][0] = gc[0][0] + b.g[3 * n + pg] * expf(nkt_clamp(z0, -15.0f, 15.0f));
       }
       if (pg8 < n) {
         const float z0 = b.z0[pg8];
         if (z0 > -15.0f && z0 < 15.0f)
-          gc[0][2] = gc[0][2] + b.g[3 * n + pg8] * expf(fminf(fmaxf(z0, -15.0f), 15.0f));
+          gc[0][2] = gc[0][2] + b.g[3 * n + pg8] * expf(nkt_clamp(z0, -15.0f, 15.0f));
       }
     }
 
@@ -838,15 +838,16 @@ extern "C" int nkt_reduce_partials_launch(const float* partial, float* flat,
 extern "C" int nkt_dlines_launch(const float* x, long long xs_i, long long xs_a,
                                  const float* lines, const float* g,
                                  long long gs_i, float* partial, float* dlines,
-                                 long long n, const CPLevels* cp, int chunks,
-                                 void* stream);
+                                 long long n, const CPLevels* cp, int dup,
+                                 int chunks, void* stream);
 
-// 3b. the line tables' gradient from denc, in a fixed order (row 5's kernel)
+// 3b. the line tables' gradient from denc, in a fixed order (row 5's kernel),
+// with the fused kernels' operand rows for non-finite values
 static int launch_dlines(const BwdArgs& b, cudaStream_t st) {
   const FusedArgs& a = b.f;
   return nkt_dlines_launch(a.xt, 1, a.n, a.lines, b.denc,
                            (long long)a.cp.n_levels * a.cp.n_comp, b.lpart,
-                           b.dlines, a.n, &a.cp, b.l_chunks, st);
+                           b.dlines, a.n, &a.cp, 1, b.l_chunks, st);
 }
 
 static int launch_wgrad(const float* A, const float* G, int K, int J,
@@ -929,6 +930,10 @@ static int run_backward(const BwdArgs& b, bool train, int n_sm,
   const FusedArgs& a = b.f;
   if (b.n_part < 1) return (int)cudaErrorInvalidValue;
   if (train && (b.S < 1 || a.n % b.S)) return (int)cudaErrorInvalidValue;
+  // also the scan of the row-5 launch below (launch_dlines), which reads
+  // its flags and writes its record in the same a.cp.nonfinite
+  const cudaError_t scan = nkt_table_scan(a.lines, a.cp, true, st);
+  if (scan != cudaSuccess) return (int)scan;
   if (a.cp.use_bf16) return run_backward_mma(b, train, n_sm, st);
   if (!dims_ok(a) || b.ld != a.n) return (int)cudaErrorInvalidValue;
   const SaveRows rows = make_rows(a);

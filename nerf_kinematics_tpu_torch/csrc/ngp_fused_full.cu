@@ -72,7 +72,7 @@ struct FullArgs {
 };
 
 __device__ __forceinline__ float nkf_unit(float p, float ib2) {
-  return fminf(fmaxf(p * ib2 + 0.5f, 0.0f), 1.0f);
+  return nkt_clamp(p * ib2 + 0.5f, 0.0f, 1.0f);
 }
 
 // CDF of m weights as the reference's _cdf_rows: w + 1e-5, the total summed
@@ -104,6 +104,14 @@ __device__ __forceinline__ float nkf_inv_cdf(const float* cdf, int m1, float u,
   return e_lo + frac * (edge(hi) - e_lo);
 }
 
+// The pair projections in global memory, rounded to bf16 at each lookup.
+struct NkfHullTab {
+  const float* p;
+  __device__ __forceinline__ float operator[](int e) const {
+    return nkt_bf16r(__ldg(p + e));
+  }
+};
+
 // (a): stages A-B, one thread per ray.
 __global__ void __launch_bounds__(NKF_RAY_THREADS)
     nkf_propose_kernel(FullArgs a) {
@@ -112,8 +120,9 @@ __global__ void __launch_bounds__(NKF_RAY_THREADS)
   const long long R = a.R;
   const float ox = a.o[r], oy = a.o[R + r], oz = a.o[2 * R + r];
   const float dx = a.d[r], dy = a.d[R + r], dz = a.d[2 * R + r];
-  const int NB = a.NB, Rg = a.Rg, RR = a.Rg * a.Rg;
+  const int NB = a.NB, Rg = a.Rg;
   const float fRg = (float)Rg, hi = (float)(Rg - 1);
+  const NkfHullTab tab = {a.proj2};
   const float ib2 = a.inv_bound2;
 
   // ---- stage A: hull occupancy at the bin centres ------------------------
@@ -124,13 +133,7 @@ __global__ void __launch_bounds__(NKF_RAY_THREADS)
     const float ux = nkf_unit(ox + t * dx, ib2);
     const float uy = nkf_unit(oy + t * dy, ib2);
     const float uz = nkf_unit(oz + t * dz, ib2);
-    const int ix = (int)floorf(fminf(fmaxf(ux * fRg, 0.0f), hi));
-    const int iy = (int)floorf(fminf(fmaxf(uy * fRg, 0.0f), hi));
-    const int iz = (int)floorf(fminf(fmaxf(uz * fRg, 0.0f), hi));
-    const float pxy = nkt_bf16r(__ldg(a.proj2 + ix * Rg + iy));
-    const float pxz = nkt_bf16r(__ldg(a.proj2 + RR + ix * Rg + iz));
-    const float pyz = nkt_bf16r(__ldg(a.proj2 + 2 * RR + iy * Rg + iz));
-    const float occ = fminf(pxy, fminf(pxz, pyz));
+    const float occ = nkt_hull_at(tab, Rg, fRg, hi, ux, uy, uz);
     w[b] = occ;
     wmax = b == 0 ? occ : fmaxf(wmax, occ);
   }

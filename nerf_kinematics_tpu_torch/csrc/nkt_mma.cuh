@@ -100,11 +100,38 @@ __device__ __forceinline__ uint32_t nkt_tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }
 
-// x = hi + lo to about 22 bits; x - hi is exact.
-__device__ __forceinline__ void nkt_tf32_split(float x, uint32_t& hi,
-                                               uint32_t& lo) {
+// x = hi + lo to about 22 bits; x - hi is exact. Finite x only: a canonical
+// NaN rounds to -0 and an inf leaves lo = NaN.
+__device__ __forceinline__ void nkt_tf32_split_finite(float x, uint32_t& hi,
+                                                      uint32_t& lo) {
   hi = nkt_tf32(x);
   lo = nkt_tf32(x - __uint_as_float(hi));
+}
+
+// Any x. A non-finite x goes whole
+// into lo, with hi = 0: a * b = a_lo b_hi + a_hi b_lo + a_hi b_hi then meets
+// x once, as a_hi x (the IEEE class of a x, a_hi being 0 only where a is),
+// where hi = x would make a_lo x, 0 * inf = NaN for an a exact in TF32.
+__device__ __forceinline__ void nkt_tf32_split(float x, uint32_t& hi,
+                                               uint32_t& lo) {
+  if (isfinite(x)) {
+    nkt_tf32_split_finite(x, hi, lo);
+  } else {  // a NaN as the canonical one: its top 19 bits are a NaN
+    hi = 0u;
+    lo = x != x ? 0x7FFFFFFFu : __float_as_uint(x);
+  }
+}
+
+// The split a kernel instance takes: SAFE where its operands may be
+// non-finite, the finite one (two integer operations fewer) where the
+// launch's inputs were found finite.
+template <bool SAFE>
+__device__ __forceinline__ void nkt_tf32_split_t(float x, uint32_t& hi,
+                                                 uint32_t& lo) {
+  if constexpr (SAFE)
+    nkt_tf32_split(x, hi, lo);
+  else
+    nkt_tf32_split_finite(x, hi, lo);
 }
 
 // c += A B on the tensor cores, TF32 operands (one of the three products).
@@ -257,7 +284,7 @@ __device__ __forceinline__ void nkt_mma_finish(float (*acc)[4], int NT,
                     acc[nt][3] + b1};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        if (relu) z[e] = fmaxf(z[e], 0.0f);
+        if (relu) z[e] = nkt_relu(z[e]);
         acc[nt][e] = z[e];
         if (nkt_near_midpoint(z[e])) redo |= 1u << (nt * 4 + e);
       }
@@ -286,7 +313,7 @@ __device__ __forceinline__ void nkt_mma_finish(float (*acc)[4], int NT,
       list[at] = (unsigned short)(row * NKT_W + col);
     } else {  // more than the list holds: the lane sums its own
       float z = nkt_chain(xb + row * 2 * ldx, Wt + col * ldw, K) + bias[col];
-      if (relu) z = fmaxf(z, 0.0f);
+      if (relu) z = nkt_relu(z);
       yb[row * 2 * ldy + col] = __float2bfloat16_rn(z);
     }
     ++at;
@@ -295,7 +322,7 @@ __device__ __forceinline__ void nkt_mma_finish(float (*acc)[4], int NT,
   for (int it = lane; it < min(total, NKT_LIST_CAP); it += 32) {
     const int row = list[it] / NKT_W, col = list[it] % NKT_W;
     float z = nkt_chain(xb + row * 2 * ldx, Wt + col * ldw, K) + bias[col];
-    if (relu) z = fmaxf(z, 0.0f);
+    if (relu) z = nkt_relu(z);
     yb[row * 2 * ldy + col] = __float2bfloat16_rn(z);
   }
   __syncwarp();
@@ -389,6 +416,27 @@ __device__ __forceinline__ void nkt_mma_stage(const FusedArgs& a,
   }
 }
 
+// The warp's 16 points of a level in E (bf16, lde elements a row; their tap
+// pairs in taps, three a point): NaN in each channel that nkt_poison makes
+// NaN for one of its axes, with the fused kernels' operand rows. desc: the
+// level's descriptors (nkt_poison_descs). Scalar arguments only: a
+// reference to the kernel's argument struct would copy it to the stack.
+static __device__ __noinline__ void nkt_poison_tile(__nv_bfloat16* E, int lde,
+                                                    const NktTapS* taps,
+                                                    const unsigned* desc, int C,
+                                                    int Fd, int lane) {
+  for (int e = lane; e < NKT_MT * C; e += 32) {
+    const int pp = e / C, c = e - pp * C;
+    bool nan = false;
+    for (int a = 0; a < 3; ++a) {
+      const NktTapS q = taps[pp * 3 + a];
+      nan |= nkt_poison(0.0f, desc[a * C + c], q.r0,
+                        nkt_operand_r1(q.r0, q.r1, Fd)) != 0.0f;
+    }
+    if (nan) E[pp * lde + c] = __float2bfloat16_rn(__int_as_float(0x7FFFFFFF));
+  }
+}
+
 // The forward body of bf16 mode: one warp per tile of 16 points, every
 // product on the tensor cores. Each warp has two bf16 buffers of 16 rows, E
 // and H. Per level the lanes gather the line tables' bf16 copy with the
@@ -437,6 +485,7 @@ __device__ __forceinline__ void nkt_mma_body(const FusedArgs& a,
   const int C = a.cp.n_comp, C2 = C / 2, T = a.cp.table;
   const long long n = a.n;
   const long long n_tiles = (n + NKT_MT - 1) / NKT_MT;
+  const unsigned pois_levels = nkt_poison_levels(a.cp);
 
   for (long long tt = (long long)blockIdx.x * warps + warp; tt < n_tiles;
        tt += (long long)gridDim.x * warps) {
@@ -503,6 +552,14 @@ __device__ __forceinline__ void nkt_mma_body(const FusedArgs& a,
         }
       }
       __syncwarp();
+      // a non-finite table entry (nkt_poison), rarely: the product of a
+      // channel whose line feature is NaN is NaN
+      if ((pois_levels >> l) & 1u) {
+        nkt_poison_tile(reinterpret_cast<__nv_bfloat16*>(El), 2 * lde, taps,
+                        nkt_poison_descs(a.cp, l), C, nkt_dup_row(a.cp, l, true),
+                        lane);
+        __syncwarp();
+      }
       // the level's columns of the warp's slot: 16-byte copies
       if (!WIDE) {
         for (int e = lane; e < NKT_MT * C / 8; e += 32) {
@@ -571,8 +628,8 @@ __device__ __forceinline__ void nkt_mma_body(const FusedArgs& a,
             z0s[pg] = z0g;
             z0s[pg8] = z0g8;
           }
-          if (pg < n) a.out[3 * n + pg] = expf(fminf(fmaxf(z0g, -15.0f), 15.0f));
-          if (pg8 < n) a.out[3 * n + pg8] = expf(fminf(fmaxf(z0g8, -15.0f), 15.0f));
+          if (pg < n) a.out[3 * n + pg] = expf(nkt_clamp(z0g, -15.0f, 15.0f));
+          if (pg8 < n) a.out[3 * n + pg8] = expf(nkt_clamp(z0g8, -15.0f, 15.0f));
         }
       }
       if (last) {

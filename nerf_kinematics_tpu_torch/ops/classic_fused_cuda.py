@@ -131,6 +131,13 @@ def _chunks(n: int):
     return [slice(s, min(s + REF_CHUNK, n)) for s in range(0, n, REF_CHUNK)]
 
 
+def _relu_grad(g, z):
+    """The ReLU's backward as the reference computes it: its ``g * (z > 0)``
+    is a select after XLA's simplification, so a masked NaN or inf cotangent
+    gives 0, and a NaN pre-activation masks."""
+    return torch.where(z > 0.0, g, torch.zeros_like(g))
+
+
 @torch.no_grad()
 def classic_fused_apply_cf_ref(params: dict, xt: torch.Tensor,
                                vdt: torch.Tensor, cfg) -> torch.Tensor:
@@ -154,12 +161,12 @@ def _backward_one(params, xt, vdt, g, cfg):
     # rgb head
     dW[t + 3] = _dot_acc(res["y"], g_rgb, rnd(t + 3))
     db[t + 3] = g_rgb.sum(dim=1, keepdim=True)
-    gy = _dot_out(Ws[t + 3], g_rgb, rnd(t + 3)) * (res["zd"] > 0.0)
+    gy = _relu_grad(_dot_out(Ws[t + 3], g_rgb, rnd(t + 3)), res["zd"])
     # direction branch
     dW[t + 2] = _dot_acc(res["y_in"], gy, rnd(t + 2))
     db[t + 2] = gy.sum(dim=1, keepdim=True)
     g_cat = _dot_out(Ws[t + 2], gy, rnd(t + 2))
-    g_feat = g_cat[: res["zf"].shape[0]] * (res["zf"] > 0.0)
+    g_feat = _relu_grad(g_cat[: res["zf"].shape[0]], res["zf"])
     # feature head
     dW[t + 1] = _dot_acc(res["h"], g_feat, rnd(t + 1))
     db[t + 1] = g_feat.sum(dim=1, keepdim=True)
@@ -171,7 +178,7 @@ def _backward_one(params, xt, vdt, g, cfg):
     # trunk
     for i in reversed(range(t)):
         inp, z = res["pre"][i]
-        gh = gh * (z > 0.0)
+        gh = _relu_grad(gh, z)
         dW[i] = _dot_acc(inp, gh, rnd(i))
         db[i] = gh.sum(dim=1, keepdim=True)
         if i:
@@ -322,6 +329,7 @@ def _args(params, xt, vdt, out, cfg, lay: _Layout, scratch: dict):
     a.tc = int("tf" in scratch)
     if a.tc:
         a.tf, a.tb = scratch["tf"].data_ptr(), scratch["tb"].data_ptr()
+        a.nonfinite = scratch["nonfinite"].data_ptr()
     a.n, a.nw, a.trunk, a.hidden = n, lay.nw, lay.t, cfg.hidden_size
     a.buf_rows = lay.buf_rows
     for name in ("rnd", "wf_off", "wf_ld", "wb_off", "wb_ld", "wb_cols",
@@ -346,7 +354,8 @@ def _args(params, xt, vdt, out, cfg, lay: _Layout, scratch: dict):
 
 def _scratch(lay: _Layout, dev, cfg, tc: bool = True):
     """The packed weights; with ``tc`` in f32 mode also the 3xTF32
-    fragments, which make the kernels take the tensor-core bodies."""
+    fragments, which make the kernels take the tensor-core bodies, and the
+    launch's words of "a non-finite input" (one a pack block)."""
     f32 = dict(dtype=torch.float32, device=dev)
     out = {"wf": torch.empty(lay.wf_size, **f32),
            "wb": torch.empty(lay.wb_size, **f32),
@@ -354,6 +363,9 @@ def _scratch(lay: _Layout, dev, cfg, tc: bool = True):
     if tc and not _bf16(cfg):
         out["tf"] = torch.empty(lay.tf_size, **f32)
         out["tb"] = torch.empty(lay.tb_size, **f32)
+        out["nonfinite"] = torch.empty(
+            cuda_lib.CLASSIC_MAX_LAYERS * cuda_lib.CLASSIC_PACK_Y, dtype=torch.int32,
+            device=dev)
     return out
 
 

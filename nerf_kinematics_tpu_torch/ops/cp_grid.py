@@ -158,10 +158,14 @@ def level_taps(x_axis: torch.Tensor, cfg: CPGridConfig, level: int, axis: int):
 
     ``x_axis``: (N,) f32 unit coordinates, already clipped to [0, 1]. Returns
     ``(r0, r1, w0, w1)``: int64 rows and f32 weights (bf16-rounded when
-    ``cfg.use_bf16``)."""
+    ``cfg.use_bf16``). A NaN coordinate taps the rows of cell 0 with NaN
+    weights: the reference's tent of a NaN is NaN on every row, and no index
+    is made from a NaN."""
     R = cfg.resolutions[level]
     F = cfg.level_fold(R)
     p = torch.clamp(x_axis * float(R), 0.0, level_clip_max(R))
+    nan = torch.isnan(p)
+    p = torch.where(nan, torch.zeros_like(p), p)
     if F and cfg.fold == "hash":
         i0 = torch.floor(p)
         w = p - i0
@@ -184,11 +188,153 @@ def level_taps(x_axis: torch.Tensor, cfg: CPGridConfig, level: int, axis: int):
             r1 = torch.where(r1 >= F, r1 - F, r1)
     if cfg.use_bf16:
         w0, w1 = _round_bf16(w0), _round_bf16(w1)
+    if nan.any():
+        w0 = torch.where(nan, torch.full_like(w0, float("nan")), w0)
+        w1 = torch.where(nan, torch.full_like(w1, float("nan")), w1)
     return r0, r1, w0, w1
 
 
+# -- non-finite values: what the reference's dense contractions give --------
+#
+# The reference contracts a tent over a level's rows with the table (forward)
+# and with the cotangent (the tables' gradient): every point meets every row,
+# with a weight of 0 where it does not tap it. So a non-finite value spreads
+# where 0 * inf and 0 * NaN are NaN. The gathers here touch the two tapped
+# rows only and then apply that rule. Which rows a level contracts over
+# depends on the reference function (``contract``):
+#
+#   "table"  the XLA mirror ``cp_encode_stacked``: all T rows;
+#   "level"  the stand-alone encoder kernel: ``level_rows(R)`` rows;
+#   "dup"    the fused kernels: ``level_rows_dup(R)`` rows of the operand in
+#            which a periodic folded level's row F is a copy of row 0 (rows
+#            past T are zero), its gradient folded back into row 0 and
+#            rows >= T dropped.
+
+CONTRACTS = ("table", "level", "dup")
+
+
+def contraction(cfg: CPGridConfig, level: int, contract: str):
+    """``(rows, dup)``: rows the reference contracts level ``level`` over,
+    and ``F`` where row F of that operand is a copy of row 0 (else 0)."""
+    R = cfg.resolutions[level]
+    if contract == "table":
+        return cfg.table_size, 0
+    if contract == "level":
+        return cfg.level_rows(R), 0
+    if contract != "dup":
+        raise ValueError(f"contract: one of {CONTRACTS}, got {contract!r}")
+    F = cfg.level_fold(R) if cfg.fold == "periodic" else 0
+    return cfg.level_rows_dup(R), F
+
+
+def _operand_rows(rows: int, dup: int, table: int, device):
+    """Operand row j -> (parameter row, whether it is one): row ``dup`` is
+    row 0, rows past the table are padding."""
+    j = torch.arange(rows, device=device)
+    real = j < table
+    if dup:
+        real = real | (j == dup)
+        j = torch.where(j == dup, torch.zeros_like(j), j)
+    return j, real
+
+
+def _operand_taps(r0, r1, dup: int):
+    """The taps as operand rows: the wrap tap of a ``dup`` level is row F."""
+    return r0, (r0 + 1 if dup else r1)
+
+
+def poison_features(u: torch.Tensor, tab: torch.Tensor, r0, r1, rows: int,
+                    dup: int) -> torch.Tensor:
+    """``u`` (N, C): the tap sums of one level and axis over ``tab`` (T, C).
+    Where a column of the contracted rows holds a non-finite entry, a point
+    that does not tap every such row meets one with a weight of 0: its value
+    in that column is NaN. A point that taps them all keeps its tap sum."""
+    src, real = _operand_rows(rows, dup, tab.shape[0], tab.device)
+    bad = ~torch.isfinite(tab[src[real]])
+    if not bad.any():
+        return u
+    ops = torch.arange(rows, device=tab.device)[real]
+    t0, t1 = _operand_taps(r0, r1, dup)
+    u = u.clone()
+    nan = torch.full_like(u[:, 0], float("nan"))
+    for c in bad.any(dim=0).nonzero().flatten().tolist():
+        z = ops[bad[:, c]]
+        keep = torch.zeros_like(t0, dtype=torch.bool)
+        if len(z) <= 2:
+            keep = ~keep
+            for j in z.tolist():
+                keep &= (t0 == j) | (t1 == j)
+        u[:, c] = torch.where(keep, u[:, c], nan)
+    return u
+
+
+def nonfinite_dlines(dl: torch.Tensor, G: torch.Tensor, r0, r1, w0, w1,
+                     rows: int, dup: int) -> None:
+    """Give ``dl`` (T, C), the tap sums of the gradient of one level and
+    axis, the classes of the reference's dense ``tent^T G``: in a column
+    where some point has a non-finite ``G`` or NaN weights (a NaN
+    coordinate), every contracted row is NaN, except the rows that every such
+    point taps with a weight above 0 with an inf of one sign (those are that
+    inf). In place; nothing to do on finite inputs."""
+    nanw = torch.isnan(w0)
+    bad = ~torch.isfinite(G) | nanw[:, None]
+    if not bad.any():
+        return
+    t0, t1 = _operand_taps(r0, r1, dup)
+    src, real = _operand_rows(rows, dup, dl.shape[0], dl.device)
+    nan, inf = float("nan"), float("inf")
+    for c in bad.any(dim=0).nonzero().flatten().tolist():
+        b = bad[:, c]
+        g = G[b, c]
+        d = torch.full((rows,), nan, dtype=dl.dtype, device=dl.device)
+        if not (torch.isnan(g).any() or nanw[b].any()):
+            pos = torch.zeros(rows, dtype=torch.int64, device=dl.device)
+            neg = torch.zeros_like(pos)
+            for t, w in ((t0[b], w0[b]), (t1[b], w1[b])):
+                live = w > 0
+                pos.index_add_(0, t[live], (g[live] > 0).long())
+                neg.index_add_(0, t[live], (g[live] < 0).long())
+            n = int(b.sum())
+            d = torch.where(pos == n, inf, d)
+            d = torch.where(neg == n, -inf, d)
+        # fold the operand rows into the parameter rows: the classes add
+        col = torch.zeros(dl.shape[0], dtype=dl.dtype, device=dl.device)
+        col.index_add_(0, src[real], d[real])
+        hit = torch.zeros(dl.shape[0], dtype=torch.bool, device=dl.device)
+        hit[src[real]] = True
+        dl[hit, c] = col[hit]
+
+
+class _TapSum(torch.autograd.Function):
+    """``w0 * tab[r0] + w1 * tab[r1]`` with the reference's non-finite
+    classes (:func:`poison_features`, :func:`nonfinite_dlines`) forward and
+    backward; differentiable in ``tab`` and in the weights."""
+
+    @staticmethod
+    def forward(ctx, tab, w0, w1, r0, r1, rows, dup):
+        ctx.save_for_backward(tab, w0, w1, r0, r1)
+        ctx.rows, ctx.dup = rows, dup
+        u = w0[:, None] * tab[r0] + w1[:, None] * tab[r1]
+        return poison_features(u, tab, r0, r1, rows, dup)
+
+    @staticmethod
+    def backward(ctx, du):
+        tab, w0, w1, r0, r1 = ctx.saved_tensors
+        dtab = dw0 = dw1 = None
+        if ctx.needs_input_grad[0]:
+            dtab = (torch.zeros_like(tab).index_add_(0, r0, w0[:, None] * du)
+                    + torch.zeros_like(tab).index_add_(0, r1, w1[:, None] * du))
+            nonfinite_dlines(dtab, du, r0, r1, w0, w1, ctx.rows, ctx.dup)
+        if ctx.needs_input_grad[1]:
+            dw0 = (du * tab[r0]).sum(dim=1)
+        if ctx.needs_input_grad[2]:
+            dw1 = (du * tab[r1]).sum(dim=1)
+        return dtab, dw0, dw1, None, None, None, None
+
+
 def cp_encode_stacked(stacked: torch.Tensor, x: torch.Tensor,
-                      cfg: CPGridConfig, point_grads: bool = False) -> torch.Tensor:
+                      cfg: CPGridConfig, point_grads: bool = False,
+                      contract: str = "table") -> torch.Tensor:
     """Plain PyTorch encoder over the stacked ``(L, 3, T, C)`` table:
     ``x`` in [0,1]^3, shape ``(..., 3)`` -> ``(..., L*C)`` f32.
 
@@ -196,7 +342,9 @@ def cp_encode_stacked(stacked: torch.Tensor, x: torch.Tensor,
     unless ``point_grads`` is set: by default no gradient reaches the points
     (training treats them as data), and ``point_grads=True`` keeps the tents
     differentiable in ``x`` (pose refinement). The tables' gradient is the
-    same either way."""
+    same either way. Non-finite values take the classes of the reference
+    function that ``contract`` names (see :data:`CONTRACTS`): the XLA mirror
+    by default; finite values do not depend on it."""
     orig = x.shape[:-1]
     x = torch.clamp(x.reshape(-1, 3).to(torch.float32), 0.0, 1.0)
     if not point_grads:
@@ -204,11 +352,11 @@ def cp_encode_stacked(stacked: torch.Tensor, x: torch.Tensor,
     tables = _round_bf16(stacked) if cfg.use_bf16 else stacked.to(torch.float32)
     feats = []
     for l in range(cfg.n_levels):
+        rows, dup = contraction(cfg, l, contract)
         us = []
         for a in range(3):
             r0, r1, w0, w1 = level_taps(x[:, a], cfg, l, a)
-            tab = tables[l, a]
-            us.append(w0[:, None] * tab[r0] + w1[:, None] * tab[r1])
+            us.append(_TapSum.apply(tables[l, a], w0, w1, r0, r1, rows, dup))
         feats.append(us[0] * us[1] * us[2])
     return torch.cat(feats, dim=-1).reshape(*orig, cfg.out_dim)
 

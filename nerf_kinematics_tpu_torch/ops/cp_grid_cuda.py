@@ -20,7 +20,8 @@ import ctypes
 import torch
 
 from . import cuda_lib
-from .cp_grid import CPGridConfig, _round_bf16, cp_encode_stacked, level_taps
+from .cp_grid import (CPGridConfig, _round_bf16, contraction, cp_encode_stacked,
+                      level_taps, nonfinite_dlines, poison_features)
 
 REF_CHUNK = 1 << 18  # points per chunk of the plain version
 DLINES_PARTIAL_BYTES = 1 << 28  # cap of the line-table gradient's chunk sums
@@ -46,7 +47,7 @@ def cp_encode_cuda_ref(lines: torch.Tensor, x: torch.Tensor,
     orig = x.shape[:-1]
     flat = x.reshape(-1, 3)
     outs = [
-        cp_encode_stacked(lines, flat[s : s + REF_CHUNK], cfg)
+        cp_encode_stacked(lines, flat[s : s + REF_CHUNK], cfg, contract="level")
         for s in range(0, flat.shape[0], REF_CHUNK)
     ]
     if not outs:
@@ -67,6 +68,7 @@ def _encode(lines, x, cfg: CPGridConfig) -> torch.Tensor:
     if n:
         lib = cuda_lib.load_library()
         cp = cuda_lib.cp_levels(cfg)
+        scratch = cuda_lib.nonfinite_scratch(cp, flat.device)
         code = lib.nkt_cp_encode(
             flat.data_ptr(), lines.data_ptr(), out.data_ptr(), n,
             ctypes.byref(cp), cuda_lib.sm_count(flat.device),
@@ -80,12 +82,16 @@ def _encode(lines, x, cfg: CPGridConfig) -> torch.Tensor:
 
 @torch.no_grad()
 def cp_encode_cuda_bwd_ref(lines: torch.Tensor, x: torch.Tensor,
-                           g: torch.Tensor, cfg: CPGridConfig) -> torch.Tensor:
+                           g: torch.Tensor, cfg: CPGridConfig,
+                           contract: str = "level") -> torch.Tensor:
     """Plain PyTorch version of :func:`cp_encode_cuda_bwd`: the cotangent
     ``g`` (..., L*C) of the encoding of ``x`` (..., 3) -> ``dlines``
     (L, 3, T, C). Per level and axis the cotangent times the other two axes'
     line features is rounded to bf16 (when ``cfg.use_bf16``) and added,
-    weighted by the two tent weights, to the two tapped rows."""
+    weighted by the two tent weights, to the two tapped rows. Non-finite
+    values take the classes of the reference's dense contraction over the
+    rows ``contract`` names (``cp_grid.CONTRACTS``): the stand-alone
+    kernel's by default, ``"dup"`` for the fused kernels' gradients."""
     _check_lines(lines, cfg)
     C = cfg.n_components
     flat = torch.clamp(x.reshape(-1, 3).to(torch.float32), 0.0, 1.0)
@@ -95,12 +101,14 @@ def cp_encode_cuda_bwd_ref(lines: torch.Tensor, x: torch.Tensor,
     for s in range(0, flat.shape[0], REF_CHUNK):
         xs, gs = flat[s : s + REF_CHUNK], gf[s : s + REF_CHUNK]
         for l in range(cfg.n_levels):
+            rows, dup = contraction(cfg, l, contract)
             taps, us = [], []
             for a in range(3):
                 r0, r1, w0, w1 = level_taps(xs[:, a], cfg, l, a)
                 tab = tables[l, a]
                 taps.append((r0, r1, w0, w1))
-                us.append(w0[:, None] * tab[r0] + w1[:, None] * tab[r1])
+                u = w0[:, None] * tab[r0] + w1[:, None] * tab[r1]
+                us.append(poison_features(u, tab, r0, r1, rows, dup))
             g_l = gs[:, l * C : (l + 1) * C]
             others = [us[1] * us[2], us[0] * us[2], us[0] * us[1]]
             for a in range(3):
@@ -110,8 +118,11 @@ def cp_encode_cuda_bwd_ref(lines: torch.Tensor, x: torch.Tensor,
                 r0, r1, w0, w1 = taps[a]
                 # r1 of a periodic folded level has wrapped to row 0; a hash
                 # fold onto one row has w1 = 0 and both weights in w0.
-                dl[l, a].index_add_(0, r0, w0[:, None] * gu)
-                dl[l, a].index_add_(0, r1, w1[:, None] * gu)
+                part = torch.zeros_like(dl[l, a])
+                part.index_add_(0, r0, w0[:, None] * gu)
+                part.index_add_(0, r1, w1[:, None] * gu)
+                nonfinite_dlines(part, gu, r0, r1, w0, w1, rows, dup)
+                dl[l, a] += part
     return dl
 
 
@@ -158,6 +169,7 @@ def cp_encode_cuda_bwd(lines: torch.Tensor, x: torch.Tensor, g: torch.Tensor,
     partial, chunks = dlines_scratch(n, cfg, flat.device)
     lib = cuda_lib.load_library()
     cp = cuda_lib.cp_levels(cfg)
+    scratch = cuda_lib.nonfinite_scratch(cp, flat.device)
     code = lib.nkt_cp_encode_bwd(
         flat.data_ptr(), lines.data_ptr(), gf.data_ptr(), partial.data_ptr(),
         dl.data_ptr(), n, ctypes.byref(cp), chunks,

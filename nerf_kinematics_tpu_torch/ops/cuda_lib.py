@@ -30,6 +30,7 @@ MAX_LAYERS = 8
 MAX_WIDTH = 64  # NKT_W of csrc/ngp_fused.cuh
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 CLASSIC_MAX_LAYERS = 16  # NKC_MAX_LAYERS of csrc/classic_fused.cu
+CLASSIC_PACK_Y = 16      # NKC_PACK_Y: pack blocks a layer
 CLASSIC_MAX_FREQS = 16   # NKC_MAX_FREQS
 MAX_BINS = 256     # NKF_MAX_BINS of csrc/ngp_fused_full.cu
 MAX_SAMPLES = 256  # NKF_MAX_SAMPLES
@@ -83,6 +84,7 @@ class CPLevels(ctypes.Structure):
         ("F", ctypes.c_int * MAX_LEVELS),
         ("pmax", ctypes.c_float * MAX_LEVELS),
         ("salt", (ctypes.c_int * 3) * MAX_LEVELS),
+        ("nonfinite", ctypes.c_void_p),
     ]
 
 
@@ -194,6 +196,7 @@ class ClassicArgs(ctypes.Structure):
         ("bias", ctypes.c_void_p),
         ("tf", ctypes.c_void_p),
         ("tb", ctypes.c_void_p),
+        ("nonfinite", ctypes.c_void_p),
         ("n", ctypes.c_longlong),
         ("nw", ctypes.c_int),
         ("trunk", ctypes.c_int),
@@ -358,6 +361,8 @@ def load_library(verbose: bool = False):
     lib.nkt_cp_encode_bwd.argtypes = [
         vp, vp, vp, vp, vp, ll, ctypes.POINTER(CPLevels), ci, vp]
     lib.nkt_cp_encode_bwd.restype = ci
+    lib.nkt_nonfinite_words.argtypes = [ctypes.POINTER(CPLevels)]
+    lib.nkt_nonfinite_words.restype = ll
     lib.nkt_fused_bwd_sizes.argtypes = [
         ctypes.POINTER(FusedArgs), ctypes.POINTER(ll)]
     lib.nkt_fused_bwd_sizes.restype = None
@@ -390,6 +395,18 @@ def check_tensor(t: torch.Tensor, name: str, shape, device=None) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def nonfinite_scratch(cp: CPLevels, device) -> torch.Tensor:
+    """The non-finite scratch of one launch (the tables' scan and row 5's
+    record, ``CPLevels.nonfinite`` in csrc/nkt_common.cuh), made for each
+    launch on the current stream and pointed to from ``cp``; the caller holds
+    it until the launch is queued. Each launch has its own, so launches on
+    other streams or threads cannot mix their records."""
+    words = load_library().nkt_nonfinite_words(ctypes.byref(cp))
+    t = torch.empty((words,), dtype=torch.int32, device=device)
+    cp.nonfinite = t.data_ptr()
+    return t
 
 
 def sm_count(device) -> int:

@@ -40,6 +40,7 @@ import torch
 from . import cuda_lib
 from .cp_grid import CPGridConfig, _round_bf16, cp_encode_stacked
 from .cp_grid_cuda import cp_encode_cuda_bwd_ref, dlines_scratch
+from .occupancy_cuda import occupancy_at_hull_cuda_ref
 from .sh import sh_encode
 
 REF_CHUNK = 1 << 19  # points per chunk of the plain versions
@@ -77,7 +78,7 @@ def ngp_fused_sigma_cf_ref(params: dict, xt: torch.Tensor,
     """Plain PyTorch version of :func:`ngp_fused_sigma_cf`."""
 
     def one(s, e):
-        enc = cp_encode_stacked(params["lines"], xt[:, s:e].T, cfg)
+        enc = cp_encode_stacked(params["lines"], xt[:, s:e].T, cfg, contract="dup")
         feat = _mlp_ref(enc, params["dW"], params["db"], cfg.use_bf16)
         out = torch.zeros((4, e - s), dtype=torch.float32, device=xt.device)
         out[3] = _sigma_of(feat)
@@ -91,7 +92,7 @@ def ngp_fused_apply_cf_ref(params: dict, xt: torch.Tensor, vdt: torch.Tensor,
     """Plain PyTorch version of :func:`ngp_fused_apply_cf`."""
 
     def one(s, e):
-        enc = cp_encode_stacked(params["lines"], xt[:, s:e].T, cfg)
+        enc = cp_encode_stacked(params["lines"], xt[:, s:e].T, cfg, contract="dup")
         feat = _mlp_ref(enc, params["dW"], params["db"], cfg.use_bf16)
         h = torch.cat([feat, sh_encode(vdt[:, s:e].T, 4)], dim=-1)
         rgb = _mlp_ref(h, params["cW"], params["cb"], cfg.use_bf16)
@@ -218,8 +219,8 @@ def _fused_args(params: dict, xt, vdt, out, cfg: CPGridConfig, color: bool,
                 backward: bool = False):
     """Check everything the kernel assumes and fill its argument struct.
     Returns ``(args, keep)``: every pointer in ``args`` belongs to a tensor
-    the caller holds or to ``keep`` (bf16 mode's operands), which the caller
-    holds until the launch is queued."""
+    the caller holds or to ``keep`` (the launch's non-finite scratch, bf16
+    mode's operands), which the caller holds until the launch is queued."""
     dev = xt.device
     n = xt.shape[1]
     cuda_lib.check_tensor(xt, "xt", (3, None))
@@ -236,6 +237,7 @@ def _fused_args(params: dict, xt, vdt, out, cfg: CPGridConfig, color: bool,
     args.out = out.data_ptr()
     args.n = n
     args.cp = cuda_lib.cp_levels(cfg)
+    scratch = cuda_lib.nonfinite_scratch(args.cp, dev)
     if color:
         cuda_lib.check_tensor(vdt, "vdt", (3, n), dev)
         args.vdt = vdt.data_ptr()
@@ -270,9 +272,11 @@ def _fused_args(params: dict, xt, vdt, out, cfg: CPGridConfig, color: bool,
                     args.cW, args.cb, args.c_in, args.c_out)
         if last != 3:
             raise ValueError(f"the color MLP must end in 3 channels, got {last}")
-    keep = mma_operands(params, cfg, color, backward)
-    if keep is not None:
-        lines16, wpk, lay = keep
+    ops = mma_operands(params, cfg, color, backward)
+    keep = (scratch,)
+    if ops is not None:
+        lines16, wpk, lay = ops
+        keep = (scratch, *ops)
         args.lines16, args.wpk = lines16.data_ptr(), wpk.data_ptr()
         for i in range(len(lay.f_off)):
             args.pk_off[i], args.pk_ld[i] = lay.f_off[i], lay.f_ld[i]
@@ -416,7 +420,9 @@ def _mlp_bwd_ref(g, pres, weights, use_bf16: bool):
     for i in reversed(range(n)):
         inp, z = pres[i]
         if i < n - 1:
-            g = g * (z > 0.0)
+            # the reference's g * (z > 0) is a select after XLA's
+            # simplification: a masked NaN or inf cotangent gives 0
+            g = torch.where(z > 0.0, g, torch.zeros_like(g))
         w = weights[i].to(torch.float32)
         gw = g
         if use_bf16:
@@ -428,7 +434,7 @@ def _mlp_bwd_ref(g, pres, weights, use_bf16: bool):
 
 
 def _forward_saved(params, xt, vdt, cfg: CPGridConfig):
-    enc = cp_encode_stacked(params["lines"], xt.T, cfg)
+    enc = cp_encode_stacked(params["lines"], xt.T, cfg, contract="dup")
     feat, d_pres = _mlp_fwd_save(enc, params["dW"], params["db"], cfg.use_bf16)
     h = torch.cat([feat, sh_encode(vdt.T, 4)], dim=-1)
     rgb_l, c_pres = _mlp_fwd_save(h, params["cW"], params["cb"], cfg.use_bf16)
@@ -447,7 +453,7 @@ def _backward_saved(params, xt, cfg, feat, d_pres, c_pres, g_rgb, g_sigma):
     d_feat[:, 0] += torch.where(live, g_sigma * _sigma_of(feat),
                                 torch.zeros_like(z0))
     d_enc, ddW, ddb = _mlp_bwd_ref(d_feat, d_pres, params["dW"], bf)
-    dlines = cp_encode_cuda_bwd_ref(params["lines"], xt.T, d_enc, cfg)
+    dlines = cp_encode_cuda_bwd_ref(params["lines"], xt.T, d_enc, cfg, contract="dup")
     return {"lines": dlines, "dW": ddW, "db": ddb, "cW": dcW, "cb": dcb}
 
 
@@ -600,11 +606,10 @@ def ngp_fused_train_full_cf_ref(params: dict, o_cf, d_cf, vd_cf, tgt_cf,
     # ---- stage A: hull-proposal weights on the uniform bins --------------
     centres = torch.tensor([near + (b + 0.5) * step for b in range(num_bins)], **f32)
     pb = o_cf[:, None, :] + centres[None, :, None] * d_cf[:, None, :]  # (3, NB, R)
-    Rg = proj2.shape[-1]
-    cell = torch.floor(torch.clamp(to_unit(pb) * float(Rg), 0.0, float(Rg - 1)))
-    ix, iy, iz = cell.to(torch.int64)
-    P = proj2.to(torch.bfloat16).to(torch.float32)
-    occ = torch.minimum(P[0][ix, iy], torch.minimum(P[1][ix, iz], P[2][iy, iz])).T
+    # row 1's lookup: a pair that reads a NaN coordinate is 0, as the
+    # reference's one-hot row of a NaN matches no cell
+    occ = occupancy_at_hull_cuda_ref(proj2, to_unit(pb).reshape(3, -1))
+    occ = occ.reshape(num_bins, R).T
     occ_max = occ.amax(dim=1, keepdim=True)
     w = occ / (occ_max + 1e-9) + occ_floor  # (R, NB)
 

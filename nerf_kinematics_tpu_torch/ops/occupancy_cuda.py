@@ -51,7 +51,10 @@ def occupancy_at_hull_cuda(proj2: torch.Tensor, xt: torch.Tensor) -> torch.Tenso
             xt.data_ptr(), proj2.data_ptr(), out.data_ptr(), n, R,
             cuda_lib.sm_count(xt.device), cuda_lib.current_stream(xt.device),
         )
+        cuda_lib.raise_on_error(
+            code, "occupancy_at_hull",
+            f"R = {R}: the kernel holds the three projections in bf16 in a "
+            "block's shared memory, which takes R <= 196")
         cuda_lib.LAUNCHES["occupancy_at_hull"] += 1
         cuda_lib.POINTS["occupancy_at_hull", "kernel"] += n
-        cuda_lib.raise_on_error(code, "occupancy_at_hull")
     return out

@@ -389,18 +389,30 @@ def test_dlines_kernel_emulated_matches_pallas_and_plain(fold, use_bf16, n, n_sm
 
 
 def test_plain_dlines_keeps_a_nan_cotangent_to_its_taps():
-    """The plain version adds a point's products to its two tapped rows only
-    (index_add_): a NaN cotangent reaches those rows and no other, where the
-    kernel's dense tile products spread it over the tiles the point taps."""
+    """The pattern of the reference's dense ``tent^T grad_u`` on a
+    non-finite cotangent (``cp_grid_pallas.py``'s backward), which the plain
+    version gives: a NaN makes its column NaN on every row below
+    ``level_rows(R)``; an inf leaves the rows its point taps with a weight
+    above 0 at +-inf and every other row below ``level_rows`` NaN; rows
+    at or past ``level_rows`` stay 0."""
     kw = dict(BASE, use_bf16=False)
     cfg = CPGridConfig(**kw)
     lines, x = _inputs(61, kw, 40)
+    C = cfg.n_components
     g = np.ones((40, cfg.out_dim), np.float32)
-    g[5, :] = np.nan
+    g[5, 3::C] = np.nan      # channel 3 of every level
+    g[9, 6::C] = np.inf      # channel 6 of every level
     dl = cp_encode_cuda_bwd_ref(torch.tensor(lines), torch.tensor(x), torch.tensor(g), cfg)
-    tx = torch.clamp(torch.tensor(x[5:6]), 0, 1)
-    for l in range(cfg.n_levels):
+    tx = torch.clamp(torch.tensor(x[9:10]), 0, 1)
+    for l, R in enumerate(cfg.resolutions):
+        rows = cfg.level_rows(R)
         for a in range(3):
-            r0, r1, _, _ = level_taps(tx[:, a], cfg, l, a)
-            bad = torch.isnan(dl[l, a]).any(dim=1).nonzero().flatten().tolist()
-            assert set(bad) == {int(r0), int(r1)}
+            d = dl[l, a]
+            assert torch.isnan(d[:rows, 3]).all()
+            r0, r1, w0, w1 = level_taps(tx[:, a], cfg, l, a)
+            taps = {int(r) for r, w in ((r0, w0), (r1, w1)) if float(w) > 0}
+            assert taps
+            for r in range(rows):  # the inf's sign is that of grad_u
+                assert (torch.isinf if r in taps else torch.isnan)(d[r, 6]), (l, a, r)
+            assert torch.isfinite(d[:, [0, 1, 2, 4, 5, 7]]).all()
+            assert not d[rows:].any()

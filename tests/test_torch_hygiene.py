@@ -210,6 +210,7 @@ def test_ctypes_structs_mirror_the_cuda_structs():
     classic = (PORT / "csrc" / "classic_fused.cu").read_text()
     assert c_fields(classic, "ClassicArgs") == [f[0] for f in cuda_lib.ClassicArgs._fields_]
     assert f"#define NKC_MAX_LAYERS {cuda_lib.CLASSIC_MAX_LAYERS}" in classic
+    assert f"#define NKC_PACK_Y {cuda_lib.CLASSIC_PACK_Y}" in classic
     assert f"#define NKC_MAX_FREQS {cuda_lib.CLASSIC_MAX_FREQS}" in classic
     from nerf_kinematics_tpu_torch.ops.classic_fused_cuda import TILE
 
