@@ -27,7 +27,16 @@ width through the entry points a user calls:
     fits 2048 steps from the JAX package's seed-42 initial weights, one
     whole-step kernel launch a step; ground-truth PSNR of the held-out views
     beside the canonical run's; one step of the whole-step and of the
-    two-call route from one state and one set of draws.
+    two-call route from one state and one set of draws;
+  * the command lines on that scene, with ``configs/*.yml`` read by the
+    port's own YAML reader: ``cli/ngp_run.py`` trains 512 steps from
+    ``configs/machina_ngp.yml``, saves a snapshot, reloads it (the val PSNR
+    must not move) and renders screenshots; ``cli/run_nerf.py`` trains
+    ``configs/machina_classic.yml`` (seed 7) 200 steps to a PSNR floor,
+    evaluates and renders its video, and renders the fast engine's ``--fast`` video from the
+    ``ngp_run`` checkpoint;
+  * the port's bench (``python -m nerf_kinematics_tpu_torch.bench``) on the
+    same scene: rays/s, MFU, time to 25 dB, frame rates.
 
 The kernel phases also hold every kernel to its plain version on non-finite
 inputs (the cases of tests/test_torch_nonfinite.py, and row 1 on NaN and
@@ -55,21 +64,21 @@ import json
 import math
 import os
 import statistics
-import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-# Published peaks of one H100 SXM (dense): the roofline a bound is taken from.
-# "f32x3": f32 work on the tensor cores in 3xTF32, three TF32 products for
-# each f32 one (the classic kernels' f32 mode).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "f32x3": 495e12 / 3}
+# Published peaks of one H100 SXM (dense): the roofline a bound is taken from,
+# and the bench's MFU. "f32x3": f32 work on the tensor cores in 3xTF32, three
+# TF32 products for each f32 one (the classic kernels' f32 mode).
+from nerf_kinematics_tpu_torch.bench import nvidia_smi_line
+from nerf_kinematics_tpu_torch.utils.flops import PEAK_BYTES_PER_S, PEAK_FLOPS
 
 PHASES = ("kernels", "grad_kernels", "serve", "golden", "train", "train_autodiff",
-          "classic", "scene")
+          "classic", "scene", "cli", "bench")
 
 KERNEL_REPS = 5        # timed launches per kernel (median), after 2 warm-ups
 
@@ -79,16 +88,6 @@ FUSED_MAX_TOL = 0.25   # largest single difference of the same
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, timeout=60,
-    )
-    if out.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, reps: int, warmup: int, flush=None, clean: bool = False) -> float:
@@ -259,6 +258,19 @@ def nonfinite_report(name, runs) -> dict:
     return {"cases": len(runs), "nonfinite_entries": sum(runs.values())}
 
 
+def hash_nan_cases(xt0, gen, dev):
+    """fox_ngp.yml's hash-folded encoder (``other_cp_configs``) in both
+    modes, with a NaN coordinate: ``(config, lines, x (n, 3), g)``. There
+    the reference's tent of the NaN is NaN on one hashed row only."""
+    x = spoil("nan_point", xt0)[0].T.contiguous()
+    for c in other_cp_configs():
+        if c.fold == "hash":
+            lines = 0.5 + 0.3 * torch.randn((c.n_levels, 3, c.table_size, c.n_components),
+                                            generator=gen, device=dev)
+            g = torch.randn((x.shape[0], c.out_dim), generator=gen, device=dev)
+            yield c, lines, x, g
+
+
 def nonfinite_forwards(engines, dev) -> dict:
     """Rows 2, 3 and 4 (both modes) and row 9 (both modes, its 3xTF32 and
     FMA bodies) on the non-finite cases."""
@@ -286,6 +298,10 @@ def nonfinite_forwards(engines, dev) -> dict:
                 runs["cp_encode"][key] = same_masks("cp_encode " + key, [
                     ("encoding", cp_encode_cuda(prm["lines"], x, c),
                      cp_encode_cuda_ref(prm["lines"], x, c))])
+    for c, lines, x, _ in hash_nan_cases(xt0, gen, dev):
+        key = f"{'bf16' if c.use_bf16 else 'f32'} hash nan_point"
+        runs["cp_encode"][key] = same_masks("cp_encode " + key, [
+            ("encoding", cp_encode_cuda(lines, x, c), cp_encode_cuda_ref(lines, x, c))])
     runs["classic_fused_apply_cf"] = {}
     xc0, vc = classic_points(NONFINITE_POINTS, gen, dev)
     for mode, eng in classic_engines(dev).items():
@@ -369,6 +385,11 @@ def nonfinite_grads(fx, engines, dev) -> dict:
                 "ngp_fused_train_full_cf " + key,
                 [("err", k[0], p[0]), ("maps", k[1], p[1]), ("err_c", k[2], p[2])]
                 + leaves(k[3], p[3]))
+    for c, lines, x, g in hash_nan_cases(xt0, gen, dev):
+        key = f"{'bf16' if c.use_bf16 else 'f32'} hash nan_point"
+        runs["cp_encode_bwd"][key] = same_masks("cp_encode_bwd " + key, [
+            ("dlines", cp_encode_cuda_bwd(lines, x, g, c),
+             cp_encode_cuda_bwd_ref(lines, x, g, c))])
     xc0, vc = classic_points(n, gen, dev)
     for mode, eng in classic_engines(dev).items():
         mcfg = eng.cfg.model_coarse
@@ -1605,8 +1626,6 @@ def build_dataset(fx, engine, aux, dev, quick: bool, size=None):
 def phase_train(fx, dev, quick: bool, dataset, profile: bool):
     """Trainer.fit from a seeded fresh state at the flagship configuration,
     then validation, a checkpoint round trip and the launch counts."""
-    import tempfile
-
     from nerf_kinematics_tpu_torch.ops import cuda_lib
     from nerf_kinematics_tpu_torch.train.trainer import Trainer
 
@@ -1778,8 +1797,6 @@ def phase_train_autodiff(fx, dev, quick: bool, dataset):
     """One step of each of the three routes from the same initial state and
     the same draws; then 16 steps of each autograd route for a time."""
     import dataclasses
-    import tempfile
-
     from nerf_kinematics_tpu_torch.io.convert import grid_from_numpy
     from nerf_kinematics_tpu_torch.ops import cuda_lib
     from nerf_kinematics_tpu_torch.train.loop import (
@@ -1935,15 +1952,14 @@ ROW8_PARTS = {
 }
 
 
-def phase_scene(fx, dev, quick: bool, profile: bool):
-    """Training from the images on disk: generate machina400 with the port,
+def phase_scene(fx, dev, quick: bool, profile: bool, basedir: str):
+    """Training from the images on disk: generate machina400 with the port
+    into ``basedir`` (the ``cli`` and ``bench`` phases use it after),
     ``Trainer(cfg)`` with ``ngp.fused_train: full`` from the JAX package's
     seed-42 initial weights for SCENE_STEPS steps, ground-truth PSNR on the
     held-out views against the canonical run, the launch counts, and one
     step of the whole-step and of the two-call route from one state (the
     initial weights, the trained occupancy grid) and one set of draws."""
-    import tempfile
-
     from nerf_kinematics_tpu_torch.data.machina import write_machina_dataset
     from nerf_kinematics_tpu_torch.io.convert import params_from_npz
     from nerf_kinematics_tpu_torch.io.fixture import MACHINA_NGP_INIT42
@@ -1956,7 +1972,6 @@ def phase_scene(fx, dev, quick: bool, profile: bool):
     steps = 256 if quick else SCENE_STEPS
     report = {"phase": "scene", "quick": quick, "scene": scene, "steps": steps}
     with tempfile.TemporaryDirectory() as root:
-        basedir = os.path.join(root, "machina400")
         # ---- the main path: the scene generator ---------------------------
         t0 = time.perf_counter()
         write_machina_dataset(basedir, **scene)  # device=None: the card
@@ -2108,6 +2123,192 @@ def phase_scene(fx, dev, quick: bool, profile: bool):
     return counts, points
 
 
+# ---- the command lines and the bench ---------------------------------------
+CLI_NGP_STEPS = 512
+CLI_CLASSIC_STEPS = 200
+# The YAML's seed 42 falls at once into the all-white state on machina400
+# at half resolution and stays there to 2000 steps; seed 7 reads 19.82 dB at
+# 200 steps (scripts/torch_classic_cli_curve.py, PERF.md section 6). The
+# copy takes seed 7 so that the floor holds the route.
+CLI_CLASSIC_SEED = 7
+CLI_CLASSIC_FLOOR_DB = 17.0  # val view 0 after CLI_CLASSIC_STEPS (full size)
+CLI_SHOTS = 4              # test frames the screenshot JSON holds
+SNAPSHOT_PSNR_TOL_DB = 1e-4  # reloaded snapshot against the trainer's state
+
+
+def copy_config(name: str, dst_dir: str, dataset_cache=None, **lines) -> str:
+    """``configs/<name>`` copied as text into ``dst_dir`` with the value of
+    each ``key: value`` line named in ``lines`` replaced (``logdir`` under
+    a temporary directory, never ``logs/``; the scene's ``basedir``), and a
+    ``dataset.cachedir`` line when ``dataset_cache`` is given. The copy is
+    read by the port's YAML reader like the shipped file."""
+    import re
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                           name)) as f:
+        text = f.read()
+    for key, value in lines.items():
+        text, n = re.subn(rf"^(\s*{key}:)[^\n#]*", rf"\g<1> {value}", text, count=1,
+                          flags=re.M)
+        if n != 1:
+            raise AssertionError(f"{name}: no '{key}:' line")
+    if dataset_cache is not None:
+        text, n = re.subn(r"^dataset:\n", f"dataset:\n  cachedir: {dataset_cache}\n",
+                          text, count=1, flags=re.M)
+        if n != 1:
+            raise AssertionError(f"{name}: no 'dataset:' section")
+    path = os.path.join(dst_dir, name)
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def phase_cli(dev, quick: bool, basedir: str):
+    """The command lines, in process, on the scene the ``scene`` phase made:
+    ``ngp_run`` from configs/machina_ngp.yml (train, snapshot, reload,
+    ``--test_transforms``, ``--screenshot_transforms``), ``run_nerf`` of
+    configs/machina_classic.yml (train, ``--eval``, ``--render-video``) and
+    of configs/machina_ngp.yml (``--render-video --fast`` from the
+    ``ngp_run`` checkpoint). The YAML copies are read by the port's reader:
+    no PyYAML here."""
+    import contextlib
+    import io
+    from nerf_kinematics_tpu_torch.cli import ngp_run, run_nerf
+    from nerf_kinematics_tpu_torch.io.image import read_png
+    from nerf_kinematics_tpu_torch.ops import cuda_lib
+
+    report = {"phase": "cli", "quick": quick}
+    train_json = os.path.join(basedir, "transforms_train.json")
+    val_json = os.path.join(basedir, "transforms_val.json")
+    with tempfile.TemporaryDirectory() as root:
+        logdir = os.path.join(root, "logs")
+        ngp_yml = copy_config("machina_ngp.yml", root, logdir=logdir, basedir=basedir)
+        # the three classic runs load the half-resolution views once: the
+        # first writes the loader's cache, the others read it
+        classic_yml = copy_config("machina_classic.yml", root, logdir=logdir,
+                                  basedir=basedir, randomseed=CLI_CLASSIC_SEED,
+                                  dataset_cache=os.path.join(root, "cache"))
+        # run_nerf on the fast engine reads the run ngp_run trained
+        os.makedirs(os.path.join(root, "fast"))
+        ngp_run_yml = copy_config("machina_ngp.yml", os.path.join(root, "fast"),
+                                  logdir=logdir, basedir=basedir,
+                                  id="ngp-transforms_train")
+        snap = os.path.join(root, "machina.nktsnap")
+        with open(os.path.join(basedir, "transforms_test.json")) as f:
+            meta = json.load(f)
+        meta["frames"] = meta["frames"][:CLI_SHOTS]
+        shots_json = os.path.join(root, "shots.json")
+        with open(shots_json, "w") as f:
+            json.dump(meta, f)
+        shots_dir = os.path.join(root, "shots")
+
+        printed = report["printed"] = {}
+
+        def run(label, fn, argv):
+            """fn(argv), its last printed lines kept under ``label``;
+            -> (result, seconds)."""
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                res = fn(argv)
+            torch.cuda.synchronize()
+            printed[label] = buf.getvalue().strip().splitlines()[-2:]
+            return res, time.perf_counter() - t0
+
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        # ---- the main path: the command lines ------------------------------
+        trained, t_train = run("ngp_run train", ngp_run.main, [
+            train_json, "--config", ngp_yml, "--n_steps", str(CLI_NGP_STEPS),
+            "--save_snapshot", snap, "--test_transforms", val_json])
+        reloaded, t_reload = run("ngp_run reload", ngp_run.main, [
+            train_json, "--config", ngp_yml, "--load_snapshot", snap,
+            "--test_transforms", val_json, "--screenshot_transforms", shots_json,
+            "--screenshot_dir", shots_dir])
+        classic, t_classic = run("run_nerf classic", run_nerf.main, [
+            "--config", classic_yml, "--max-iters", str(CLI_CLASSIC_STEPS)])
+        classic_eval, t_eval = run("run_nerf classic --eval", run_nerf.main,
+                                   ["--config", classic_yml, "--eval"])
+        classic_video, t_cvideo = run("run_nerf classic --render-video", run_nerf.main,
+                                      ["--config", classic_yml, "--render-video"])
+        fast_video, t_fvideo = run("run_nerf --fast", run_nerf.main, [
+            "--config", ngp_run_yml, "--render-video", "--fast",
+            "--load-checkpoint", str(CLI_NGP_STEPS)])
+        counts = dict(cuda_lib.LAUNCHES)
+        points = collections.Counter(cuda_lib.POINTS)
+        # -------------------------------------------------------------------
+        shots = [read_png(p) for p in reloaded["screenshots"]]
+        frames = sorted(os.listdir(fast_video["outdir"]))
+        report.update({
+            "ngp_run": {
+                "steps": CLI_NGP_STEPS, "seconds": t_train,
+                "val_psnr_db_per_frame": trained["test_psnr"],
+                "val_mean_psnr_db": trained["test_mean_psnr"],
+                "reloaded_val_mean_psnr_db": reloaded["test_mean_psnr"],
+                "snapshot_bytes": os.path.getsize(snap), "reload_seconds": t_reload,
+                "screenshots": [list(a.shape) for a in shots]},
+            "run_nerf_classic": {
+                "steps": CLI_CLASSIC_STEPS, "seed": CLI_CLASSIC_SEED, "seconds": t_classic,
+                "val_psnr_db": classic["val_psnr"], "eval_val_psnr_db": classic_eval["val_psnr"],
+                "eval_seconds": t_eval, "video_frames": classic_video["frames"],
+                "video_fps": classic_video["fps"], "video_seconds": t_cvideo},
+            "run_nerf_fast_video": {
+                "frames": fast_video["frames"], "fps": fast_video["fps"],
+                "video": os.path.basename(fast_video["video"]),
+                "video_bytes": os.path.getsize(fast_video["video"]),
+                "seconds": t_fvideo, "files": len(frames)},
+            "launches": counts,
+        })
+        emit(report)
+        diff = abs(reloaded["test_mean_psnr"] - trained["test_mean_psnr"])
+        if not (np.isfinite(trained["test_mean_psnr"]) and diff <= SNAPSHOT_PSNR_TOL_DB):
+            raise AssertionError(f"cli: the reloaded snapshot reads {diff} dB from the "
+                                 f"trainer's state (limit {SNAPSHOT_PSNR_TOL_DB})")
+        if len(shots) != len(meta["frames"]) or any(a.shape != shots[0].shape or a.std() == 0
+                                          for a in shots):
+            raise AssertionError(f"cli: screenshots {[a.shape for a in shots]}")
+        if not (np.isfinite(classic["val_psnr"])
+                and abs(classic_eval["val_psnr"] - classic["val_psnr"]) <= 1e-4):
+            raise AssertionError(f"cli: classic val PSNR {classic['val_psnr']} after "
+                                 f"training, {classic_eval['val_psnr']} from its checkpoint")
+        if not quick and not classic["val_psnr"] >= CLI_CLASSIC_FLOOR_DB:
+            raise AssertionError(f"cli: classic val PSNR {classic['val_psnr']:.2f} dB under "
+                                 f"{CLI_CLASSIC_FLOOR_DB}")
+        for what, v in (("classic", classic_video), ("fast", fast_video)):
+            if not (v["frames"] > 0 and os.path.getsize(v["video"]) > 0 and v["fps"] > 0):
+                raise AssertionError(f"cli: the {what} video: {v}")
+        if counts["ngp_fused_train_cf"] != CLI_NGP_STEPS or \
+                counts["classic_fused_apply_cf_bwd"] <= 0:
+            raise AssertionError(f"cli: launches {counts}")
+    return counts, points
+
+
+def phase_bench(dev, basedir: str):
+    """``python -m nerf_kinematics_tpu_torch.bench`` in process on the scene
+    the ``scene`` phase made; its JSON line passes through as this phase's."""
+    import contextlib
+    import io
+
+    from nerf_kinematics_tpu_torch import bench
+    from nerf_kinematics_tpu_torch.ops import cuda_lib
+
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    # ---- the main path: the bench ------------------------------------------
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = bench.main(["--data", basedir])
+    torch.cuda.synchronize()
+    counts = dict(cuda_lib.LAUNCHES)
+    points = collections.Counter(cuda_lib.POINTS)
+    # -------------------------------------------------------------------------
+    emit({"phase": "bench", **out})
+    missing = [k for k in ("value", "mfu_hw_pct", "time_to_25db_s", "device")
+               if out.get(k) is None]
+    if missing or not out["value"] > 0:
+        raise AssertionError(f"bench: no {missing} (value {out.get('value')})")
+    return counts, points
+
+
 CLASSIC_STEPS = 1000
 CLASSIC_SEED = 42           # the config's experiment.randomseed
 CLASSIC_SIZE = 200          # half_res: the 400x400 scene at half resolution
@@ -2129,8 +2330,6 @@ def phase_classic(fx, dev, quick: bool, engine, aux, profile: bool):
     held-out PSNR, renders through the kernel and its plain version, the two
     gradient routes, a checkpoint and a legacy round trip."""
     import dataclasses
-    import tempfile
-
     from nerf_kinematics_tpu_torch.cameras.rays import pixel_dirs
     from nerf_kinematics_tpu_torch.io.torch_compat import import_legacy_checkpoint
     from nerf_kinematics_tpu_torch.metrics.psnr import psnr
@@ -2409,8 +2608,20 @@ def main(argv=None) -> int:
         add(phase_train_autodiff(fx, dev, args.quick, dataset))
     if "classic" in phases:
         add(phase_classic(fx, dev, args.quick, engine, aux, args.profile))
-    if "scene" in phases:
-        add(phase_scene(fx, dev, args.quick, args.profile))
+    with tempfile.TemporaryDirectory() as work:
+        # machina400, generated in the scene phase (or here, for a subset
+        # without it) and used by the cli and bench phases
+        scene_dir = os.path.join(work, "machina400")
+        if "scene" in phases:
+            add(phase_scene(fx, dev, args.quick, args.profile, scene_dir))
+        elif {"cli", "bench"} & set(phases):
+            from nerf_kinematics_tpu_torch.data.machina import write_machina_dataset
+
+            write_machina_dataset(scene_dir, **(SCENE_QUICK if args.quick else SCENE))
+        if "cli" in phases:
+            add(phase_cli(dev, args.quick, scene_dir))
+        if "bench" in phases:
+            add(phase_bench(dev, scene_dir))
     if phases != PHASES:
         emit({"phase": "total", "seconds": time.perf_counter() - t_start,
               "partial": list(phases)})

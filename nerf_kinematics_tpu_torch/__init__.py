@@ -10,8 +10,12 @@ and its gradients, hull occupancy proposal, the standard and the fast
 full-image renderers, the train step and the trainer. The classic engine
 (``train/loop.py::ClassicNerf``): ``FlexibleNeRF``, positional encoding, the
 fused classic point pipeline and its gradient, merged hierarchical sampling,
-NDC rays, legacy checkpoints. Loaders, CLIs, export, poses and multi-GPU
-training come in later slices (``ROADMAP.md``).
+NDC rays, legacy checkpoints. The blender, llff and instant-ngp loaders,
+the command lines (``cli/run_nerf.py``, ``cli/ngp_run.py``,
+``cli/plot_metrics.py``, ``cli/make_scene.py``), snapshots and the bench
+(``python -m nerf_kinematics_tpu_torch.bench``). The hash encoder,
+contracted scenes, export, poses and multi-GPU training come in later
+slices (``ROADMAP.md``).
 """
 
 from ._device import resolve_device

@@ -266,10 +266,12 @@ extern "C" int nkt_cp_encode(const void* x, const void* lines, void* out,
 // Pallas kernel's dense product meets it with every row it contracts over,
 // so in its column a NaN, or an inf times a tent weight of 0, is NaN on
 // every such row, and an inf keeps its sign only on the rows that every such
-// point taps with a weight above 0. In bf16 mode the product warps flag a
-// launch whose sums they find non-finite; in f32 mode the producers test
-// the grad_u they make (a fused multiply-add for every two values) and flag
-// it. Nothing more runs in the producers' 32 registers: two launches follow
+// point taps with a weight above 0. A NaN coordinate on a hash-folded level
+// taps one row (nkt_taps), where alone its tent is NaN: with a finite grad_u
+// it makes that row NaN in every column and leaves the others alone. In
+// bf16 mode the product warps flag a launch whose sums they find
+// non-finite; in f32 mode the producers test the grad_u they make (a fused
+// multiply-add for every two values) and flag it. Nothing more runs in the producers' 32 registers: two launches follow
 // that end at once on finite inputs. nkt_dl_record_kernel makes the record (per
 // (level, axis, channel) a NaN flag, the signs and the count of inf entries,
 // the rows one of them taps and how many of them tap each; in the launch's
@@ -382,8 +384,9 @@ __device__ __forceinline__ void nkt_bar_arrive(int id, int count) {
 // nkt_nf_rec(cp) (nkt_common.cuh), zeroed by the launch's table scan: nf[0]
 // "a producer met one, or something is to be recorded"; then NKT_REC words
 // per (level, axis, channel): [0] bit 31 "a NaN", bit 30 "a -inf", bit 29
-// "a +inf" and the count of inf entries; [1] the operand rows that one inf
-// entry of the column taps with a weight above 0, (row a + 1) << 16 | (row
+// "a +inf", bit 28 "a NaN coordinate taps one row" (nkt_dl_nan_row) and the
+// count of inf entries; [1] the operand rows that one inf entry of the
+// column taps with a weight above 0, (row a + 1) << 16 | (row
 // b + 1) (0: none), the only rows every inf entry can tap; [2], [3] the
 // counts of inf entries that tap row a, row b.
 __device__ __forceinline__ unsigned* nkt_dl_col(unsigned* nf, const CPLevels& cp,
@@ -401,8 +404,11 @@ __device__ __forceinline__ void nkt_dl_record(unsigned* nf, const CPLevels& cp,
     const float w0 = __int_as_float(q[j].z), w1 = __int_as_float(q[j].w);
     const int t0 = q[j].x, t1 = nkt_operand_r1(q[j].x, q[j].y, Fd);
     unsigned* col = nkt_dl_col(nf, cp, l * 3 + j, c);
-    if (v[j] != v[j] || w0 != w0) {
+    const bool one_row = w0 != w0 && q[j].x == q[j].y;
+    if (v[j] != v[j] || (w0 != w0 && (!one_row || isinf(v[j])))) {
       atomicOr(col, 0x80000000u);
+    } else if (one_row) {
+      atomicOr(col, 0x10000000u);
     } else if (isinf(v[j])) {
       atomicAdd(col, 1u);
       atomicOr(col, v[j] > 0.0f ? 0x20000000u : 0x40000000u);
@@ -467,11 +473,18 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// The row that a NaN coordinate taps at level l, axis a (nkt_taps).
+__device__ __forceinline__ int nkt_dl_nan_row(const CPLevels& cp, int l, int a) {
+  return nkt_taps(__int_as_float(0x7FC00000), cp, l, a).r0;
+}
+
 // The classes of the recorded columns, into dlines (L, 3, T, C): NaN on
 // every operand row, except where every inf entry of the column taps the row
 // with a weight above 0 and all have one sign (that inf); operand row F of a
-// dup level is row 0 (the classes add), rows past T are padding. One block;
-// it returns at once when nothing was recorded.
+// dup level is row 0 (the classes add), rows past T are padding. A column
+// whose only record is bit 28 is NaN on its NaN coordinates' row alone, and
+// that row is NaN whatever the column's class. One block; it returns at once
+// when nothing was recorded.
 __global__ void __launch_bounds__(1024)
     nkt_dl_nonfinite_kernel(float* __restrict__ dlines,
                             const unsigned* __restrict__ nf, CPLevels cp,
@@ -483,16 +496,21 @@ __global__ void __launch_bounds__(1024)
     const unsigned k = col[0];
     if (k == 0u) continue;
     const int la = e / C, c = e - la * C, l = la / 3;
+    float* dst = dlines + (long long)la * T * C + c;
+    const int nan_row = k & 0x10000000u ? nkt_dl_nan_row(cp, l, la - l * 3) : -1;
+    if (k == 0x10000000u) {
+      dst[(long long)nan_row * C] = __int_as_float(0x7FFFFFFF);
+      continue;
+    }
     const int rows = nkt_operand_rows(cp, l, dup != 0);
     const int F = nkt_dup_row(cp, l, dup != 0);
-    const unsigned n_inf = k & 0x1FFFFFFFu, sg = (k >> 29) & 3u;
+    const unsigned n_inf = k & 0x0FFFFFFFu, sg = (k >> 29) & 3u;
     const int ra = (int)(col[1] >> 16) - 1, rb = (int)(col[1] & 0xFFFFu) - 1;
     const bool one = !(k >> 31) && (sg == 1u || sg == 2u);
     const float inf = __int_as_float(sg == 1u ? 0x7F800000 : 0xFF800000);
-    float* dst = dlines + (long long)la * T * C + c;
     for (int j = 0; j < rows; ++j) {
       const bool all = (j == ra && col[2] == n_inf) || (j == rb && col[3] == n_inf);
-      const float d = one && all ? inf : __int_as_float(0x7FFFFFFF);
+      const float d = one && all && j != nan_row ? inf : __int_as_float(0x7FFFFFFF);
       if (F > 0 && j == F)
         dst[0] = dst[0] + d;
       else if (j < T)

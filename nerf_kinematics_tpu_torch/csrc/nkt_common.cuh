@@ -73,7 +73,10 @@ __device__ __forceinline__ float nkt_clamp(float z, float lo, float hi) {
 
 // x: one unit coordinate. Rows and tent weights of its two taps at level l.
 // A NaN coordinate taps the rows of cell 0 with NaN weights: the reference's
-// tent of a NaN is NaN on every row, and no index is made from a NaN.
+// tent of a NaN is NaN on every row, and no index is made from a NaN. On a
+// hash-folded level the reference makes an integer of the NaN (0) for both
+// cells instead: both taps are that cell's hashed row, the only row where
+// its tent is NaN.
 __device__ __forceinline__ NktTaps nkt_taps(float x, const CPLevels& cp, int l,
                                             int axis) {
   NktTaps t;
@@ -107,7 +110,10 @@ __device__ __forceinline__ NktTaps nkt_taps(float x, const CPLevels& cp, int l,
     t.w0 = nkt_bf16r(t.w0);
     t.w1 = nkt_bf16r(t.w1);
   }
-  if (x != x) t.w0 = t.w1 = x;
+  if (x != x) {
+    t.w0 = t.w1 = x;
+    if (F > 0 && cp.hashed) t.r1 = t.r0;
+  }
   return t;
 }
 

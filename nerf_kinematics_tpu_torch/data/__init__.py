@@ -1,14 +1,16 @@
 """Dataset loaders, keyed by the config's ``dataset.type``: ``blender``
-(nerf_synthetic layout) and ``llff`` (forward-facing, NDC) are ported; the
-``robot`` (forward-kinematics capture), ``ngp`` (instant-ngp transforms) and
-``synthetic`` types raise ``NotImplementedError`` naming the ROADMAP item they
-wait for.
+(nerf_synthetic layout), ``llff`` (forward-facing, NDC) and ``ngp``
+(instant-ngp transforms.json) are ported; the ``robot`` (forward-kinematics
+capture) and ``synthetic`` types raise ``NotImplementedError`` naming the
+ROADMAP item they wait for. An ``ngp`` scene whose ``aabb_scale`` needs
+scene contraction loads, and ``NGPEngine`` raises for it.
 
 Counterpart of ``nerf_kinematics_tpu/data/__init__.py``.
 """
 
 from .blender import load_blender
 from .llff import load_llff
+from .ngp_transforms import load_ngp_transforms
 from .types import NerfDataset
 
 
@@ -23,9 +25,9 @@ def _waits(kind: str, item: str):
 LOADERS = {
     "blender": load_blender,
     "llff": load_llff,
-    # the robot capture and instant-ngp transforms need the pose tools
+    "ngp": load_ngp_transforms,
+    # the robot capture needs the pose tools
     "robot": _waits("robot", "A.8: poses"),
-    "ngp": _waits("ngp", "A.8: poses, and A.5: contracted scenes"),
     "synthetic": _waits("synthetic", "A.2: the synthetic scenes"),
 }
 
@@ -52,4 +54,5 @@ def load_dataset(cfg, *, white_background: bool = False) -> NerfDataset:
     return ds
 
 
-__all__ = ["NerfDataset", "LOADERS", "load_dataset", "load_blender", "load_llff"]
+__all__ = ["NerfDataset", "LOADERS", "load_dataset", "load_blender", "load_llff",
+           "load_ngp_transforms"]

@@ -5,9 +5,9 @@ The machine the port trains on need not have Pillow, so the loaders and the
 scene generator read and write PNGs here:
 
   * :func:`write_png` / :func:`read_png`: 8-bit, non-interlaced PNG of gray,
-    gray + alpha, RGB, RGBA (and palette, read only). The writer filters no
-    row; the reader undoes all five row filters, since Pillow's writer picks
-    a filter per row.
+    gray + alpha, RGB, RGBA (and palette of 1 to 8 bits, read only). The
+    writer filters no row; the reader undoes all five row filters, since
+    Pillow's writer picks a filter per row.
   * :func:`resize_lanczos`: Pillow's ``Image.resize(size, LANCZOS)`` of an
     8-bit image (``half_res`` and ``downsample_factor`` of the loaders):
     the same separable filter (a = 3), the same fixed-point coefficients
@@ -15,17 +15,25 @@ scene generator read and write PNGs here:
     the passes.
   * :func:`save_image` / :func:`load_image`: float or uint8 images, by file
     extension; JPEG goes through Pillow, imported when needed.
+  * :func:`write_video`: an mp4 through ffmpeg when it is on ``PATH`` (its
+    frames written by :func:`encode_png`), otherwise an animated GIF from
+    :func:`encode_gif`.
 
-Replaces ``nerf_kinematics_tpu/io/image.py::save_image`` / ``load_image``
-and the Pillow calls of the reference's loaders and scene writer.
+Replaces ``nerf_kinematics_tpu/io/image.py::save_image`` / ``load_image`` /
+``write_video`` and the Pillow calls of the reference's loaders and scene
+writer.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import shutil
 import struct
+import subprocess
+import tempfile
 import zlib
+from typing import Sequence
 
 import numpy as np
 
@@ -123,12 +131,23 @@ def decode_png(data: bytes) -> np.ndarray:
     if hdr is None:
         raise ValueError("PNG without a header")
     W, H, depth, ctype, _, _, interlace = hdr
-    if depth != 8 or interlace != 0 or ctype not in _CHANNELS:
+    packed = ctype == 3 and depth in (1, 2, 4)  # palette indices below 8 bits
+    if (depth != 8 and not packed) or interlace != 0 or ctype not in _CHANNELS:
         raise ValueError(f"PNG of bit depth {depth}, color type {ctype}, "
-                         f"interlace {interlace}: only 8-bit non-interlaced files")
+                         f"interlace {interlace}: only 8-bit non-interlaced files "
+                         "(and palettes of 1, 2 or 4 bits)")
     C = _CHANNELS[ctype]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    img = _unfilter(raw.reshape(H, 1 + W * C), H, W, C)
+    if packed:
+        # rows of ceil(W * depth / 8) bytes, filtered byte by byte; the
+        # samples are packed from the high bits down
+        nb = -(-W * depth // 8)
+        rows = _unfilter(raw.reshape(H, 1 + nb), H, nb, 1)[..., 0]
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        img = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(H, -1)
+        img = img[:, :W, None]
+    else:
+        img = _unfilter(raw.reshape(H, 1 + W * C), H, W, C)
     if ctype == 3:
         idx = img[..., 0]
         if plte is None:
@@ -201,6 +220,98 @@ def save_image(path: str, img: np.ndarray) -> None:
         write_png(path, img)
     else:
         _pillow().fromarray(img).save(path)
+
+
+# ---------------------------------------------------------------- video
+
+_GIF_LEVELS = 6  # the palette: a 6 x 6 x 6 cube of RGB, 51 apart per channel
+_GIF_STEP = 255 // (_GIF_LEVELS - 1)
+# Literals between clear codes: after a clear and k literals the decoder's
+# next table entry is 258 + k - 1, so the codes stay 9 bits wide while it is
+# below 512.
+_GIF_RUN = 254
+
+
+def _gif_palette() -> bytes:
+    levels = np.arange(_GIF_LEVELS) * _GIF_STEP
+    cube = np.stack(np.meshgrid(levels, levels, levels, indexing="ij"), -1)
+    table = np.zeros((256, 3), np.uint8)
+    table[: _GIF_LEVELS ** 3] = cube.reshape(-1, 3)
+    return table.tobytes()
+
+
+def _gif_indices(img: np.ndarray) -> np.ndarray:
+    """(H, W, 3) uint8 -> (H * W,) palette indices, each channel to the
+    nearest level of the cube."""
+    q = np.rint(img.astype(np.float32) / _GIF_STEP).astype(np.int64)
+    return (q[..., 0] * _GIF_LEVELS * _GIF_LEVELS + q[..., 1] * _GIF_LEVELS
+            + q[..., 2]).reshape(-1)
+
+
+def _gif_lzw(indices: np.ndarray) -> bytes:
+    """An LZW code stream (minimum code size 8) of literal codes only: a
+    clear code before every ``_GIF_RUN`` literals keeps every code 9 bits
+    wide, so no dictionary is built and the stream packs in numpy. Returns
+    the image data as GIF sub-blocks of at most 255 bytes, terminated."""
+    clear, end = 256, 257
+    n = len(indices)
+    runs = -(-n // _GIF_RUN)
+    codes = np.empty(n + runs + 1, np.int64)
+    at = np.arange(runs) * (_GIF_RUN + 1)
+    codes[at] = clear
+    mask = np.ones(len(codes), bool)
+    mask[at] = False
+    mask[-1] = False
+    codes[mask] = indices
+    codes[-1] = end
+    bits = ((codes[:, None] >> np.arange(9)) & 1).astype(np.uint8).reshape(-1)
+    data = np.packbits(bits, bitorder="little").tobytes()
+    blocks = b"".join(bytes([len(data[i : i + 255])]) + data[i : i + 255]
+                      for i in range(0, len(data), 255))
+    return bytes([8]) + blocks + b"\x00"
+
+
+def encode_gif(frames: Sequence[np.ndarray], fps: float = 24) -> bytes:
+    """(H, W, 3) uint8 frames -> an animated GIF89a that loops: each frame
+    in the global 6 x 6 x 6 palette (an error of at most half a step, 25.5,
+    per channel), shown for 100 / fps hundredths of a second."""
+    frames = [np.asarray(f) for f in frames]
+    if not frames:
+        raise ValueError("encode_gif needs at least one frame")
+    H, W = frames[0].shape[:2]
+    out = [b"GIF89a", struct.pack("<HHBBB", W, H, 0xF7, 0, 0), _gif_palette(),
+           b"\x21\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"]
+    delay = max(int(round(100.0 / fps)), 1)
+    for f in frames:
+        if f.shape[:2] != (H, W) or f.dtype != np.uint8 or f.shape[2:] != (3,):
+            raise ValueError(f"encode_gif takes (H, W, 3) uint8 frames of one size, "
+                             f"got {f.shape} {f.dtype}")
+        out.append(b"\x21\xf9\x04\x00" + struct.pack("<H", delay) + b"\x00\x00")
+        out.append(b"\x2c" + struct.pack("<HHHHB", 0, 0, W, H, 0))
+        out.append(_gif_lzw(_gif_indices(f)))
+    out.append(b"\x3b")
+    return b"".join(out)
+
+
+def write_video(path: str, frames: Sequence[np.ndarray], fps: int = 30) -> str:
+    """Write frames (float in [0, 1] or uint8, (H, W, 3)) to an mp4 through
+    ffmpeg when it is on ``PATH`` and ``path`` ends in ``.mp4``, else to an
+    animated GIF beside it (``.gif``). Returns the path written."""
+    frames8 = [np.clip(np.asarray(f) * 255, 0, 255).astype(np.uint8)
+               if np.asarray(f).dtype != np.uint8 else np.asarray(f) for f in frames]
+    if shutil.which("ffmpeg") and path.endswith(".mp4"):
+        with tempfile.TemporaryDirectory() as td:
+            for i, f in enumerate(frames8):
+                write_png(os.path.join(td, f"f_{i:05d}.png"), f)
+            subprocess.run(
+                ["ffmpeg", "-y", "-loglevel", "error", "-framerate", str(fps),
+                 "-i", os.path.join(td, "f_%05d.png"), "-pix_fmt", "yuv420p", path],
+                check=True)
+        return path
+    gif = path if path.endswith(".gif") else os.path.splitext(path)[0] + ".gif"
+    with open(gif, "wb") as f:
+        f.write(encode_gif(frames8, fps))
+    return gif
 
 
 # ---------------------------------------------------------------- LANCZOS

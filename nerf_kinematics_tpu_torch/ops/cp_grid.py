@@ -160,7 +160,9 @@ def level_taps(x_axis: torch.Tensor, cfg: CPGridConfig, level: int, axis: int):
     ``(r0, r1, w0, w1)``: int64 rows and f32 weights (bf16-rounded when
     ``cfg.use_bf16``). A NaN coordinate taps the rows of cell 0 with NaN
     weights: the reference's tent of a NaN is NaN on every row, and no index
-    is made from a NaN."""
+    is made from a NaN. On a hash-folded level the reference makes an
+    integer of the NaN (0) for both cells instead, so both taps are that
+    cell's hashed row: its tent is NaN on that row only."""
     R = cfg.resolutions[level]
     F = cfg.level_fold(R)
     p = torch.clamp(x_axis * float(R), 0.0, level_clip_max(R))
@@ -191,6 +193,8 @@ def level_taps(x_axis: torch.Tensor, cfg: CPGridConfig, level: int, axis: int):
     if nan.any():
         w0 = torch.where(nan, torch.full_like(w0, float("nan")), w0)
         w1 = torch.where(nan, torch.full_like(w1, float("nan")), w1)
+        if F and cfg.fold == "hash":
+            r1 = torch.where(nan, r0, r1)
     return r0, r1, w0, w1
 
 
@@ -275,9 +279,14 @@ def nonfinite_dlines(dl: torch.Tensor, G: torch.Tensor, r0, r1, w0, w1,
     where some point has a non-finite ``G`` or NaN weights (a NaN
     coordinate), every contracted row is NaN, except the rows that every such
     point taps with a weight above 0 with an inf of one sign (those are that
-    inf). In place; nothing to do on finite inputs."""
+    inf). A NaN coordinate whose two taps are one row (a hash-folded level,
+    :func:`level_taps`) has a tent that is NaN on that row only: with a
+    finite ``G`` it makes that row NaN in every column, which the tap sums
+    already hold, and leaves the other rows alone. In place; nothing to do
+    on finite inputs."""
     nanw = torch.isnan(w0)
-    bad = ~torch.isfinite(G) | nanw[:, None]
+    one = nanw & (r0 == r1)
+    bad = ~torch.isfinite(G) | (nanw & ~one)[:, None]
     if not bad.any():
         return
     t0, t1 = _operand_taps(r0, r1, dup)
@@ -303,6 +312,7 @@ def nonfinite_dlines(dl: torch.Tensor, G: torch.Tensor, r0, r1, w0, w1,
         hit = torch.zeros(dl.shape[0], dtype=torch.bool, device=dl.device)
         hit[src[real]] = True
         dl[hit, c] = col[hit]
+        dl[r0[one], c] = nan
 
 
 class _TapSum(torch.autograd.Function):

@@ -2,14 +2,17 @@
 verbatim: sections ``dataset / experiment / models / nerf / optimizer /
 scheduler`` plus ``engine`` and ``ngp``.
 
-``yaml`` is imported inside :func:`load_config` only: machines without
-PyYAML still run everything that starts from a dict or a fixture.
+YAML files are read by :func:`parse_yaml`, the port's own reader of the
+YAML that ``configs/*.yml`` use (block mappings, scalars and comments), with
+PyYAML's ``safe_load`` resolution of the scalars: machines without PyYAML
+read the shipped configs through the same code as every other machine.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import re
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -191,11 +194,112 @@ def config_from_dict(raw: dict) -> Config:
 
 
 def load_config(path) -> Config:
-    """Load a reference-schema YAML config file."""
-    import yaml
-
+    """Load a reference-schema YAML config file (:func:`parse_yaml`)."""
     with open(path, "r") as f:
-        return config_from_dict(yaml.safe_load(f))
+        return config_from_dict(parse_yaml(f.read(), str(path)))
+
+
+# -- the YAML subset of configs/*.yml ----------------------------------------
+#
+# Block mappings nested by indentation (spaces), one ``key: value`` or
+# ``key:`` a line, plain scalars, comments and blank lines. Plain scalars
+# resolve as PyYAML's safe_load resolves them where the configs use them:
+# decimal ints and floats, YAML 1.1 booleans (yes / no / on / off too),
+# null, strings. Anything else (quoted scalars, other number forms, sequences,
+# flow style, anchors, tags, block scalars, several documents, multi-line
+# scalars) raises a ValueError naming the line.
+
+_YAML_BOOL = re.compile(r"^(?:yes|Yes|YES|no|No|NO|true|True|TRUE|false|False|FALSE"
+                        r"|on|On|ON|off|Off|OFF)$")
+_YAML_TRUE = {"yes", "Yes", "YES", "true", "True", "TRUE", "on", "On", "ON"}
+_YAML_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
+_YAML_INT = re.compile(r"^[-+]?(?:0|[1-9][0-9]*)$")
+_YAML_FLOAT = re.compile(r"^[-+]?(?:[0-9]+\.[0-9]*|\.[0-9]+)(?:[eE][-+][0-9]+)?$")
+# what safe_load might read as a number or a date: a decimal int or float
+# above, or refused
+_YAML_NUMERIC = re.compile(r"^[-+]?(?:\.?[0-9]|\.(?:inf|Inf|INF|nan|NaN|NAN)$)")
+
+
+def _yaml_scalar(text: str, where: str):
+    if text[:1] in set("'\"[]{}&*!|>%@`,?") or text.startswith(("- ", "-\t")) or text == "-":
+        raise ValueError(f"{where}: {text!r} is not in the YAML this reader takes "
+                         "(block mappings of plain scalars only)")
+    if ": " in text or text.endswith(":") or " #" in text or "\t#" in text:
+        raise ValueError(f"{where}: {text!r} is not a scalar")
+    if _YAML_NULL.match(text):
+        return None
+    if _YAML_BOOL.match(text):
+        return text in _YAML_TRUE
+    if _YAML_INT.match(text):
+        return int(text)
+    if _YAML_FLOAT.match(text):
+        return float(text)
+    if _YAML_NUMERIC.match(text):
+        raise ValueError(f"{where}: {text!r}: only decimal ints and floats are in "
+                         "the YAML this reader takes")
+    return text
+
+
+def _yaml_strip_comment(line: str) -> str:
+    """The line without its comment: a ``#`` at the start or after
+    whitespace."""
+    m = re.search(r"(?:^|[ \t])#", line)
+    return (line[: m.start()] if m else line).rstrip()
+
+
+def _yaml_split_key(body: str, where: str):
+    """``key: value`` / ``key:`` -> (key, value text)."""
+    m = re.match(r"^(.*?):(?:[ \t]+|$)", body)
+    if m is None or not m.group(1):
+        raise ValueError(f"{where}: expected 'key: value', got {body!r}")
+    return _yaml_scalar(m.group(1), where), body[m.end():].strip()
+
+
+def parse_yaml(text: str, name: str = "<yaml>"):
+    """The document of ``text`` as ``yaml.safe_load`` gives it, for the YAML
+    that ``configs/*.yml`` use: nested block mappings of plain scalars, with
+    comments. Raises ValueError naming the line of anything else. An empty
+    document gives None."""
+    lines = []
+    for n, raw in enumerate(text.splitlines(), start=1):
+        where = f"{name}:{n}"
+        line = _yaml_strip_comment(raw)
+        if not line.strip():
+            continue
+        indent = len(line) - len(line.lstrip(" "))
+        body = line[indent:]
+        if body[:1] == "\t":
+            raise ValueError(f"{where}: a tab in the indentation")
+        if n == 1 and body in ("---", "%YAML"):
+            raise ValueError(f"{where}: document markers are not in the YAML "
+                             "this reader takes")
+        lines.append((indent, body, where))
+    if not lines:
+        return None
+    root: dict = {}
+    stack = [(lines[0][0], root)]  # (indentation of a mapping's keys, mapping)
+    pending = None  # (indentation, mapping, key) of the last line, a "key:"
+    for indent, body, where in lines:
+        if pending is not None:
+            p_indent, p_map, p_key = pending
+            pending = None
+            if indent > p_indent:
+                child: dict = {}
+                p_map[p_key] = child
+                stack.append((indent, child))
+        while len(stack) > 1 and stack[-1][0] > indent:
+            stack.pop()
+        level, mapping = stack[-1]
+        if level != indent:
+            raise ValueError(f"{where}: indentation {indent} matches no mapping "
+                             f"(its keys are at {level})")
+        key, rest = _yaml_split_key(body, where)
+        if rest:
+            mapping[key] = _yaml_scalar(rest, where)
+        else:
+            mapping[key] = None
+            pending = (indent, mapping, key)
+    return root
 
 
 def config_to_dict(cfg: Config) -> dict:

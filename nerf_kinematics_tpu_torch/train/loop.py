@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import contextlib
 import copy
-import logging
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
@@ -45,8 +44,9 @@ from torch import nn
 from .._device import resolve_device
 from ..cameras.rays import get_rays, ndc_rays, pixel_dirs
 from ..rendering.renderer import render_image, render_rays
+from ..utils.logging import get_logger
 
-log = logging.getLogger("nerf_kinematics_tpu_torch.train")
+log = get_logger("train")
 
 
 @dataclass(frozen=True)

@@ -11,7 +11,6 @@ reads the device (metrics, validation, checkpoints) on those cadences only.
 
 from __future__ import annotations
 
-import logging
 import os
 import time
 from dataclasses import dataclass, field
@@ -24,10 +23,11 @@ from ..data.types import NerfDataset
 from ..io.checkpoint import CheckpointManager
 from ..metrics.psnr import psnr
 from ..metrics.writer import ScalarWriter
+from ..utils.logging import get_logger
 from .config import Config
 from .loop import ClassicNerf, TrainState, build_shuffled_ray_buffer, eval_params
 
-log = logging.getLogger("nerf_kinematics_tpu_torch.train")
+log = get_logger("train")
 
 
 @dataclass

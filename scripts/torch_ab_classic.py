@@ -2,12 +2,12 @@
 """A/B of two trees of the port on one card, in one call: rows 9 and 10 (the
 classic engine's fused kernels, f32), the classic train step, rows 4 and 5
 (the CP encoder's forward at the occupancy sweep's 96^3 points and its
-line-table gradient at the flagship step's 393 216 points, bf16), row 1 (the
-hull lookup at 2.56 M points and at the two-call step's 524 288), rows 2 and
-3 (the fused forwards at a 400^2 frame's 10.24 M and 20.48 M points), rows 6
-and 7 (the fused gradients at the step's 393 216 points), row 8 (the fast
-engine's whole-step kernel), the ``fused_train: full`` train step and the
-two-call train step (rows 7 and 2).
+line-table gradient at the flagship step's 393 216 points; bf16, and in
+turns f32 too), row 1 (the hull lookup at 2.56 M points and at the two-call
+step's 524 288), rows 2 and 3 (the fused forwards at a 400^2 frame's
+10.24 M and 20.48 M points), rows 6 and 7 (the fused gradients at the step's
+393 216 points), row 8 (the fast engine's whole-step kernel), the
+``fused_train: full`` train step and the two-call train step (rows 7 and 2).
 
     git archive <rev> nerf_kinematics_tpu_torch | tar -x -C build/ab_parent
     python3 scripts/torch_ab_classic.py --parent build/ab_parent
@@ -96,6 +96,8 @@ def _kernel_rows(cs, dev) -> dict:
     sweep's 96^3 and the flagship step's 393 216 points, rows 6-8 at the
     step's shapes, row 1 at 2.56 M points and at the two-call step's 524 288,
     rows 3 and 2 at a 400^2 frame's 20.48 M and 10.24 M points (bf16)."""
+    import dataclasses
+
     import torch
 
     from nerf_kinematics_tpu_torch.io.convert import grid_from_numpy
@@ -127,6 +129,7 @@ def _kernel_rows(cs, dev) -> dict:
     e = NGPEngine(fx.config, 1.0, device=dev)
     e.load_flax_params(fx.params)
     p8, c8 = e._fused_params(detach=True), e.ngp_config.cp
+    c32 = dataclasses.replace(c8, use_bf16=False)  # rows 4 and 5's f32 instances
     gen = torch.Generator(device=dev).manual_seed(4321)
     x4 = cs.random_points(ngp.occ_resolution ** 3, gen, dev)[0].T.contiguous()
     x5 = cs.random_points(R * S, gen, dev)[0].T.contiguous()
@@ -149,6 +152,8 @@ def _kernel_rows(cs, dev) -> dict:
         "row10_ms": lambda: cfc.classic_fused_apply_cf_bwd(prm, xt, vd, g4, mcfg),
         "row4_ms": lambda: cp_encode_cuda(p8["lines"], x4, c8),
         "row5_ms": lambda: cp_encode_cuda_bwd(p8["lines"], x5, g5, c8),
+        "row4_f32_ms": lambda: cp_encode_cuda(p8["lines"], x4, c32),
+        "row5_f32_ms": lambda: cp_encode_cuda_bwd(p8["lines"], x5, g5, c32),
         "row8_ms": lambda: ngp_fused_train_full_cf(
             p8, *rays, proj2, c8, S, Sc, NB, True, inv, near, far, 1.0, ngp.occ_floor),
         "row1_ms": lambda: occupancy_at_hull_cuda(proj2, x1),

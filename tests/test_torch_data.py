@@ -278,9 +278,15 @@ def test_dataset_cache_round_trip(written, tmp_path):
     _same_dataset(again, first)
     _same_dataset(jcache.load_cached(path), first)
     assert tcache.load_cached(str(tmp_path / "missing.npz")) is None
-    for kind in ("robot", "ngp", "synthetic"):
+    for kind in ("robot", "synthetic"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LOADERS[kind](tc)
+    # the ngp loader is ported: the blender scene's train JSON gives the
+    # blender loader's train views (both composite onto white)
+    ngp = LOADERS["ngp"](tc.__class__(
+        type="ngp", basedir=os.path.join(written["jax_blender"], "transforms_train.json")))
+    np.testing.assert_array_equal(ngp.images, first.images[first.train_idx])
+    np.testing.assert_array_equal(ngp.poses, first.poses[first.train_idx])
     with pytest.raises(ValueError, match="unknown dataset type"):
         load_dataset(tc.__class__(type="colmap"))
 

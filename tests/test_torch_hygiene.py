@@ -13,9 +13,10 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "nerf_kinematics_tpu_torch"
 
 FORBIDDEN = [
-    # any import of JAX or its ecosystem
-    re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax)\b", re.M),
-    re.compile(r"\b(import_module|__import__)\(\s*['\"](jax|flax|optax|orbax)"),
+    # any import of JAX or its ecosystem, or of msgpack (the snapshots
+    # carry their own reader and writer)
+    re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|msgpack)\b", re.M),
+    re.compile(r"\b(import_module|__import__)\(\s*['\"](jax|flax|optax|orbax|msgpack)"),
     # the reference package's name followed by anything but `_torch`:
     # `nerf_kinematics_tpu.x` or `nerf_kinematics_tpu import`
     re.compile(r"nerf_kinematics_tpu(?!_torch)(\.\w|\s+import)"),
@@ -34,7 +35,11 @@ def _port_files():
                 "io/torch_compat.py", "csrc/ngp_fused_full.cu", "io/image.py",
                 "data/machina.py", "data/blender.py", "data/llff.py",
                 "data/machina_llff.py", "data/cache.py", "data/__init__.py",
-                "cli/make_scene.py"):
+                "cli/make_scene.py", "cli/run_nerf.py", "cli/ngp_run.py",
+                "cli/plot_metrics.py", "io/snapshot.py", "io/__init__.py",
+                "data/ngp_transforms.py", "utils/__init__.py", "utils/logging.py",
+                "utils/guards.py", "utils/profiling.py", "utils/flops.py",
+                "bench.py", "train/config.py"):
         assert f"nerf_kinematics_tpu_torch/{new}" in names
     return files
 
@@ -45,8 +50,9 @@ def test_no_jax_and_no_reference_package(path):
     for pat in FORBIDDEN:
         m = pat.search(text)
         assert m is None, f"{path}: forbidden import {m.group(0)!r}"
-    # the card has no Pillow and no PyYAML: imported inside a function only
-    m = re.search(r"^(import|from)\s+(PIL|yaml)\b", text, re.M)
+    # the card has no Pillow, no PyYAML and no matplotlib: imported inside a
+    # function only
+    m = re.search(r"^(import|from)\s+(PIL|yaml|matplotlib)\b", text, re.M)
     assert m is None, f"{path}: module-level import {m.group(0)!r}"
 
 

@@ -35,7 +35,8 @@ from nerf_kinematics_tpu_torch.ops import cp_grid_cuda as tcp
 from nerf_kinematics_tpu_torch.ops import ngp_fused_cuda as tf
 from nerf_kinematics_tpu_torch.ops.classic_fused_cuda import (
     classic_fused_apply_cf, classic_fused_apply_cf_bwd)
-from nerf_kinematics_tpu_torch.ops.cp_grid import CPGridConfig, cp_encode_stacked
+from nerf_kinematics_tpu_torch.ops.cp_grid import (
+    CPGridConfig, cp_encode_stacked, fold_salt, hash_fold_indices)
 from nerf_kinematics_tpu_torch.train.config import FlexibleNeRFConfig
 
 # levels 8 (un-folded), 32 and 128 (folded into the 32-row table)
@@ -170,9 +171,12 @@ def _cases(both, f32_only=(), prefix=()):
 @pytest.mark.parametrize(
     "fold,case,use_bf16",
     _cases(("nan_point", "inf_point", "nan_line") + COT_CASES, prefix=("periodic",))
-    + _cases((), ("nan_point",) + COT_CASES, prefix=("fold_cap",)))
+    + _cases((), ("nan_point",) + COT_CASES, prefix=("fold_cap",))
+    + _cases(("nan_point",), prefix=("hash",)))
 def test_row5_line_table_gradient(fold, case, use_bf16):
-    cp = dict(CP if fold == "periodic" else FOLD_CAP, use_bf16=use_bf16)
+    cp = dict(FOLD_CAP if fold == "fold_cap" else CP, use_bf16=use_bf16)
+    if fold == "hash":
+        cp["fold"] = "hash"
     rng = np.random.default_rng(2)
     params = _params(rng, cp)
     xt, _ = _points(rng, N)
@@ -189,6 +193,41 @@ def test_row5_line_table_gradient(fold, case, use_bf16):
     bad = _check(got, want, "dlines", rtol=1e-3,
                  atol=2e-3 * scale if use_bf16 else 1e-5)
     assert bad or case == "inf_point"
+
+
+@pytest.mark.parametrize("use_bf16", MODES, ids=MODE_IDS)
+def test_rows4_5_nan_point_on_a_hash_folded_level(use_bf16):
+    """A NaN coordinate on a hash-folded level: the reference makes one
+    integer of it for both cells, so its tent is NaN on one hashed row.
+    The encoding is NaN in every channel of that point; the gradient of the
+    NaN axis' table is NaN on that row only, in every column, and finite on
+    its other rows; the other axes' tables are NaN in every contracted row
+    (their cotangent is NaN)."""
+    cp = dict(CP, fold="hash", use_bf16=use_bf16)
+    cfg = CPGridConfig(**cp)
+    rng = np.random.default_rng(4)
+    lines = _params(rng, cp)["lines"]
+    xt, _ = _points(rng, N)
+    _spoil("nan_point", xt)
+    x = xt.T.copy()
+    g = rng.standard_normal((N, 24)).astype(np.float32)
+    enc, vjp = jax.vjp(lambda t: jcp.cp_encode_pallas(t, jnp.asarray(x), JCP(**cp), 128, True),
+                       jnp.asarray(lines))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    got_enc = tcp.cp_encode_cuda(torch.tensor(lines), torch.tensor(x), cfg)
+    _check(got_enc, enc, "encoding", rtol=0, atol=1e-5)
+    assert np.isnan(np.asarray(got_enc)[3]).all()
+    got = tcp.cp_encode_cuda_bwd(torch.tensor(lines), torch.tensor(x), torch.tensor(g), cfg)
+    scale = np.abs(np.where(np.isfinite(want), want, 0)).max()
+    _check(got, want, "dlines", rtol=1e-3, atol=2e-3 * scale if use_bf16 else 1e-5)
+    got = got.numpy()
+    for l, R in enumerate(cfg.resolutions):
+        if not cfg.level_fold(R):
+            continue  # an un-folded level: the tent of a NaN is NaN on every row
+        row = int(hash_fold_indices(torch.zeros(1), cfg.level_fold(R), fold_salt(l, 0))[0])
+        nan_rows = np.flatnonzero(np.isnan(got[l, 0]).any(axis=1))
+        assert nan_rows.tolist() == [row] and np.isnan(got[l, 0, row]).all(), (l, nan_rows)
+        assert np.isnan(got[l, 1, :cfg.level_rows(R)]).all()
 
 
 # ------------------------------------------------- the plain encoder (mirror)

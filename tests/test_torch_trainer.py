@@ -167,13 +167,15 @@ def test_what_the_trainer_does_not_load_yet(tmp_path):
     import dataclasses
 
     cfg = tcfg.config_from_dict(_raw(tmp_path))
-    for kind in ("robot", "ngp", "synthetic"):
+    for kind in ("robot", "synthetic"):
         c = cfg.replace(dataset=dataclasses.replace(cfg.dataset, type=kind))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(c, device="cpu")
-    missing = dataclasses.replace(cfg.dataset, basedir=str(tmp_path / "nothing"))
-    with pytest.raises(FileNotFoundError):
-        Trainer(cfg.replace(dataset=missing), device="cpu")
+    for kind in ("blender", "ngp"):  # the ngp loader is ported: no transforms.json
+        missing = dataclasses.replace(cfg.dataset, basedir=str(tmp_path / "nothing"),
+                                      type=kind)
+        with pytest.raises(FileNotFoundError):
+            Trainer(cfg.replace(dataset=missing), device="cpu")
     with pytest.raises(ValueError, match="engine"):
         Trainer(cfg.replace(engine="nerfacto"), _dataset(), device="cpu")
     with pytest.raises(ValueError, match="n_val"):
