@@ -28,13 +28,26 @@ width through the entry points a user calls:
     whole-step kernel launch a step; ground-truth PSNR of the held-out views
     beside the canonical run's; one step of the whole-step and of the
     two-call route from one state and one set of draws;
-  * the command lines on that scene, with ``configs/*.yml`` read by the
+  * ``configs/fox_ngp.yml`` at full width on the halo scene (the stand-in
+    for fox49, whose images are not in the repository: 49 views of 128x128
+    generated on the card, aabb_scale 32, so the scene is contracted):
+    ``Trainer.fit`` for 1000 steps of the shipped recipe (rows 1, 3-6; it
+    falls dark, as its plain versions and the JAX package's route do, and
+    is held to its plain versions step for step through the fall), 1000
+    with ``ngp.fused: off`` (rows 4, 5), 300 with ``encoder: hash`` at the
+    reference-exact grid (two steps from one state bit-identical), 50 of
+    the contracted two-call step (rows 2, 7), and a 256^3 mesh by the
+    native core, held to its numpy version;
+  * the command lines on machina400, with ``configs/*.yml`` read by the
     port's own YAML reader: ``cli/ngp_run.py`` trains 512 steps from
     ``configs/machina_ngp.yml``, saves a snapshot, reloads it (the val PSNR
-    must not move) and renders screenshots; ``cli/run_nerf.py`` trains
-    ``configs/machina_classic.yml`` (seed 7) 200 steps to a PSNR floor,
-    evaluates and renders its video, and renders the fast engine's ``--fast`` video from the
-    ``ngp_run`` checkpoint;
+    must not move), renders screenshots and writes a 256^3 mesh from it,
+    and trains the hash encoder 512 steps to a PSNR floor;
+    ``cli/run_nerf.py`` trains ``configs/machina_classic.yml`` (seed 7)
+    200 steps to a PSNR floor, evaluates and renders its video, trains
+    ``configs/synthetic_smoke.yml`` 300 steps on the synthetic sphere, and
+    renders the fast engine's ``--fast`` video from the ``ngp_run``
+    checkpoint;
   * the port's bench (``python -m nerf_kinematics_tpu_torch.bench``) on the
     same scene: rays/s, MFU, time to 25 dB, frame rates.
 
@@ -60,6 +73,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import math
 import os
@@ -78,7 +92,7 @@ from nerf_kinematics_tpu_torch.bench import nvidia_smi_line
 from nerf_kinematics_tpu_torch.utils.flops import PEAK_BYTES_PER_S, PEAK_FLOPS
 
 PHASES = ("kernels", "grad_kernels", "serve", "golden", "train", "train_autodiff",
-          "classic", "scene", "cli", "bench")
+          "classic", "halo", "scene", "cli", "bench")
 
 KERNEL_REPS = 5        # timed launches per kernel (median), after 2 warm-ups
 
@@ -2123,6 +2137,479 @@ def phase_scene(fx, dev, quick: bool, profile: bool, basedir: str):
     return counts, points
 
 
+# ---- the halo scene: configs/fox_ngp.yml on a contracted scene --------------
+
+# fox49's images are not in the repository; the JAX package's stand-in for
+# its regime is the halo scene: a unit-scale subject and satellites out to
+# radius ~7, aabb_scale 32 (bound 16, inner 4), so contraction switches on.
+HALO_SCENE = {"n_views": 49, "resolution": 128}  # fox49: 47 train + 2 val views
+HALO_SCENE_QUICK = {"n_views": 9, "resolution": 48}
+HALO_QUICK = {"steps": 256, "hash_steps": 64, "mesh_res": 64}  # --quick
+HALO_STEPS = 1000          # a full sweep at 256, incremental refreshes at 512, 768
+HALO_HASH_STEPS = 300
+HALO_TWO_CALL_STEPS = 50
+HALO_LOSS_RATIO = 0.35     # last step's loss / first's, tests/test_contraction.py:140
+# The CP encoder's routes of this recipe fall to an all-black prediction's
+# loss within a few steps on the halo scene (a black background), through
+# the rows' plain versions on the card and through the JAX package's fused
+# route as well (PERF.md section 6, ROADMAP C): a val PSNR there is the
+# all-black image's (11.59 dB) and holds nothing, so the fused route has no
+# floor. It is held instead to its plain versions step for step through the
+# fall (from one fresh state and the same draws), and rows 3-6 at the fresh,
+# the falling and the trained weights. The floors below are for routes that
+# train, from the first full run less about half a dB; both lie above 11.59.
+HALO_VAL_FLOOR_DB = {"cp_unfused": 14.3, "hash": 13.5}  # 14.90, 14.08 measured
+HALO_LOCKSTEP_STEPS = 40   # the fused route's first steps, through kernels and plain versions
+# |loss through the kernels / through the plain versions - 1| at each step:
+# 8.9e-7 measured; dropping row 6's density cotangent moves it to 1.4e-5
+# (scripts/torch_halo_probe.py --lockstep 40; PERF.md section 6)
+HALO_LOCKSTEP_TOL = 5e-6
+HALO_FALLING_STEP = 20     # rows 3-6 are also held at the weights after this many steps
+HALO_DARK_LOSS = 0.5       # a live route's last losses stay under this share of all-black's
+HALO_MESH_RES = 256        # instant-ngp's --save_mesh defaults
+HALO_MESH_ISO = 2.5
+MESH_VERT_TOL = 1e-5       # native core against its numpy version, abs
+
+# the kernel table's rows by the name each wrapper counts under
+ROW_OF = {"occupancy_at_hull": 1, "ngp_fused_sigma_cf": 2, "ngp_fused_apply_cf": 3,
+          "cp_encode": 4, "cp_encode_bwd": 5, "ngp_fused_apply_cf_bwd": 6,
+          "ngp_fused_train_cf": 7, "ngp_fused_train_full_cf": 8,
+          "classic_fused_apply_cf": 9, "classic_fused_apply_cf_bwd": 10}
+
+
+def by_row(counts: dict, points) -> dict:
+    """Launches by kernel row; row 5 also as the points it walked inside the
+    fused gradient launches (rows 6-8 launch it on their stream)."""
+    rows = {f"row {ROW_OF[k]}": v for k, v in counts.items()}
+    rows["row 5 inside rows 6-8, points"] = sum(
+        v for (name, _), v in points.items() if name == "cp_encode_bwd_in_fused")
+    return rows
+
+
+def halo_config(root: str, steps: int, quick: bool):
+    """configs/fox_ngp.yml as shipped, read by the port's YAML reader, with
+    the cuts this phase makes (returned beside it, each as [shipped, here]).
+    Its dataset section (cache/fox49) is replaced by the halo scene, which
+    the phase hands the trainer."""
+    from nerf_kinematics_tpu_torch.train.config import load_config
+
+    lines = {"logdir": os.path.join(root, "logs"), "train_iters": steps,
+             "validate_every": 0, "save_every": 0, "print_every": 0}
+    cuts = {"experiment.train_iters": [25000, steps], "experiment.validate_every": [1000, 0],
+            "experiment.save_every": [5000, 0], "experiment.print_every": [500, 0],
+            "dataset": ["cache/fox49 (49 views)", "the halo scene"]}
+    if quick:
+        lines["num_random_rays"] = 2048
+        cuts["nerf.train.num_random_rays"] = [16384, 2048]
+    cfg = load_config(copy_config("fox_ngp.yml", root, **lines))
+    return cfg, cuts
+
+
+def halo_fit(cfg, ds, dev, state=None):
+    """Trainer.fit from a fresh state (the YAML's seed), or on from
+    ``state`` for the config's train_iters more steps, then validation;
+    -> (report, trainer, result, counts, points)."""
+    import dataclasses
+
+    from nerf_kinematics_tpu_torch.ops import cuda_lib
+    from nerf_kinematics_tpu_torch.train.trainer import Trainer
+
+    if state is not None:
+        cfg = cfg.replace(experiment=dataclasses.replace(
+            cfg.experiment, train_iters=int(state.step) + cfg.experiment.train_iters))
+    trainer = Trainer(cfg, ds, device=dev)
+    state = trainer.engine.init_state() if state is None else state.clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launch_counts()
+    # ---- the main path: training and the held-out renders ------------------
+    t0 = time.perf_counter()
+    res = trainer.fit(state=state)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = dict(cuda_lib.LAUNCHES)
+    points = collections.Counter(cuda_lib.POINTS)
+    # -------------------------------------------------------------------------
+    val = trainer.validate(res.state)
+    split = trainer.evaluate_split(res.state, "val")
+    losses = np.asarray(res.losses)
+    ms = statistics.median(s / k * 1e3 for k, s in res.chunk_seconds)
+    n_rays = cfg.nerf.num_random_rays
+    t = cfg.nerf.train
+    report = {
+        "encoder": trainer.engine.ngp_config.resolved_encoder(),
+        "contracted": trainer.engine.contracted, "inner": trainer.engine._inner,
+        "steps": len(losses), "rays_per_step": n_rays,
+        "samples_per_ray": [t.num_coarse, t.num_fine],
+        "fused": trainer.engine.fused,
+        "objective": "two-call" if trainer.engine.fused_objective_fn(
+            ds.near, ds.far, t) is not None else "autograd",
+        "ms_per_step": ms, "rays_per_s": n_rays / ms * 1e3, "fit_seconds": fit_s,
+        "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+        "loss_first16": float(losses[:16].mean()), "loss_last16": float(losses[-16:].mean()),
+        "val_psnr_db": val["val_psnr"], "val_mean_psnr_db": split["mean_psnr"],
+        "occupancy_refreshes_ms": [[i, k, s * 1e3] for i, k, s in res.occupancy_refreshes],
+        "launches_by_row": by_row(counts, points),
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    if not (np.isfinite(losses).all() and np.isfinite(split["mean_psnr"])):
+        raise AssertionError(f"halo ({report['encoder']}): non-finite loss or PSNR")
+    return report, trainer, res, counts, points
+
+
+@contextlib.contextmanager
+def plain_fused_rows():
+    """The fused module route with rows 3 and 6 through their plain versions
+    on the card (row 5 inside row 6's with them); restored on exit. Nothing
+    is launched or counted in between."""
+    from nerf_kinematics_tpu_torch.ops import ngp_fused_cuda as nf
+
+    saved = nf._fused_forward, nf.ngp_fused_apply_cf_bwd
+    nf._fused_forward, nf.ngp_fused_apply_cf_bwd = (
+        nf.ngp_fused_apply_cf_ref, nf.ngp_fused_apply_cf_bwd_ref)
+    try:
+        yield
+    finally:
+        nf._fused_forward, nf.ngp_fused_apply_cf_bwd = saved
+
+
+def halo_lockstep(trainer, state0, steps: int, routes=None) -> tuple:
+    """The fused route's first ``steps`` steps from one fresh state, through
+    the kernels and through their plain versions (and through any other
+    ``routes``: name -> context manager), with the same draws (the step's
+    generator is part of the state): each route's losses and their largest
+    relative distance from the plain versions'; and the kernel route's
+    state after HALO_FALLING_STEP steps."""
+    routes = {"kernels": contextlib.nullcontext, "plain": plain_fused_rows, **(routes or {})}
+    args = (trainer.images, trainer.poses, trainer.ray_buf)
+    losses, falling = {}, None
+    for route, ctx in routes.items():
+        s = state0.clone()
+        losses[route] = []
+        with ctx():
+            for i in range(steps):
+                s, m = trainer._train_step(s, *args)
+                losses[route].append(float(m["loss"]))
+                if route == "kernels" and i + 1 == HALO_FALLING_STEP:
+                    falling = s.clone()
+    rep = {"losses": losses, "max_rel_diff": {
+        route: max(abs(a / b - 1.0) for a, b in zip(losses[route], losses["plain"]))
+        for route in losses if route != "plain"}}
+    return rep, falling
+
+
+def halo_kernels(trainer, state, dev, timed: bool = True) -> dict:
+    """Rows 3, 4, 5 and 6 at the halo path's own shape, which the kernel
+    phases do not hold (they take the flagship's encoder, and fox's with
+    the hash fold for rows 4 and 5 only): fox's encoder as shipped (L 5,
+    C 96, T 256, periodic fold, bf16), the weights of ``state``, and one
+    step's 16384 rays x 64 depths placed by its occupancy proposal, in
+    contracted coordinates (1.05 M points: row 6 in two launches). Each
+    against its plain version with the kernel phases' tolerances, row 6
+    twice for the same bits; the share of points whose density is not
+    clamped (sigma = exp(clip(z0, -15, 15)): only there does row 6 carry a
+    density gradient); with times when ``timed``."""
+    from nerf_kinematics_tpu_torch.ops.cp_grid_cuda import (
+        cp_encode_cuda, cp_encode_cuda_bwd, cp_encode_cuda_bwd_ref, cp_encode_cuda_ref)
+    from nerf_kinematics_tpu_torch.ops.ngp_fused_cuda import (
+        ngp_fused_apply_cf, ngp_fused_apply_cf_bwd, ngp_fused_apply_cf_bwd_ref,
+        ngp_fused_apply_cf_ref)
+
+    eng, cfg, ds = trainer.engine, trainer.cfg, trainer.dataset
+    cp = eng.ngp_config.cp
+    gen = torch.Generator(device=dev).manual_seed(77)
+    n_rays = cfg.nerf.num_random_rays
+    o = trainer.ray_buf["rays_o"][:n_rays]
+    d = trainer.ray_buf["rays_d"][:n_rays]
+    with torch.no_grad(), eng.bound(state.params):
+        z = eng.proposal_for(state.aux, ds.near, ds.far, cfg.nerf.train, gen)(o, d)
+        x = eng._to_unit(o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)
+        vd = (d / torch.linalg.norm(d, dim=-1, keepdim=True))[:, None, :].expand(
+            -1, z.shape[1], -1).reshape(-1, 3)
+        xt, vdt = x.T.contiguous(), vd.T.contiguous()
+        params = eng._fused_params(detach=True)
+        lines = params["lines"]
+        n = xt.shape[1]
+        g4 = torch.randn((4, n), generator=gen, device=dev)
+        g_enc = torch.randn((n, cp.out_dim), generator=gen, device=dev)
+        rep = {"points": n, "cp": cp_label(cp),
+               "contracted_unit_range": [x.min().item(), x.max().item()]}
+        out, ref = ngp_fused_apply_cf(params, xt, vdt, cp), ngp_fused_apply_cf_ref(params, xt, vdt, cp)
+        mx, mean, rel = fused_errors(out, ref, True)
+        lo, hi = torch.exp(torch.tensor([-15.0, 15.0], device=dev))
+        rep["unclamped_density_share"] = ((ref[3] > lo) & (ref[3] < hi)).float().mean().item()
+        rep["row 3"] = {"max_abs_err": mx, "mean_abs_err": mean, "max_rel_sigma": rel}
+        del out, ref
+        k = ngp_fused_apply_cf_bwd(params, xt, vdt, g4, cp)
+        k2 = ngp_fused_apply_cf_bwd(params, xt, vdt, g4, cp)
+        p = ngp_fused_apply_cf_bwd_ref(params, xt, vdt, g4, cp)
+        rep["row 6"] = {"max_rel_err_by_leaf": {k_: v["max_rel"] for k_, v in
+                                                grad_errors(k, p).items()},
+                        "twice_bit_identical": all(torch.equal(a, b) for (_, a), (_, b)
+                                                   in zip(_leaf_list(k), _leaf_list(k2)))}
+        del k, k2, p
+        e_k, e_p = cp_encode_cuda(lines, x, cp), cp_encode_cuda_ref(lines, x, cp)
+        rep["row 4"] = {"max_abs_err": (e_k - e_p).abs().max().item()}
+        del e_k, e_p
+        k5, p5 = cp_encode_cuda_bwd(lines, x, g_enc, cp), cp_encode_cuda_bwd_ref(lines, x, g_enc, cp)
+        rep["row 5"] = {"max_rel_err": (k5 - p5).abs().max().item() / p5.abs().max().item()}
+        del k5, p5
+        if timed:
+            flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+            rep["ms"] = {
+                "row 3": time_ms(lambda: ngp_fused_apply_cf(params, xt, vdt, cp), KERNEL_REPS, 2, flush),
+                "row 3 plain": time_ms(lambda: ngp_fused_apply_cf_ref(params, xt, vdt, cp), 2, 1, flush),
+                "row 6": time_ms(lambda: ngp_fused_apply_cf_bwd(params, xt, vdt, g4, cp),
+                                 KERNEL_REPS, 2, flush),
+                "row 6 plain": time_ms(lambda: ngp_fused_apply_cf_bwd_ref(params, xt, vdt, g4, cp),
+                                       2, 1, flush),
+                "row 4": time_ms(lambda: cp_encode_cuda(lines, x, cp), KERNEL_REPS, 2, flush),
+                "row 4 plain": time_ms(lambda: cp_encode_cuda_ref(lines, x, cp), 2, 1, flush),
+                "row 5": time_ms(lambda: cp_encode_cuda_bwd(lines, x, g_enc, cp), KERNEL_REPS, 2, flush),
+                "row 5 plain": time_ms(lambda: cp_encode_cuda_bwd_ref(lines, x, g_enc, cp), 2, 1, flush),
+            }
+    bad = []
+    if not (rep["row 3"]["mean_abs_err"] <= FUSED_MEAN_TOL
+            and rep["row 3"]["max_abs_err"] <= FUSED_MAX_TOL):
+        bad.append("row 3")
+    if not (max(rep["row 6"]["max_rel_err_by_leaf"].values()) <= GRAD_TOL["bf16"]
+            and rep["row 6"]["twice_bit_identical"]):
+        bad.append("row 6")
+    if not rep["row 4"]["max_abs_err"] <= 1e-6:
+        bad.append("row 4")
+    if not rep["row 5"]["max_rel_err"] <= GRAD_TOL["bf16"]:
+        bad.append("row 5")
+    rep["failed"] = bad
+    return rep
+
+
+def step_twice(trainer, state) -> bool:
+    """The whole step twice from one cloned state: the same parameters and
+    Adam moments, bit for bit, and the parameters moved."""
+    args = (trainer.images, trainer.poses, trainer.ray_buf)
+    twins = [trainer._train_step(state.clone(), *args)[0] for _ in range(2)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(getattr(twins[0], k), getattr(twins[1], k))
+               for k in ("params", "step")) and all(
+        torch.equal(getattr(twins[0].opt_state, k), getattr(twins[1].opt_state, k))
+        for k in ("mu", "nu"))
+    return same and not torch.equal(twins[0].params, state.params)
+
+
+def phase_halo(dev, quick: bool):
+    """configs/fox_ngp.yml at full width on the halo scene, the stand-in for
+    fox49: 49 views of 128x128 generated on the card; ``Trainer.fit`` of the
+    shipped cp_pallas recipe (L 5, C 96, T 256, 16384 rays x 64 coarse
+    samples, shuffled sampler, 96^3 occupancy) on the contracted scene, on
+    its fused route (rows 3 and 6) and with ``ngp.fused: off`` (rows 4 and
+    5 under autograd); rows 3-6 at this shape against their plain versions
+    at the fresh, the falling and the trained weights, and the fused
+    route's first steps through the kernels against the same steps through
+    their plain versions; the recipe with ``encoder: hash`` at the
+    reference-exact grid, and the whole step twice from one state; the
+    contracted two-call step (48 + 48 samples) on from the unfused route's
+    trained state; a 256^3 mesh from the unfused route's model by the
+    native core, held to its numpy version."""
+    import dataclasses
+
+    from nerf_kinematics_tpu_torch.data.synthetic import make_synthetic_scene
+    from nerf_kinematics_tpu_torch.export.mesh import (
+        extract_mesh, extract_mesh_from_engine, extract_mesh_ref)
+    from nerf_kinematics_tpu_torch.ops import cuda_lib
+    from nerf_kinematics_tpu_torch.train.loop import eval_params
+
+    scene = HALO_SCENE_QUICK if quick else HALO_SCENE
+    steps = HALO_QUICK["steps"] if quick else HALO_STEPS
+    hash_steps = HALO_QUICK["hash_steps"] if quick else HALO_HASH_STEPS
+    report = {"phase": "halo", "quick": quick, "scene": scene}
+    total = collections.Counter()
+    all_points = collections.Counter()
+    with tempfile.TemporaryDirectory() as root:
+        # ---- the main path: the scene generator ------------------------------
+        t0 = time.perf_counter()
+        ds = make_synthetic_scene(variant="halo", device=dev, **scene)
+        torch.cuda.synchronize()
+        report["generate_seconds"] = time.perf_counter() - t0
+        report["views"] = [len(ds.train_idx), len(ds.val_idx)]
+        # the loss of an all-black prediction: the state a dead start sits in
+        report["all_black_loss"] = float((ds.images[ds.train_idx] ** 2).mean())
+        report["near_far_aabb"] = [ds.near, ds.far, ds.aabb_scale]
+
+        cfg, cuts = halo_config(root, steps, quick)
+        report["cuts"] = cuts
+        ngp = cfg.ngp
+        report["config"] = {
+            "encoder": ngp.encoder, "cp": [ngp.cp.n_levels, ngp.cp.n_components,
+                                           ngp.cp.table_size, ngp.cp.fold],
+            "grid": [ngp.grid.n_levels, ngp.grid.n_features, ngp.grid.log2_table_size,
+                     ngp.grid.base_resolution, ngp.grid.max_resolution],
+            "mlp": [ngp.density_width, ngp.density_layers, ngp.color_width,
+                    ngp.color_layers], "compute_dtype": ngp.compute_dtype,
+            "occupancy": [ngp.occ_resolution, ngp.occ_update_every, ngp.occ_full_every],
+            "rays": cfg.nerf.num_random_rays, "sampler": cfg.nerf.train.pixel_sampler,
+            "seed": cfg.experiment.randomseed}
+
+        # ---- fox's recipe: cp_pallas through the fused module route ----------
+        cp_rep, trainer, res, counts, points = halo_fit(cfg, ds, dev)
+        total.update(counts)
+        all_points.update(points)
+        report["cp"] = cp_rep
+        # rows 3-6 at the trained weights (timed), then the first steps again
+        # from a fresh state through the kernels and through their plain
+        # versions, and rows 3-6 at the fresh and at the falling weights
+        kernels = {"trained": halo_kernels(trainer, res.state, dev)}
+        fresh = trainer.engine.init_state()
+        report["cp_lockstep"], falling = halo_lockstep(trainer, fresh, HALO_LOCKSTEP_STEPS)
+        kernels["fresh"] = halo_kernels(trainer, fresh, dev, timed=False)
+        kernels[f"after {HALO_FALLING_STEP} steps"] = halo_kernels(
+            trainer, falling, dev, timed=False)
+        report["kernels_at_this_shape"] = kernels
+        trainer.close()
+        del trainer, res, fresh, falling
+
+        # ---- the same recipe with ngp.fused: off: rows 4 and 5 every step ----
+        cp_rep, trainer, res, counts, points = halo_fit(
+            cfg.replace(ngp=dataclasses.replace(ngp, fused="off")), ds, dev)
+        total.update(counts)
+        all_points.update(points)
+        report["cp_unfused"] = cp_rep
+        eng, state = trainer.engine, res.state
+
+        # ---- the mesh: the density grid on the card, the native core ---------
+        mesh_res = HALO_QUICK["mesh_res"] if quick else HALO_MESH_RES
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        verts, tris = extract_mesh_from_engine(eng, eval_params(state), resolution=mesh_res,
+                                               iso=HALO_MESH_ISO,
+                                               path=os.path.join(root, "halo.ply"))
+        mesh_s = time.perf_counter() - t0
+        total.update(cuda_lib.LAUNCHES)
+        all_points.update(cuda_lib.POINTS)
+        with eng.bound(eval_params(state)):
+            grid, grid_ms = timed(lambda: eng.density_grid(resolution=mesh_res))
+        g = grid.cpu().numpy()
+        b = eng.scene_bound
+        bounds = (-b, -b, -b, b, b, b)
+        report["mesh"] = {
+            "resolution": mesh_res, "iso": HALO_MESH_ISO, "vertices": len(verts),
+            "triangles": len(tris), "seconds_engine_to_ply": mesh_s,
+            "density_grid_ms": grid_ms, "density_max": float(g.max()),
+            "density_median": float(np.median(g)),
+            "cells_above_iso": float((g > HALO_MESH_ISO).mean())}
+        # the native core against its numpy version on the same grid
+        t0 = time.perf_counter()
+        v_nat, t_nat = extract_mesh(g, iso=HALO_MESH_ISO, bounds=bounds)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        v_ref, t_ref = extract_mesh_ref(g, iso=HALO_MESH_ISO, bounds=bounds)
+        ref_s = time.perf_counter() - t0
+        same = v_nat.shape == v_ref.shape and t_nat.shape == t_ref.shape
+        report["mesh"].update({
+            "native_seconds": native_s, "numpy_seconds": ref_s,
+            "numpy_vertices": len(v_ref), "numpy_triangles": len(t_ref),
+            "max_abs_vertex_err": float(np.abs(v_nat - v_ref).max())
+            if same and len(v_nat) else None,
+            "triangles_equal": bool(same and np.array_equal(t_nat, t_ref)),
+            "engine_mesh_equal": bool(np.array_equal(verts, v_nat)
+                                      and np.array_equal(tris, t_nat))})
+        trainer.close()
+        del trainer, res, eng
+
+        # ---- the contracted two-call step: rows 2 and 7 ----------------------
+        # on from the unfused route's trained state (weights, moments, grid):
+        # from fresh weights this recipe falls dark as the fused route does
+        nerf = cfg.nerf
+        two_cfg = cfg.replace(
+            ngp=dataclasses.replace(ngp, fused_train="on"),
+            experiment=dataclasses.replace(cfg.experiment, train_iters=HALO_TWO_CALL_STEPS),
+            nerf=dataclasses.replace(nerf, train=dataclasses.replace(
+                nerf.train, num_coarse=48, num_fine=48)))
+        two_rep, trainer, res, counts, points = halo_fit(two_cfg, ds, dev, state=state)
+        total.update(counts)
+        all_points.update(points)
+        report["two_call"] = two_rep
+        trainer.close()
+        del trainer, res, state
+
+        # ---- the hash encoder at the reference-exact grid --------------------
+        hash_cfg = cfg.replace(
+            ngp=dataclasses.replace(ngp, encoder="hash"),
+            experiment=dataclasses.replace(cfg.experiment, train_iters=hash_steps))
+        hash_rep, trainer, res, counts, points = halo_fit(hash_cfg, ds, dev)
+        total.update(counts)
+        all_points.update(points)
+        hash_rep["table_shape"] = list(trainer.engine.model.hash_table.shape)
+        hash_rep["step_twice_bit_identical"] = step_twice(trainer, res.state)
+        report["hash"] = hash_rep
+        trainer.close()
+        del trainer, res
+    for name in ("cp", "cp_unfused", "two_call", "hash"):
+        r = report[name]
+        # within 5 % of an all-black prediction's loss: the dead start
+        r["ends_at_all_black"] = r["loss_last16"] >= 0.95 * report["all_black_loss"]
+    report["launches"] = {k: v for k, v in total.items()}
+    emit(report)
+
+    # ---- pass criteria -----------------------------------------------------------
+    failed = {k: v["failed"] for k, v in report["kernels_at_this_shape"].items() if v["failed"]}
+    if failed:
+        raise AssertionError(f"halo: kernels against their plain versions at fox's shape: "
+                             f"{failed}")
+    lock = report["cp_lockstep"]
+    if not lock["max_rel_diff"]["kernels"] <= HALO_LOCKSTEP_TOL:
+        raise AssertionError(f"halo (cp): the first {HALO_LOCKSTEP_STEPS} steps through the "
+                             f"kernels leave their plain versions' losses by "
+                             f"{lock['max_rel_diff']['kernels']:.3g} "
+                             f"(> {HALO_LOCKSTEP_TOL}): {lock}")
+    for name in ("cp", "cp_unfused", "hash"):
+        r = report[name]
+        if not (r["contracted"] and r["loss_last"] < HALO_LOSS_RATIO * r["loss_first"]):
+            raise AssertionError(f"halo ({name}): loss {r['loss_first']} -> "
+                                 f"{r['loss_last']}, not under {HALO_LOSS_RATIO} of it")
+    for name, floor in HALO_VAL_FLOOR_DB.items():
+        r = report[name]
+        if r["ends_at_all_black"]:
+            raise AssertionError(f"halo ({name}): ends at the all-black state, loss "
+                                 f"{r['loss_last16']}")
+        if not quick and not r["val_psnr_db"] >= floor:
+            raise AssertionError(f"halo ({name}): val PSNR {r['val_psnr_db']:.2f} dB "
+                                 f"under {floor}")
+    rows = report["cp"]["launches_by_row"]
+    if not (all(rows[f"row {i}"] > 1 for i in (1, 3, 4, 6))
+            and rows["row 5 inside rows 6-8, points"] > 0
+            and all(rows[f"row {i}"] == 0 for i in (2, 7, 8))):
+        raise AssertionError(f"halo (cp): launches by row {rows}")
+    rows = report["cp_unfused"]["launches_by_row"]
+    if not (rows["row 1"] > 1 and rows["row 4"] > 1 and rows["row 5"] > 1
+            and all(rows[f"row {i}"] == 0 for i in (2, 3, 6, 7, 8))):
+        raise AssertionError(f"halo (cp_unfused): launches by row {rows}")
+    for name in ("cp", "cp_unfused"):
+        kinds = [k for _, k, _ in report[name]["occupancy_refreshes_ms"]]
+        if not quick and kinds != ["full", "incremental", "incremental"]:
+            raise AssertionError(f"halo ({name}): occupancy refreshes {kinds}")
+    rows = report["hash"]["launches_by_row"]
+    if not (rows["row 1"] > 1 and all(rows[f"row {i}"] == 0 for i in range(2, 11))):
+        raise AssertionError(f"halo (hash): launches by row {rows}")
+    if not report["hash"]["step_twice_bit_identical"]:
+        raise AssertionError("halo (hash): two steps from one state differ or moved nothing")
+    two = report["two_call"]
+    rows = two["launches_by_row"]
+    # 16384 rays x 48 fine points: row 7 in two launches a step (its BWD_CHUNK)
+    if not (two["objective"] == "two-call" and rows["row 7"] >= HALO_TWO_CALL_STEPS
+            and rows["row 2"] >= HALO_TWO_CALL_STEPS and rows["row 1"] > 1
+            and two["loss_last16"] < two["loss_first16"]
+            and two["loss_last16"] < HALO_DARK_LOSS * report["all_black_loss"]):
+        raise AssertionError(f"halo (two-call): {two}")
+    m = report["mesh"]
+    if not (m["vertices"] > 0 and m["numpy_vertices"] == m["vertices"]
+            and m["numpy_triangles"] == m["triangles"] and m["triangles_equal"]
+            and m["max_abs_vertex_err"] is not None
+            and m["max_abs_vertex_err"] <= MESH_VERT_TOL and m["engine_mesh_equal"]):
+        raise AssertionError(f"halo: mesh {m}")
+    return total, all_points
+
+
 # ---- the command lines and the bench ---------------------------------------
 CLI_NGP_STEPS = 512
 CLI_CLASSIC_STEPS = 200
@@ -2133,6 +2620,10 @@ CLI_CLASSIC_STEPS = 200
 CLI_CLASSIC_SEED = 7
 CLI_CLASSIC_FLOOR_DB = 17.0  # val view 0 after CLI_CLASSIC_STEPS (full size)
 CLI_SHOTS = 4              # test frames the screenshot JSON holds
+CLI_HASH_STEPS = 512       # ngp_run --encoder hash, the CLI's demo recipe
+CLI_HASH_FLOOR_DB = 28.0   # its val mean PSNR after CLI_HASH_STEPS (full size; 29.49 measured)
+CLI_MESH_RES = 256         # ngp_run --save_mesh --marching_cubes_res
+CLI_SYNTHETIC_STEPS = 300  # run_nerf --config configs/synthetic_smoke.yml
 SNAPSHOT_PSNR_TOL_DB = 1e-4  # reloaded snapshot against the trainer's state
 
 
@@ -2169,11 +2660,13 @@ def phase_cli(dev, quick: bool, basedir: str):
     ``--test_transforms``, ``--screenshot_transforms``), ``run_nerf`` of
     configs/machina_classic.yml (train, ``--eval``, ``--render-video``) and
     of configs/machina_ngp.yml (``--render-video --fast`` from the
-    ``ngp_run`` checkpoint). The YAML copies are read by the port's reader:
-    no PyYAML here."""
-    import contextlib
+    ``ngp_run`` checkpoint), ``ngp_run --encoder hash`` (the demo recipe),
+    ``ngp_run --save_mesh`` from the snapshot, and ``run_nerf`` of
+    configs/synthetic_smoke.yml (the synthetic sphere, made on the card).
+    The YAML copies are read by the port's reader: no PyYAML here."""
     import io
     from nerf_kinematics_tpu_torch.cli import ngp_run, run_nerf
+    from nerf_kinematics_tpu_torch.export.mesh import load_ply
     from nerf_kinematics_tpu_torch.io.image import read_png
     from nerf_kinematics_tpu_torch.ops import cuda_lib
 
@@ -2194,6 +2687,8 @@ def phase_cli(dev, quick: bool, basedir: str):
                                   logdir=logdir, basedir=basedir,
                                   id="ngp-transforms_train")
         snap = os.path.join(root, "machina.nktsnap")
+        ply = os.path.join(root, "machina.ply")
+        synthetic_yml = copy_config("synthetic_smoke.yml", root, logdir=logdir)
         with open(os.path.join(basedir, "transforms_test.json")) as f:
             meta = json.load(f)
         meta["frames"] = meta["frames"][:CLI_SHOTS]
@@ -2234,10 +2729,22 @@ def phase_cli(dev, quick: bool, basedir: str):
         fast_video, t_fvideo = run("run_nerf --fast", run_nerf.main, [
             "--config", ngp_run_yml, "--render-video", "--fast",
             "--load-checkpoint", str(CLI_NGP_STEPS)])
+        meshed, t_mesh = run("ngp_run --save_mesh", ngp_run.main, [
+            train_json, "--config", ngp_yml, "--load_snapshot", snap, "--save_mesh", ply,
+            "--marching_cubes_res", str(CLI_MESH_RES)])
+        with contextlib.chdir(root):  # the demo recipe logs under ./logs
+            hashed, t_hash = run("ngp_run --encoder hash", ngp_run.main, [
+                train_json, "--encoder", "hash", "--n_steps", str(CLI_HASH_STEPS),
+                "--test_transforms", val_json])
+        before = dict(cuda_lib.LAUNCHES)
+        synthetic, t_synth = run("run_nerf synthetic_smoke", run_nerf.main, [
+            "--config", synthetic_yml, "--max-iters", str(CLI_SYNTHETIC_STEPS)])
         counts = dict(cuda_lib.LAUNCHES)
+        synth_rows = {k: counts[k] - before[k] for k in counts if counts[k] > before[k]}
         points = collections.Counter(cuda_lib.POINTS)
         # -------------------------------------------------------------------
         shots = [read_png(p) for p in reloaded["screenshots"]]
+        ply_verts, ply_tris = load_ply(ply)
         frames = sorted(os.listdir(fast_video["outdir"]))
         report.update({
             "ngp_run": {
@@ -2257,6 +2764,20 @@ def phase_cli(dev, quick: bool, basedir: str):
                 "video": os.path.basename(fast_video["video"]),
                 "video_bytes": os.path.getsize(fast_video["video"]),
                 "seconds": t_fvideo, "files": len(frames)},
+            "ngp_run_save_mesh": {
+                "resolution": CLI_MESH_RES, "printed": list(meshed["mesh"]),
+                "ply_vertices": len(ply_verts), "ply_triangles": len(ply_tris),
+                "ply_bytes": os.path.getsize(ply), "seconds": t_mesh},
+            "ngp_run_hash": {
+                "steps": CLI_HASH_STEPS, "seconds": t_hash,
+                "val_psnr_db_per_frame": hashed["test_psnr"],
+                "val_mean_psnr_db": hashed["test_mean_psnr"], "floor_db": CLI_HASH_FLOOR_DB},
+            "run_nerf_synthetic_smoke": {
+                "steps": CLI_SYNTHETIC_STEPS, "seconds": t_synth,
+                "val_psnr_db": synthetic["val_psnr"], "launches": synth_rows,
+                "route": ("classic fused kernels (rows 9, 10)"
+                          if synth_rows.get("classic_fused_apply_cf_bwd") else
+                          "classic module (autograd)")},
             "launches": counts,
         })
         emit(report)
@@ -2280,13 +2801,23 @@ def phase_cli(dev, quick: bool, basedir: str):
         if counts["ngp_fused_train_cf"] != CLI_NGP_STEPS or \
                 counts["classic_fused_apply_cf_bwd"] <= 0:
             raise AssertionError(f"cli: launches {counts}")
+        if not (tuple(meshed["mesh"]) == (len(ply_verts), len(ply_tris)) and len(ply_tris) > 0
+                and np.isfinite(ply_verts).all()):
+            raise AssertionError(f"cli: the mesh printed {meshed['mesh']}, its PLY holds "
+                                 f"{len(ply_verts)} vertices and {len(ply_tris)} triangles")
+        floor = None if quick else CLI_HASH_FLOOR_DB
+        if not (np.isfinite(hashed["test_mean_psnr"])
+                and (floor is None or hashed["test_mean_psnr"] >= floor)):
+            raise AssertionError(f"cli: ngp_run --encoder hash reads "
+                                 f"{hashed['test_mean_psnr']} dB, floor {floor}")
+        if not np.isfinite(synthetic["val_psnr"]):
+            raise AssertionError(f"cli: synthetic_smoke val PSNR {synthetic['val_psnr']}")
     return counts, points
 
 
 def phase_bench(dev, basedir: str):
     """``python -m nerf_kinematics_tpu_torch.bench`` in process on the scene
     the ``scene`` phase made; its JSON line passes through as this phase's."""
-    import contextlib
     import io
 
     from nerf_kinematics_tpu_torch import bench
@@ -2608,6 +3139,8 @@ def main(argv=None) -> int:
         add(phase_train_autodiff(fx, dev, args.quick, dataset))
     if "classic" in phases:
         add(phase_classic(fx, dev, args.quick, engine, aux, args.profile))
+    if "halo" in phases:
+        add(phase_halo(dev, args.quick))
     with tempfile.TemporaryDirectory() as work:
         # machina400, generated in the scene phase (or here, for a subset
         # without it) and used by the cli and bench phases

@@ -13,9 +13,10 @@ fused classic point pipeline and its gradient, merged hierarchical sampling,
 NDC rays, legacy checkpoints. The blender, llff and instant-ngp loaders,
 the command lines (``cli/run_nerf.py``, ``cli/ngp_run.py``,
 ``cli/plot_metrics.py``, ``cli/make_scene.py``), snapshots and the bench
-(``python -m nerf_kinematics_tpu_torch.bench``). The hash encoder,
-contracted scenes, export, poses and multi-GPU training come in later
-slices (``ROADMAP.md``).
+(``python -m nerf_kinematics_tpu_torch.bench``); the synthetic scenes and
+orbit poses, the hash encoder, contracted scenes and mesh export. The pose
+tools, the robot loader and multi-GPU training come in later slices
+(``ROADMAP.md``).
 """
 
 from ._device import resolve_device

@@ -6,12 +6,16 @@ of instant-ngp's ``scripts/run.py``, on the GPU unless told otherwise:
     python -m nerf_kinematics_tpu_torch.cli.ngp_run <scene> \\
         --load_snapshot model.nktsnap --test_transforms transforms_val.json
     ... --screenshot_transforms t.json --screenshot_dir out/ --width 1280
+    ... --save_mesh mesh.ply --marching_cubes_res 256
     ... --config configs/machina_ngp.yml   (the YAML's whole recipe)
+    ... --encoder hash                      (the Instant-NGP hash grid)
     ... --device cpu                        (the plain versions, on the CPU)
 
 Image paths resolve relative to their JSON. ``--mode`` is accepted and
-ignored with the reference's warning. ``--save_mesh`` (ROADMAP A.7) and
-``--encoder hash`` (ROADMAP A.5) are not ported yet and raise.
+ignored with the reference's warning. ``--save_mesh`` writes the
+isosurface of the density at ``--marching_cubes_density_thresh`` on a
+``--marching_cubes_res``^3 grid over the scene box, by the native mesh core
+(``export/mesh.py``).
 
 Snapshots are the JAX package's ``.nktsnap`` files (``io/snapshot.py``):
 ``{"params": {"coarse": <flax tree>}}`` of the weights evaluation scores
@@ -42,8 +46,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--test_transforms", default=None, help="Transforms JSON to PSNR-evaluate")
     p.add_argument("--screenshot_transforms", default=None, help="Transforms JSON to render")
     p.add_argument("--screenshot_dir", default="screenshots", help="Output dir for renders")
-    p.add_argument("--save_mesh", default=None,
-                   help="Write a .ply isosurface mesh (not ported yet)")
+    p.add_argument("--save_mesh", default=None, help="Write a .ply isosurface mesh")
+    p.add_argument("--marching_cubes_res", type=int, default=256)
+    p.add_argument("--marching_cubes_density_thresh", type=float, default=2.5)
     p.add_argument("--width", type=int, default=None, help="Render width override")
     p.add_argument("--height", type=int, default=None, help="Render height override")
     p.add_argument("--batch", type=int, default=4096, help="Rays per training step")
@@ -113,7 +118,7 @@ def snapshot_tree(engine, state) -> dict:
 
     with engine.bound(eval_params(state)):
         sd = {k: v.detach() for k, v in engine.model.state_dict().items()}
-    enc = "cp" if engine.ngp_config.resolved_encoder() == "cp" else "cp_pallas"
+    enc = engine.ngp_config.resolved_encoder()
     tree = {"params": {"coarse": params_to_flax(sd, encoder=enc)}}
     if state.aux is not None:
         tree["occupancy"] = {"density": state.aux.density.detach().cpu().numpy(),
@@ -138,17 +143,12 @@ def state_from_snapshot(engine, payload: dict, meta: dict):
 
 def main(argv=None) -> dict:
     """Run the command; returns the numbers it printed (``val_psnr``,
-    ``test_psnr`` per frame and ``test_mean_psnr``, ``screenshots``), for
-    callers in the same process."""
+    ``test_psnr`` per frame and ``test_mean_psnr``, ``screenshots``,
+    ``mesh`` (vertices, triangles)), for callers in the same process."""
     args = build_parser().parse_args(argv)
     if args.mode is not None:
         print("Warning: --mode is no longer in use. It will be ignored. "
               "The mode is automatically chosen based on the scene.")
-    if args.save_mesh:
-        raise NotImplementedError("--save_mesh: mesh export is not ported yet (ROADMAP A.7)")
-    if args.encoder == "hash" and not args.config:
-        raise NotImplementedError(
-            "--encoder hash: the hash encoder is not ported yet (ROADMAP A.5)")
     from .._device import resolve_device
     from ..io.snapshot import load_snapshot, save_snapshot
     from ..train.trainer import Trainer
@@ -187,6 +187,17 @@ def main(argv=None) -> dict:
 
     if args.screenshot_transforms:
         out["screenshots"] = _screenshots(trainer, state, args)
+
+    if args.save_mesh:
+        from ..export.mesh import extract_mesh_from_engine
+        from ..train.loop import eval_params
+
+        verts, tris = extract_mesh_from_engine(
+            engine, eval_params(state), resolution=args.marching_cubes_res,
+            iso=args.marching_cubes_density_thresh, path=args.save_mesh)
+        print(f"Saved mesh to {args.save_mesh}: {len(verts)} vertices, "
+              f"{len(tris)} triangles")
+        out["mesh"] = (len(verts), len(tris))
     trainer.close()
     return out
 

@@ -69,8 +69,9 @@ def _spherical_render_path(near: float, far: float, n: int = 40) -> np.ndarray:
     return np.stack([_pose_spherical(t, -30.0, radius) for t in thetas])
 
 
-def load_blender(cfg, white_background: bool = False) -> NerfDataset:
-    """Load a nerf_synthetic-format dataset.
+def load_blender(cfg, white_background: bool = False, device=None) -> NerfDataset:
+    """Load a nerf_synthetic-format dataset (on the host: ``device`` is
+    accepted as every loader accepts it, and not used).
 
     ``white_background`` is the train settings' flag
     (``nerf.train.white_background``), not the dataset section's: ground

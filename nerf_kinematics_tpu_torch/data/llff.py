@@ -91,7 +91,9 @@ def _load_images(basedir: str, factor: int):
     return np.stack(imgs)
 
 
-def load_llff(cfg) -> NerfDataset:
+def load_llff(cfg, device=None) -> NerfDataset:
+    """Load an LLFF capture (on the host: ``device`` is accepted as every
+    loader accepts it, and not used)."""
     factor = max(int(getattr(cfg, "downsample_factor", 1)), 1)
     pb = np.load(os.path.join(cfg.basedir, "poses_bounds.npy"))  # (N, 17)
     poses_hwf = pb[:, :15].reshape(-1, 3, 5)

@@ -147,10 +147,11 @@ def load_transforms_json(path: str, require_images: bool = True):
     return imgs, poses, intr, aabb
 
 
-def load_ngp_transforms(cfg) -> NerfDataset:
+def load_ngp_transforms(cfg, device=None) -> NerfDataset:
     """Dataset from a directory holding transforms.json (or the JSON itself),
     with the frames of its ``_val.json`` as the val split and the poses of
-    its ``_test_video.json`` as the render path."""
+    its ``_test_video.json`` as the render path; read on the host (``device``
+    is accepted as every loader accepts it, and not used)."""
     base = cfg.basedir
     train_json = base if base.endswith(".json") else os.path.join(base, "transforms.json")
     imgs, poses, intr, aabb = load_transforms_json(train_json)

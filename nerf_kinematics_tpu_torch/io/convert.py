@@ -8,7 +8,8 @@ State-dict names follow the tree: ``cp_lines``, ``density_0.kernel``,
 ``density_0.bias``, ..., ``density_out.kernel``, ``color_out.bias``; kernels
 keep the (in, out) layout. A tree of the reference's per-level ``cp`` encoder
 (``cp_lines_0`` .. ``cp_lines_{L-1}``, each (3, T, C)) is stacked into the one
-``cp_lines`` (L, 3, T, C) the port stores.
+``cp_lines`` (L, 3, T, C) the port stores; the hash encoder's ``hash_table``
+(L, T, F) is one leaf in both.
 """
 
 from __future__ import annotations
@@ -36,8 +37,8 @@ def params_from_flax(tree: dict, device=None) -> Dict[str, torch.Tensor]:
         key=lambda k: int(k.rsplit("_", 1)[1]),
     )
     if "hash_table" in p:
-        raise NotImplementedError("encoder: hash is not ported yet")
-    if levels:
+        out["hash_table"] = np.asarray(p["hash_table"], np.float32)
+    elif levels:
         out["cp_lines"] = np.stack([np.asarray(p[k], np.float32) for k in levels])
     else:
         out["cp_lines"] = np.asarray(p["cp_lines"], np.float32)
@@ -71,16 +72,18 @@ def params_from_npz(path: str) -> dict:
 def params_to_flax(state_dict: Dict[str, torch.Tensor],
                    encoder: str = "cp_pallas") -> dict:
     """Inverse of :func:`params_from_flax`: ``{"params": {...}}`` of numpy
-    arrays. ``encoder="cp"`` splits the table into the per-level leaves."""
+    arrays. ``encoder="cp"`` splits the CP table into the per-level leaves;
+    ``"cp_pallas"`` and ``"hash"`` keep the encoder's table one leaf."""
+    if encoder not in ("cp", "cp_pallas", "hash"):
+        raise ValueError(f"unknown encoder {encoder!r}")
     p: dict = {}
     for key, t in state_dict.items():
         arr = t.detach().cpu().numpy()
-        if key == "cp_lines":
-            if encoder == "cp":
-                for l in range(arr.shape[0]):
-                    p[f"cp_lines_{l}"] = arr[l]
-            else:
-                p["cp_lines"] = arr
+        if key == "cp_lines" and encoder == "cp":
+            for l in range(arr.shape[0]):
+                p[f"cp_lines_{l}"] = arr[l]
+        elif key in ("cp_lines", "hash_table"):
+            p[key] = arr
         else:
             name, leaf = key.rsplit(".", 1)
             p.setdefault(name, {})[leaf] = arr

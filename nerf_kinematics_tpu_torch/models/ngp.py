@@ -1,16 +1,18 @@
-"""Instant-NGP-class model: CP-grid encoder + small MLPs.
+"""Instant-NGP-class model: CP-grid or hash-grid encoder + small MLPs.
 
-    Density model: 3 --[CP grid L levels x C]--> L*C --[MLP]--> density_out
+    Density model: 3 --[CP grid L x C | hash grid L x F]--> --[MLP]--> density_out
     Color model:   3 --[SH deg 4]--> 16, concat density feats --[MLP]--> 3
 
 Density sigma = exp(clamped first channel); RGB = sigmoid of the returned
 logits (applied by the compositing).
 
 This module is the unfused path: the occupancy sweep, ``density_grid`` and
-the ``ngp.fused: off`` train step use it. The render path goes through the fused kernels
-(``ops/ngp_fused_cuda.py``). The two differ numerically on purpose, as in
-the reference: here every ``Dense`` layer with a bf16 compute type rounds
-its output to bf16; the fused kernels keep f32 accumulators.
+the ``ngp.fused: off`` train step use it, and ``encoder: hash`` (which the
+fused kernels do not take) everywhere. The render path goes through the
+fused kernels (``ops/ngp_fused_cuda.py``). The two differ numerically on
+purpose, as in the reference: here every ``Dense`` layer with a bf16
+compute type rounds its output to bf16; the fused kernels keep f32
+accumulators.
 """
 
 from __future__ import annotations
@@ -23,24 +25,10 @@ from torch import nn
 
 from ..ops.cp_grid import CPGridConfig, init_stacked_lines
 from ..ops.cp_grid_cuda import cp_encode_cuda
+from ..ops.hashgrid import HashGridConfig, hash_encode, init_table
 from ..ops.sh import sh_encode
 
-
-@dataclass(frozen=True)
-class HashGridConfig:
-    """Dimensions of the hash-grid encoder (``encoder: hash``). The encoder
-    itself is not ported yet; the fields are kept so every YAML config loads
-    to the same values in both packages."""
-
-    n_levels: int = 8
-    n_features: int = 4
-    log2_table_size: int = 19
-    base_resolution: int = 16
-    max_resolution: int = 2048
-
-    @property
-    def out_dim(self) -> int:
-        return self.n_levels * self.n_features
+__all__ = ["HashGridConfig", "NGPConfig", "NGPModel", "Dense"]
 
 
 @dataclass(frozen=True)
@@ -49,7 +37,8 @@ class NGPConfig:
     # device exists, the plain one otherwise), "cp" / "cp_pallas" (the CP
     # grid; both names select the stacked (L, 3, T, C) table here, and the
     # second keeps the reference's spelling so its YAML files load
-    # unchanged), "hash" (not ported yet).
+    # unchanged), "hash" (the Instant-NGP hash grid, ops/hashgrid.py; the
+    # fused kernels do not take it, so it always runs this module).
     encoder: str = "cp"
     grid: HashGridConfig = field(default_factory=HashGridConfig)
     cp: CPGridConfig = field(default_factory=CPGridConfig)
@@ -70,8 +59,9 @@ class NGPConfig:
     occ_floor: float = 1e-2
     occ_incremental_cells: int = 65536
     occ_full_every: int = 2048
-    # Scene contraction for scene bounds above 2: "auto" | "on" | "off".
-    # Contracted scenes are not ported yet.
+    # Scene contraction for scene bounds above 2 (ops/contraction.py):
+    # "auto" | "on" | "off"; ``contract_inner`` is the half-width of the
+    # linear region, 0 meaning max(1, bound / 4).
     contraction: str = "auto"
     contract_inner: float = 0.0
     # Compute type of the unfused MLPs ("float32" | "bfloat16"); params f32.
@@ -151,7 +141,8 @@ class Dense(nn.Module):
 
 class NGPModel(nn.Module):
     """(xyz in [0,1]^3, viewdir) -> (rgb logits, sigma). Parameter names
-    follow the reference's tree: ``cp_lines``, ``density_{i}``,
+    follow the reference's tree: ``cp_lines`` (or ``hash_table`` (L, T, F)
+    with ``encoder: hash``), ``density_{i}``,
     ``density_out``, ``color_{i}``, ``color_out`` (each with ``kernel`` and
     ``bias``)."""
 
@@ -159,16 +150,15 @@ class NGPModel(nn.Module):
         super().__init__()
         self.config = cfg = config
         enc = cfg.resolved_encoder()
-        if enc == "hash":
-            raise NotImplementedError(
-                "encoder: hash is not ported yet (ROADMAP: the hash encoder "
-                "and contracted scenes)"
-            )
-        if enc not in ("cp", "cp_pallas"):
+        self.hashed = enc == "hash"
+        if self.hashed:
+            self.hash_table = nn.Parameter(init_table(cfg.grid, generator))
+        elif enc in ("cp", "cp_pallas"):
+            self.cp_lines = nn.Parameter(init_stacked_lines(cfg.cp, generator))
+        else:
             raise ValueError(f"unknown encoder {enc!r}")
-        self.cp_lines = nn.Parameter(init_stacked_lines(cfg.cp, generator))
         bf16 = cfg.compute_dtype == "bfloat16"
-        widths = [cfg.cp.out_dim] + [cfg.density_width] * (cfg.density_layers - 1)
+        widths = [cfg.encoding_dim] + [cfg.density_width] * (cfg.density_layers - 1)
         self.density_names = [f"density_{i}" for i in range(cfg.density_layers - 1)]
         self.density_names.append("density_out")
         outs = widths[1:] + [cfg.density_out]
@@ -183,6 +173,8 @@ class NGPModel(nn.Module):
             self.add_module(name, Dense(i, o, bf16, generator))
 
     def encode(self, xyz: torch.Tensor) -> torch.Tensor:
+        if self.hashed:
+            return hash_encode(self.hash_table, xyz, self.config.grid)
         return cp_encode_cuda(self.cp_lines, xyz, self.config.cp)
 
     def density(self, xyz: torch.Tensor):

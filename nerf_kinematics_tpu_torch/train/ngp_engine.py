@@ -15,9 +15,13 @@ whole backward); ``ngp.fused_train: full`` puts the whole step, proposal
 and coarse pass included, into one call; ``ngp.fused_train: off`` takes
 autograd through the fused forward's gradient kernel, and ``ngp.fused:
 off`` autograd through the unfused model and the CP encoder's gradient
-kernel. The optimizer is Adam
-(``NGP_ADAM``: b2 0.99, eps 1e-15) over the flat buffer with coupled 1e-6
-decay on the MLP kernels only.
+kernel; ``ngp.encoder: hash`` always takes the unfused model. The optimizer
+is Adam (``NGP_ADAM``: b2 0.99, eps 1e-15) over the flat buffer with coupled
+1e-6 decay on the MLP kernels only (never the encoder's table).
+
+Scenes whose bound exceeds 2 are contracted (``ngp.contraction: auto``,
+``ops/contraction.py``): the model and the occupancy grid both see
+``contract_to_unit(x, inner)`` in place of the linear map of the box.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 from .._device import resolve_device
 from ..cameras.rays import get_rays, ndc_rays
 from ..models.ngp import NGPConfig, NGPModel
+from ..ops.contraction import contract_to_unit, unit_to_world
 from ..ops.ngp_fused_cuda import (
     ngp_fused_apply,
     ngp_fused_apply_cf,
@@ -96,11 +101,12 @@ class NGPEngine:
         # YAML parses bare on/off as booleans.
         mode = {True: "on", False: "off"}.get(mode, mode)
         self.contracted = mode == "on" or (mode == "auto" and self.scene_bound > 2.0)
-        if self.contracted:
-            raise NotImplementedError(
-                "contracted scenes are not ported yet (ROADMAP: the hash "
-                "encoder and contracted scenes)"
-            )
+        # half-width of the contraction's linear region
+        self._inner = float(self.ngp_config.contract_inner) or max(
+            1.0, self.scene_bound / 4.0)
+        if self.fused and self.ngp_config.resolved_encoder() == "hash":
+            raise ValueError("ngp.fused: on needs the CP encoder; the fused "
+                             "kernels do not take encoder: hash")
         self.model = NGPModel(self.ngp_config, generator=generator).to(self.device)
         self.layout = ParamLayout(self.model)
         self.model_fine = None  # the hierarchical pass shares the parameters
@@ -130,7 +136,30 @@ class NGPEngine:
 
     # -- model application with the world -> unit-cube map ------------------
     def _to_unit(self, pts: torch.Tensor) -> torch.Tensor:
+        """World points (..., 3) -> the model's [0, 1]^3 coordinates."""
+        if self.contracted:
+            return contract_to_unit(pts, self._inner)
         return pts / (2.0 * self.scene_bound) + 0.5
+
+    def _to_unit_cf(self, pts_cf: torch.Tensor) -> torch.Tensor:
+        """The same map of channels-first points (3, N). The linear map is
+        elementwise; the contraction takes each point's norm over its three
+        coordinates, so it needs them last."""
+        if self.contracted:
+            return self._to_unit(pts_cf.T).T
+        return self._to_unit(pts_cf)
+
+    # -- occupancy-grid coordinate maps (contracted or linear) ---------------
+    def _occ_to_unit(self):
+        """The occupancy grid's world -> [0, 1]^3 map: the model's on a
+        contracted scene, else None (the grid's own linear map of
+        [-bound, bound]^3)."""
+        return self._to_unit if self.contracted else None
+
+    def _occ_from_unit(self):
+        if not self.contracted:
+            return None
+        return lambda u01: unit_to_world(u01, self._inner)
 
     @property
     def fused(self) -> bool:
@@ -232,12 +261,13 @@ class NGPEngine:
         None without a grid."""
         if aux is None or not self.ngp_config.use_occupancy:
             return None
+        to_unit = self._occ_to_unit()
 
         def proposal(rays_o, rays_d, u=None):
             return occupancy_sample(
                 aux, rays_o, rays_d, near, far, settings.num_coarse,
                 num_bins=self.ngp_config.occ_bins,
-                deterministic=not settings.perturb,
+                deterministic=not settings.perturb, to_unit=to_unit,
                 mode=self.ngp_config.occ_proposal,
                 floor=self.ngp_config.occ_floor,
                 generator=generator, u=u,
@@ -272,12 +302,14 @@ class NGPEngine:
             return state
         if aux is None or not self.ngp_config.use_occupancy:
             return aux
+        from_unit = self._occ_from_unit()
         if full:
             return update_grid(aux, self._density_fn(), generator=generator,
-                               chunk=65536, u=u)
+                               chunk=65536, from_unit=from_unit, u=u)
         return update_grid_incremental(
             aux, self._density_fn(), generator=generator,
-            n_cells=self.ngp_config.occ_incremental_cells, idx=idx, u=u)
+            n_cells=self.ngp_config.occ_incremental_cells,
+            from_unit=from_unit, idx=idx, u=u)
 
     # -- training ----------------------------------------------------------
     def _fused_grads_to_tree(self, d_fused: dict) -> dict:
@@ -366,7 +398,7 @@ class NGPEngine:
                 )
             params = self._fused_params(detach=True)
             o_cf, d_cf = rays_o.T[:, :, None], rays_d.T[:, :, None]
-            xt_c = self._to_unit((o_cf + d_cf * z_coarse[None]).reshape(3, -1))
+            xt_c = self._to_unit_cf((o_cf + d_cf * z_coarse[None]).reshape(3, -1))
             raw4c = ngp_fused_sigma_cf(params, xt_c.contiguous(), cp)
             coarse = raw2outputs_cf(raw4c, z_coarse, rays_d, noise_std=0.0,
                                     white_background=white_bg)
@@ -380,7 +412,7 @@ class NGPEngine:
             dd = z_fine[:, 1:] - z_fine[:, :-1]
             dd = torch.cat([dd, torch.full_like(dd[:, :1], 1e10)], dim=1)
             dists = (dd * torch.linalg.norm(rays_d, dim=-1, keepdim=True))
-            xt = self._to_unit((o_cf + d_cf * z_fine[None]).reshape(3, -1))
+            xt = self._to_unit_cf((o_cf + d_cf * z_fine[None]).reshape(3, -1))
             vdt = viewdirs.T[:, :, None].expand(3, n_rays, S).reshape(3, -1)
             err, _maps, d_fused = ngp_fused_train_cf(
                 params, xt.contiguous(), vdt.contiguous(),
@@ -548,7 +580,9 @@ class NGPEngine:
 
     def density_grid(self, resolution: int = 128) -> torch.Tensor:
         """sigma on a regular grid over the scene box: (R, R, R) with
-        ``grid[i, j, k] = sigma(x=lin[i], y=lin[j], z=lin[k])``. Feeds
+        ``grid[i, j, k] = sigma(x=lin[i], y=lin[j], z=lin[k])`` at world
+        points ``lin`` = linspace(-bound, bound), through the engine's
+        world -> unit map (the contraction on a contracted scene). Feeds
         marching cubes and the occupancy diagnostics. One plane of
         ``resolution^2`` points per model call."""
         b = self.scene_bound

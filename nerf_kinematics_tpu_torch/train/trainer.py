@@ -59,7 +59,8 @@ class Trainer:
             from ..data import load_dataset
 
             dataset = load_dataset(
-                cfg.dataset, white_background=cfg.nerf.train.white_background)
+                cfg.dataset, white_background=cfg.nerf.train.white_background,
+                device=device)
         self.cfg = cfg
         self.dataset = ds = dataset
         if cfg.engine == "ngp":

@@ -9,8 +9,8 @@ package's (``tests/test_ngp_cli.py``, ``tests/test_trainer_cli.py``,
     (from a step and from a legacy ``.ckpt``), ``--render-video`` (the
     standard and the ``--fast`` renderer), a silent run, ``plot_metrics``;
   * ``cli/ngp_run.py``: train -> snapshot -> reload -> ``--test_transforms``
-    -> screenshots, ``--save_mesh`` and ``--encoder hash`` raise, the
-    ``--config`` step budget;
+    -> screenshots, ``--save_mesh`` to a PLY that loads back, ``--encoder
+    hash`` through a snapshot and back, the ``--config`` step budget;
   * the whole slice: a snapshot the JAX package writes from its engine's
     initial state, read by both packages' ``ngp_run --load_snapshot
     --test_transforms``: per-frame PSNRs within 0.05 dB (f32 operands);
@@ -290,10 +290,31 @@ def test_ngp_run_train_snapshot_reload_and_screenshots(scene, tmp_path, capsys, 
                          "--fine-samples", "8", "--device", "cpu"])
     assert demo == {}
     assert os.path.isdir(tmp_path / "logs" / "ngp-transforms_train")
-    with pytest.raises(NotImplementedError, match="A.7"):
-        ngp_run.main([train_json, "--save_mesh", "m.ply", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A.5"):
-        ngp_run.main([train_json, "--encoder", "hash", "--device", "cpu"])
+
+    # --save_mesh from the snapshot: the PLY loads back to what was printed
+    from nerf_kinematics_tpu_torch.export.mesh import load_ply
+
+    ply = str(tmp_path / "m.ply")
+    mesh = ngp_run.main([train_json, "--config", cfg_path, "--load_snapshot", snap,
+                         "--save_mesh", ply, "--marching_cubes_res", "24",
+                         "--marching_cubes_density_thresh", "1.9", "--device", "cpu"])
+    assert "Saved mesh" in capsys.readouterr().out
+    verts, tris = load_ply(ply)
+    assert mesh["mesh"] == (len(verts), len(tris)) and len(tris) > 0
+    assert np.abs(verts).max() <= 1.0 + 1e-6  # the scene box
+
+    # --encoder hash without --config: the reference-exact hash grid,
+    # through a snapshot and back
+    hsnap = str(tmp_path / "hash.nktsnap")
+    demo = ["--encoder", "hash", "--batch", "128", "--samples", "8", "--fine-samples", "8",
+            "--test_transforms", val_json, "--device", "cpu"]
+    hashed = ngp_run.main([train_json, "--n_steps", "2", "--save_snapshot", hsnap, *demo])
+    from nerf_kinematics_tpu_torch.io.snapshot import load_snapshot
+
+    payload, _ = load_snapshot(hsnap)
+    assert payload["params"]["coarse"]["params"]["hash_table"].shape == (8, 1 << 19, 4)
+    back = ngp_run.main([train_json, "--load_snapshot", hsnap, *demo])
+    assert back["test_psnr"] == hashed["test_psnr"]
 
 
 def test_config_flag_keeps_yaml_step_budget(scene, tmp_path):

@@ -278,9 +278,12 @@ def test_dataset_cache_round_trip(written, tmp_path):
     _same_dataset(again, first)
     _same_dataset(jcache.load_cached(path), first)
     assert tcache.load_cached(str(tmp_path / "missing.npz")) is None
-    for kind in ("robot", "synthetic"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LOADERS[kind](tc)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        LOADERS["robot"](tc)
+    # the synthetic scenes are ported: the sphere at the config's near / far
+    syn = LOADERS["synthetic"](tc.__class__(type="synthetic", near=0.5, far=3.5),
+                               n_views=3, resolution=8, device="cpu")
+    assert syn.images.shape == (3, 8, 8, 3) and (syn.near, syn.far) == (0.5, 3.5)
     # the ngp loader is ported: the blender scene's train JSON gives the
     # blender loader's train views (both composite onto white)
     ngp = LOADERS["ngp"](tc.__class__(

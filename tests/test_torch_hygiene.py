@@ -39,7 +39,9 @@ def _port_files():
                 "cli/plot_metrics.py", "io/snapshot.py", "io/__init__.py",
                 "data/ngp_transforms.py", "utils/__init__.py", "utils/logging.py",
                 "utils/guards.py", "utils/profiling.py", "utils/flops.py",
-                "bench.py", "train/config.py"):
+                "bench.py", "train/config.py", "poses/__init__.py", "poses/orbit.py",
+                "data/synthetic.py", "rendering/render_buffer.py", "ops/contraction.py",
+                "ops/hashgrid.py", "export/__init__.py", "export/mesh.py"):
         assert f"nerf_kinematics_tpu_torch/{new}" in names
     return files
 

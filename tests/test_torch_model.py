@@ -86,8 +86,13 @@ def test_parameter_names_follow_the_tree():
 
 
 def test_unported_encoder_says_so():
-    with pytest.raises(NotImplementedError, match="hash"):
-        NGPModel(NGPConfig(encoder="hash"))
+    # the hash encoder is ported (tests/test_torch_hashgrid.py); an unknown
+    # name is refused
+    from nerf_kinematics_tpu_torch.ops.hashgrid import HashGridConfig
+
+    hashed = NGPModel(NGPConfig(encoder="hash", grid=HashGridConfig(n_levels=2,
+                                                                    log2_table_size=10)))
+    assert hashed.hash_table.shape == (2, 1024, 4) and hashed.density_0.kernel.shape[0] == 8
     with pytest.raises(ValueError):
         NGPModel(NGPConfig(encoder="nope"))
     assert NGPConfig(encoder="auto").resolved_encoder() in ("cp", "cp_pallas")

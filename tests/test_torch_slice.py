@@ -175,11 +175,14 @@ def test_training_entry_points_wait(sl):
     full = dataclasses.replace(sl.te.ngp_config, fused_train="full")
     assert callable(NGPEngine(sl.te.cfg.replace(ngp=full), device="cpu").fused_objective_fn(
         2.0, 6.0, sl.te.cfg.nerf.train))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NGPEngine(sl.te.cfg, scene_bound=4.0, device="cpu")  # contracted scene
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hashed = dataclasses.replace(sl.te.ngp_config, encoder="hash")
-        NGPEngine(sl.te.cfg.replace(ngp=hashed), device="cpu")
+    # contracted scenes and the hash encoder are ported
+    assert NGPEngine(sl.te.cfg, scene_bound=4.0, device="cpu").contracted
+    from nerf_kinematics_tpu_torch.ops.hashgrid import HashGridConfig
+
+    hashed = dataclasses.replace(sl.te.ngp_config, encoder="hash", fused="auto",
+                                 grid=HashGridConfig(n_levels=2, log2_table_size=10))
+    he = NGPEngine(sl.te.cfg.replace(ngp=hashed), device="cpu")
+    assert not he.fused and he.model.hash_table.shape == (2, 1024, 4)
     # NDC rays are ported: the step and the renderers build for them
     assert callable(sl.te.make_train_step(sl.tintr, 2.0, 6.0, True))
     assert callable(sl.te.make_render_fn(sl.tintr, 0.0, 1.0, True))

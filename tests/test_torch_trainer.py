@@ -162,15 +162,19 @@ def test_fit_resumes_and_uneven_cadence(tmp_path):
 
 def test_what_the_trainer_does_not_load_yet(tmp_path):
     """Without a dataset the trainer loads ``cfg.dataset`` from disk
-    (tests/test_torch_data.py trains so); the loaders still to port say so
-    and name their ROADMAP item."""
+    (tests/test_torch_data.py trains so) or makes the synthetic scene on
+    its device; the loader still to port says so and names its ROADMAP
+    item."""
     import dataclasses
 
     cfg = tcfg.config_from_dict(_raw(tmp_path))
-    for kind in ("robot", "synthetic"):
-        c = cfg.replace(dataset=dataclasses.replace(cfg.dataset, type=kind))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(c, device="cpu")
+    c = cfg.replace(dataset=dataclasses.replace(cfg.dataset, type="robot"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(c, device="cpu")
+    c = cfg.replace(dataset=dataclasses.replace(cfg.dataset, type="synthetic"))
+    syn = Trainer(c, device="cpu")  # the sphere, 12 views of 64 px, on the CPU
+    assert syn.dataset.images.shape == (12, 64, 64, 3) and syn.images.shape[0] == 10
+    syn.close()
     for kind in ("blender", "ngp"):  # the ngp loader is ported: no transforms.json
         missing = dataclasses.replace(cfg.dataset, basedir=str(tmp_path / "nothing"),
                                       type=kind)
