@@ -37,7 +37,19 @@ width through the entry points a user calls:
     with ``ngp.fused: off`` (rows 4, 5), 300 with ``encoder: hash`` at the
     reference-exact grid (two steps from one state bit-identical), 50 of
     the contracted two-call step (rows 2, 7), and a 256^3 mesh by the
-    native core, held to its numpy version;
+    native core, held to its numpy version; rows 2, 3, 6 and 7 in f32
+    mode at fox's encoder against their plain versions, the f32 route's
+    first 40 steps step for step against rows 3 and 6's plain versions, and
+    the hash encoder on a NaN coordinate against the CPU;
+  * the robot path: two forward-kinematics captures written on the card
+    from the machina field on a table at the D405's 1280x720 (a ring of 48
+    poses; a slide of 11 poses looking down, the wheel capture's
+    geometry), converted by ``cli/parse_poses.py`` and diagnosed by the
+    parallax metrics; ``configs/wheel_ngp.yml`` on the ring (rows 1, 2, 4,
+    7) and ``configs/wheel_robot.yml`` (classic, NDC: rows 9, 10) on the
+    slide from the robot loader, each against a constant image; and
+    ``cli/full_pipeline.py`` on both (the low-parallax warning on the
+    slide only);
   * the command lines on machina400, with ``configs/*.yml`` read by the
     port's own YAML reader: ``cli/ngp_run.py`` trains 512 steps from
     ``configs/machina_ngp.yml``, saves a snapshot, reloads it (the val PSNR
@@ -74,6 +86,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -92,7 +105,7 @@ from nerf_kinematics_tpu_torch.bench import nvidia_smi_line
 from nerf_kinematics_tpu_torch.utils.flops import PEAK_BYTES_PER_S, PEAK_FLOPS
 
 PHASES = ("kernels", "grad_kernels", "serve", "golden", "train", "train_autodiff",
-          "classic", "halo", "scene", "cli", "bench")
+          "classic", "halo", "robot", "scene", "cli", "bench")
 
 KERNEL_REPS = 5        # timed launches per kernel (median), after 2 warm-ups
 
@@ -2298,6 +2311,21 @@ def halo_lockstep(trainer, state0, steps: int, routes=None) -> tuple:
     return rep, falling
 
 
+def halo_points(trainer, state, gen):
+    """One step's rays (the ray buffer's first num_random_rays) at the depths
+    its occupancy proposal places from ``state``, in contracted unit
+    coordinates, ray-major: -> (x (n, 3), xt (3, n), vdt (3, n), z (R, S))."""
+    eng, cfg, ds = trainer.engine, trainer.cfg, trainer.dataset
+    n_rays = cfg.nerf.num_random_rays
+    o = trainer.ray_buf["rays_o"][:n_rays]
+    d = trainer.ray_buf["rays_d"][:n_rays]
+    z = eng.proposal_for(state.aux, ds.near, ds.far, cfg.nerf.train, gen)(o, d)
+    x = eng._to_unit(o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)
+    vd = (d / torch.linalg.norm(d, dim=-1, keepdim=True))[:, None, :].expand(
+        -1, z.shape[1], -1).reshape(-1, 3)
+    return x, x.T.contiguous(), vd.T.contiguous(), z
+
+
 def halo_kernels(trainer, state, dev, timed: bool = True) -> dict:
     """Rows 3, 4, 5 and 6 at the halo path's own shape, which the kernel
     phases do not hold (they take the flagship's encoder, and fox's with
@@ -2315,18 +2343,11 @@ def halo_kernels(trainer, state, dev, timed: bool = True) -> dict:
         ngp_fused_apply_cf, ngp_fused_apply_cf_bwd, ngp_fused_apply_cf_bwd_ref,
         ngp_fused_apply_cf_ref)
 
-    eng, cfg, ds = trainer.engine, trainer.cfg, trainer.dataset
+    eng = trainer.engine
     cp = eng.ngp_config.cp
     gen = torch.Generator(device=dev).manual_seed(77)
-    n_rays = cfg.nerf.num_random_rays
-    o = trainer.ray_buf["rays_o"][:n_rays]
-    d = trainer.ray_buf["rays_d"][:n_rays]
     with torch.no_grad(), eng.bound(state.params):
-        z = eng.proposal_for(state.aux, ds.near, ds.far, cfg.nerf.train, gen)(o, d)
-        x = eng._to_unit(o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)
-        vd = (d / torch.linalg.norm(d, dim=-1, keepdim=True))[:, None, :].expand(
-            -1, z.shape[1], -1).reshape(-1, 3)
-        xt, vdt = x.T.contiguous(), vd.T.contiguous()
+        x, xt, vdt, _ = halo_points(trainer, state, gen)
         params = eng._fused_params(detach=True)
         lines = params["lines"]
         n = xt.shape[1]
@@ -2383,6 +2404,195 @@ def halo_kernels(trainer, state, dev, timed: bool = True) -> dict:
     return rep
 
 
+F32_FWD_TOL = 2e-3  # the kernel phases' f32 mode: max abs of rgb logits and log sigma
+
+
+def leaf_rel_errors(got: dict, want: dict) -> dict:
+    """grad_errors' max_rel of each leaf, where a leaf the plain version
+    gives all zero (fox's route at its dark trained weights: no density
+    and no live unit reach the tables) must be all zero in the kernel's
+    too (0.0, else inf)."""
+    rep = {}
+    for (name, a), (_, b) in zip(_leaf_list(got), _leaf_list(want)):
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"{name}: shape {tuple(a.shape)} or non-finite gradient")
+        scale = b.abs().max().item()
+        rep[name] = ((a - b).abs().max().item() / scale if scale
+                     else 0.0 if not a.abs().max().item() else math.inf)
+    return rep
+
+
+def halo_f32_kernels(trainer, state, dev, timed: bool = True) -> dict:
+    """Rows 2, 3, 6 and 7 in f32 mode (``ngp.cp.use_bf16: false``: the FMA
+    bodies, which stage W0 level by level) at fox's encoder (L 5, C 96,
+    T 256: a first layer of 480 x 64), the weights of ``state`` and the
+    points of halo_points (16384 rays x 64 depths, 1.05 M points), each
+    against its plain version with the kernel phases' f32 tolerances: rows
+    2 and 3 max abs F32_FWD_TOL, rows 6 and 7 GRAD_TOL["f32"] a leaf, row
+    7's err and maps TRAIN_OUT_TOL; rows 6 and 7 twice for the same bits."""
+    from nerf_kinematics_tpu_torch.ops.ngp_fused_cuda import (
+        ngp_fused_apply_cf, ngp_fused_apply_cf_bwd, ngp_fused_apply_cf_bwd_ref,
+        ngp_fused_apply_cf_ref, ngp_fused_sigma_cf, ngp_fused_sigma_cf_ref,
+        ngp_fused_train_cf, ngp_fused_train_cf_ref)
+
+    eng = trainer.engine
+    cp = dataclasses.replace(eng.ngp_config.cp, use_bf16=False)
+    gen = torch.Generator(device=dev).manual_seed(78)
+    with torch.no_grad(), eng.bound(state.params):
+        _, xt, vdt, z = halo_points(trainer, state, gen)
+        params = eng._fused_params(detach=True)
+        R, S = z.shape
+        n = xt.shape[1]
+        dists = torch.cat([z[:, 1:] - z[:, :-1], torch.full((R, 1), 1e10, device=dev)],
+                          dim=-1).reshape(1, n).contiguous()
+        tgt = torch.rand((3, R), generator=gen, device=dev)
+        g4 = torch.randn((4, n), generator=gen, device=dev)
+        g4[3] *= 1e-3  # as the grad_kernels phase: sigma reaches e^15
+        inv = 1.0 / (3.0 * R)
+        rep = {"points": n, "rays": R, "samples": S, "cp": cp_label(cp)}
+        for row, kern, plain, color in (
+                ("row 2", lambda: ngp_fused_sigma_cf(params, xt, cp),
+                 lambda: ngp_fused_sigma_cf_ref(params, xt, cp), False),
+                ("row 3", lambda: ngp_fused_apply_cf(params, xt, vdt, cp),
+                 lambda: ngp_fused_apply_cf_ref(params, xt, vdt, cp), True)):
+            k, p = kern(), plain()
+            mx, mean, _ = fused_errors(k, p, color)
+            rep[row] = {"max_abs_err": mx, "mean_abs_err": mean}
+            del k, p
+        k = ngp_fused_apply_cf_bwd(params, xt, vdt, g4, cp)
+        k2 = ngp_fused_apply_cf_bwd(params, xt, vdt, g4, cp)
+        p = ngp_fused_apply_cf_bwd_ref(params, xt, vdt, g4, cp)
+        rep["row 6"] = {"max_rel_err_by_leaf": leaf_rel_errors(k, p),
+                        "twice_bit_identical": all(torch.equal(a, b) for (_, a), (_, b)
+                                                   in zip(_leaf_list(k), _leaf_list(k2)))}
+        del k, k2, p
+        ek, mk, k = ngp_fused_train_cf(params, xt, vdt, dists, tgt, cp, S, False, inv)
+        k2 = ngp_fused_train_cf(params, xt, vdt, dists, tgt, cp, S, False, inv)[2]
+        ep, mp, p = ngp_fused_train_cf_ref(params, xt, vdt, dists, tgt, cp, S, False, inv)
+        rep["row 7"] = {"max_rel_err_by_leaf": leaf_rel_errors(k, p),
+                        "err_maps_max_abs_err": max((ek - ep).abs().max().item(),
+                                                    (mk - mp).abs().max().item()),
+                        "twice_bit_identical": all(torch.equal(a, b) for (_, a), (_, b)
+                                                   in zip(_leaf_list(k), _leaf_list(k2)))}
+        del ek, mk, k, k2, ep, mp, p
+        if timed:
+            flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+            rep["ms"] = {
+                "row 2": time_ms(lambda: ngp_fused_sigma_cf(params, xt, cp), KERNEL_REPS, 2, flush),
+                "row 2 plain": time_ms(lambda: ngp_fused_sigma_cf_ref(params, xt, cp), 2, 1, flush),
+                "row 3": time_ms(lambda: ngp_fused_apply_cf(params, xt, vdt, cp), KERNEL_REPS, 2, flush),
+                "row 3 plain": time_ms(lambda: ngp_fused_apply_cf_ref(params, xt, vdt, cp), 2, 1, flush),
+                "row 6": time_ms(lambda: ngp_fused_apply_cf_bwd(params, xt, vdt, g4, cp),
+                                 KERNEL_REPS, 2, flush),
+                "row 6 plain": time_ms(lambda: ngp_fused_apply_cf_bwd_ref(params, xt, vdt, g4, cp),
+                                       2, 1, flush),
+                "row 7": time_ms(lambda: ngp_fused_train_cf(params, xt, vdt, dists, tgt, cp, S,
+                                                            False, inv), KERNEL_REPS, 2, flush),
+                "row 7 plain": time_ms(lambda: ngp_fused_train_cf_ref(
+                    params, xt, vdt, dists, tgt, cp, S, False, inv), 2, 1, flush),
+            }
+            # bound at the f32 FMA rate, as the bodies run: MLP products and
+            # the encoder's taps; inputs read and outputs written once
+            Ws = params["dW"] + params["cW"]
+            enc = cp.out_dim * 12
+            fl = {"row 2": n * (mlp_flops(params["dW"]) + enc),
+                  "row 3": n * (mlp_flops(Ws) + enc)}
+            fl["row 6"] = 3 * fl["row 3"]
+            fl["row 7"] = fl["row 6"] + n * 120
+            io = {"row 2": n * 28 + param_bytes(params, False),
+                  "row 3": n * 40 + param_bytes(params, True),
+                  "row 6": n * 56 + 2 * param_bytes(params, True),
+                  "row 7": n * 28 + R * 32 + 2 * param_bytes(params, True)}
+            rep["bound_ms"] = {r: bound_ms(io[r], fl[r], "f32")[0] for r in fl}
+    bad = [r for r in ("row 2", "row 3") if not rep[r]["max_abs_err"] <= F32_FWD_TOL]
+    for r in ("row 6", "row 7"):
+        if not (max(rep[r]["max_rel_err_by_leaf"].values()) <= GRAD_TOL["f32"]
+                and rep[r]["twice_bit_identical"]):
+            bad.append(r)
+    if not rep["row 7"]["err_maps_max_abs_err"] <= TRAIN_OUT_TOL:
+        bad.append("row 7 err / maps")
+    rep["failed"] = bad
+    return rep
+
+
+def f32_smem_bytes(engines: dict, dev) -> dict:
+    """Bytes of shared memory each f32 launcher asks for (the library's own
+    queries, which the launches use): row 2, row 3, and the largest of the
+    gradient kernels (rows 6-8: the forward with saves and the per-point
+    backward), for each engine's MLPs and encoder."""
+    import ctypes
+
+    from nerf_kinematics_tpu_torch.ops import cuda_lib
+    from nerf_kinematics_tpu_torch.ops.ngp_fused_cuda import _fused_args
+
+    lib = cuda_lib.load_library()
+    xt = torch.rand((3, 256), device=dev)
+    rep = {}
+    for name, eng in engines.items():
+        cp = dataclasses.replace(eng.ngp_config.cp, use_bf16=False)
+        params = eng._fused_params(detach=True)
+        out = torch.empty((4, 256), device=dev)
+        a, keep = _fused_args(params, xt, xt, out, cp, True, backward=True)
+        sizes = (ctypes.c_longlong * 6)()
+        lib.nkt_fused_bwd_sizes(ctypes.byref(a), sizes)
+        rep[name] = {"cp": cp_label(cp),
+                     "row 2": int(lib.nkt_fused_smem_bytes(ctypes.byref(a), 0)),
+                     "row 3": int(lib.nkt_fused_smem_bytes(ctypes.byref(a), 1)),
+                     "rows 6-8": int(sizes[3]), "limit": cuda_lib.SMEM_LIMIT}
+        del keep
+    return rep
+
+
+def hash_nan_on_card(grid, dev) -> dict:
+    """The hash encoder (fox's reference-exact grid) on 8 seeded points, one
+    with a NaN coordinate, on the CPU and on the card, as
+    tests/test_torch_hashgrid.py::test_nan_coordinate_matches_jax holds the
+    CPU against the JAX package: every feature of that point NaN and no
+    other; the table gradient NaN on exactly the rows of the point's eight
+    corners at every level (cell 0 along the NaN axis); the card's masks
+    equal the CPU's and its finite values within 1e-5."""
+    from nerf_kinematics_tpu_torch.ops import hashgrid
+
+    rng = np.random.default_rng(11)
+    L, T, F = grid.n_levels, grid.table_size, grid.n_features
+    table = rng.uniform(-1e-4, 1e-4, (L, T, F)).astype(np.float32)
+    x = rng.random((8, 3)).astype(np.float32)
+    x[3, 1] = np.nan
+    got = {}
+    for where in ("cpu", dev):
+        t = torch.tensor(table, device=where, requires_grad=True)
+        f = hashgrid.hash_encode(t, torch.tensor(x, device=where), grid)
+        f.backward(torch.ones_like(f))
+        got[str(where)] = (f.detach().cpu().numpy(), t.grad.cpu().numpy())
+    (fc, gc), (fg, gg) = got["cpu"], got[str(dev)]
+    # the rows of point 3's corners, its NaN axis in cell 0
+    x3 = np.nan_to_num(x[3:4], nan=0.0)
+    want = set()
+    corners = torch.as_tensor(hashgrid._CORNERS)
+    for l, res in enumerate(grid.resolutions):
+        c0 = np.clip(np.floor(x3 * res).astype(np.int64), 0, res - 1)
+        idx = hashgrid._level_indices(torch.as_tensor(c0)[:, None, :] + corners[None], res, T)
+        want.update((idx.reshape(-1) + l * T).tolist())
+    nan_rows = set(np.flatnonzero(np.isnan(gg).any(-1).reshape(-1)).tolist())
+    feat_mask = np.isnan(fg).any(-1)
+    fin_c, fin_g = ~np.isnan(gc), ~np.isnan(gg)
+    rep = {
+        "point_all_nan": bool(np.isnan(fg[3]).all()),
+        "other_points_finite": bool(feat_mask.sum() == 1),
+        "nan_rows": len(nan_rows), "corner_rows": len(want),
+        "nan_rows_are_corner_rows": nan_rows == want,
+        "feature_masks_equal_cpu": bool(np.array_equal(np.isnan(fg), np.isnan(fc))),
+        "grad_masks_equal_cpu": bool(np.array_equal(fin_g, fin_c)),
+        "features_max_abs_diff_cpu": float(np.abs(np.delete(fg, 3, 0) - np.delete(fc, 3, 0)).max()),
+        "grad_max_abs_diff_cpu": float(np.abs(gg[fin_g & fin_c] - gc[fin_g & fin_c]).max()),
+    }
+    rep["ok"] = bool(rep["point_all_nan"] and rep["other_points_finite"]
+                     and rep["nan_rows_are_corner_rows"] and rep["feature_masks_equal_cpu"]
+                     and rep["grad_masks_equal_cpu"] and rep["features_max_abs_diff_cpu"] <= 1e-5
+                     and rep["grad_max_abs_diff_cpu"] <= 1e-5)
+    return rep
+
+
 def step_twice(trainer, state) -> bool:
     """The whole step twice from one cloned state: the same parameters and
     Adam moments, bit for bit, and the parameters moved."""
@@ -2417,6 +2627,7 @@ def phase_halo(dev, quick: bool):
         extract_mesh, extract_mesh_from_engine, extract_mesh_ref)
     from nerf_kinematics_tpu_torch.ops import cuda_lib
     from nerf_kinematics_tpu_torch.train.loop import eval_params
+    from nerf_kinematics_tpu_torch.train.trainer import Trainer
 
     scene = HALO_SCENE_QUICK if quick else HALO_SCENE
     steps = HALO_QUICK["steps"] if quick else HALO_STEPS
@@ -2464,8 +2675,33 @@ def phase_halo(dev, quick: bool):
         kernels[f"after {HALO_FALLING_STEP} steps"] = halo_kernels(
             trainer, falling, dev, timed=False)
         report["kernels_at_this_shape"] = kernels
+        # ---- f32 mode at fox's encoder (ROADMAP C.1): rows 2, 3, 6, 7 at
+        # the trained and the fresh weights, the launchers' shared memory,
+        # and the f32 route's first steps against rows 3 and 6's plain
+        # versions -------------------------------------------------------------
+        report["f32_kernels_at_this_shape"] = {
+            "trained": halo_f32_kernels(trainer, res.state, dev),
+            "fresh": halo_f32_kernels(trainer, fresh, dev, timed=False)}
+        from nerf_kinematics_tpu_torch.train.config import load_config
+        from nerf_kinematics_tpu_torch.train.ngp_engine import NGPEngine
+
+        machina = NGPEngine(load_config(os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "configs", "machina_ngp.yml")),
+                            1.0, device=dev)
+        report["f32_smem_bytes"] = f32_smem_bytes({"machina_ngp": machina,
+                                                   "fox_ngp": trainer.engine}, dev)
+        del machina
         trainer.close()
         del trainer, res, fresh, falling
+        f32_cfg = cfg.replace(ngp=dataclasses.replace(
+            ngp, compute_dtype="float32", cp=dataclasses.replace(ngp.cp, use_bf16=False)))
+        trainer = Trainer(f32_cfg, ds, device=dev)
+        report["cp_f32_lockstep"], _ = halo_lockstep(
+            trainer, trainer.engine.init_state(), HALO_LOCKSTEP_STEPS)
+        trainer.close()
+        del trainer
+        # ---- the hash encoder on a NaN coordinate (ROADMAP C.4) --------------
+        report["hash_nan_point"] = hash_nan_on_card(ngp.grid, dev)
 
         # ---- the same recipe with ngp.fused: off: rows 4 and 5 every step ----
         cp_rep, trainer, res, counts, points = halo_fit(
@@ -2556,12 +2792,21 @@ def phase_halo(dev, quick: bool):
     if failed:
         raise AssertionError(f"halo: kernels against their plain versions at fox's shape: "
                              f"{failed}")
-    lock = report["cp_lockstep"]
-    if not lock["max_rel_diff"]["kernels"] <= HALO_LOCKSTEP_TOL:
-        raise AssertionError(f"halo (cp): the first {HALO_LOCKSTEP_STEPS} steps through the "
-                             f"kernels leave their plain versions' losses by "
-                             f"{lock['max_rel_diff']['kernels']:.3g} "
-                             f"(> {HALO_LOCKSTEP_TOL}): {lock}")
+    failed = {k: v["failed"] for k, v in report["f32_kernels_at_this_shape"].items()
+              if v["failed"]}
+    if failed:
+        raise AssertionError(f"halo: f32 kernels against their plain versions at fox's "
+                             f"shape: {failed}")
+    for key in ("cp_lockstep", "cp_f32_lockstep"):
+        lock = report[key]
+        if not lock["max_rel_diff"]["kernels"] <= HALO_LOCKSTEP_TOL:
+            raise AssertionError(f"halo ({key}): the first {HALO_LOCKSTEP_STEPS} steps "
+                                 f"through the kernels leave their plain versions' losses "
+                                 f"by {lock['max_rel_diff']['kernels']:.3g} "
+                                 f"(> {HALO_LOCKSTEP_TOL}): {lock}")
+    if not report["hash_nan_point"]["ok"]:
+        raise AssertionError(f"halo: the hash encoder's NaN point on the card differs from "
+                             f"the CPU's: {report['hash_nan_point']}")
     for name in ("cp", "cp_unfused", "hash"):
         r = report[name]
         if not (r["contracted"] and r["loss_last"] < HALO_LOSS_RATIO * r["loss_first"]):
@@ -2607,6 +2852,423 @@ def phase_halo(dev, quick: bool):
             and m["max_abs_vertex_err"] is not None
             and m["max_abs_vertex_err"] <= MESH_VERT_TOL and m["engine_mesh_equal"]):
         raise AssertionError(f"halo: mesh {m}")
+    return total, all_points
+
+
+# ---- the robot path: FK captures, the converter, parallax, the wheel configs
+# and the full pipeline ---------------------------------------------------------
+ROBOT_SIZE = (1280, 720)        # the D405's frames (W, H)
+ROBOT_SIZE_CUT = (640, 360)     # when ROBOT_SIZE would take over ROBOT_RENDER_BUDGET_S
+ROBOT_SIZE_QUICK = (320, 180)
+ROBOT_RENDER_BUDGET_S = 60.0
+ROBOT_RENDER_SAMPLES = 256      # samples a ray of the object's field (2..6)
+# A table under the object, as a real capture has one: an opaque checkered
+# plane just below the wheels (-0.518), within the ring's box (half-width
+# 3.49 about the ring's centre). Over a black background the fast engine's
+# cp routes fall to the dark state (PERF.md section 6, the halo scene).
+ROBOT_FLOOR_Z = -0.52
+ROBOT_FLOOR_HALF = 3.3
+ROBOT_FLOOR_TILE = 0.25
+ROBOT_RING_POSES = 48           # around the object: high parallax
+ROBOT_RING_ELEV_DEG = 30.0
+ROBOT_SLIDE_POSES = 11          # the wheel capture's geometry: a line, looking down
+ROBOT_SLIDE_STEP_MM = 73.0      # its spacing (tests/test_poses.py:23-33)
+ROBOT_SLIDE_HEIGHT = 3.0        # camera line above the object, world units
+ROBOT_MM_PER_UNIT = 250.0       # robot millimetres a world unit
+ROBOT_BASE_MM = (1072.532608, 132.989927, -53.612386)  # the real capture's first pose
+ROBOT_NGP_STEPS = 2000
+ROBOT_CLASSIC_STEPS = 500
+ROBOT_PIPE_SLIDE_STEPS = 300
+ROBOT_QUICK_STEPS = 200
+ROBOT_PSNR_MARGIN_DB = 5.0      # wheel_ngp on the ring against the constant image
+ROBOT_NGP_FLOOR_DB = 32.5       # wheel_ngp on the ring, val mean (33.83 measured); PERF.md section 6
+ROBOT_LOW_PARALLAX = 0.3        # directional_std under this: the pipeline's warning
+ROBOT_LOADER_TOL = 1e-5         # the loader's poses against the rendered ones
+ROBOT_BOX = 1.0                 # the engine's bound for the loader's aabb_scale 2
+
+
+def robot_world_poses():
+    """-> {name: (N, 4, 4) camera-to-world poses (OpenGL, -Z forward) in the
+    machina field's world}: the ring, on a circle at 30 degrees of
+    elevation at the machina cameras' radius, looking at the object; the
+    slide, ROBOT_SLIDE_POSES on a line along +y at ROBOT_SLIDE_HEIGHT,
+    ROBOT_SLIDE_STEP_MM apart, looking straight down."""
+    from nerf_kinematics_tpu_torch.data.machina import orbit_poses
+
+    ring = orbit_poses(ROBOT_RING_POSES, elev_deg=ROBOT_RING_ELEV_DEG)
+    step = ROBOT_SLIDE_STEP_MM / ROBOT_MM_PER_UNIT
+    y = (np.arange(ROBOT_SLIDE_POSES) - (ROBOT_SLIDE_POSES - 1) / 2) * step
+    slide = np.tile(np.eye(4), (ROBOT_SLIDE_POSES, 1, 1))
+    slide[:, 1, 3] = y
+    slide[:, 2, 3] = ROBOT_SLIDE_HEIGHT
+    return {"ring": np.asarray(ring, np.float64), "slide": slide}
+
+
+def fk_matrices(world) -> np.ndarray:
+    """The raw FK matrices a robot would log for camera poses ``world``:
+    millimetres from a base offset, the camera's z axis forward (the third
+    column of the OpenGL rotation and the z translation negated, which the
+    loader's Z flip undoes). The loader then returns ``world`` up to one
+    similarity: x -> k (x - m), m the train poses' centroid and 1 / k
+    their largest distance from it (robot_similarity)."""
+    raw = np.array(world, np.float64)
+    raw[:, :3, 2] *= -1.0
+    t = raw[:, :3, 3] * ROBOT_MM_PER_UNIT
+    t[:, 2] *= -1.0
+    raw[:, :3, 3] = t + np.asarray(ROBOT_BASE_MM)
+    return raw
+
+
+def robot_similarity(world):
+    """(m, k) of the map the loader applies to ``world``'s positions."""
+    t = np.asarray(world)[:, :3, 3]
+    m = t[1:].mean(0)
+    return m, 1.0 / float(np.linalg.norm(t[1:] - m, axis=1).max())
+
+
+def write_poses_txt(path: str, mats) -> None:
+    """poses.txt as the robot controller writes it: bracket-and-semicolon
+    4x4 matrices, one blank line between them."""
+    with open(path, "w") as f:
+        for m in mats:
+            rows = [", ".join(f"{v:12.6f}" for v in r) for r in m]
+            f.write("[" + " ;\n ".join(rows) + " ];\n\n")
+
+
+def render_capture_rays(o, d):
+    """Colours of rays (n, 3) through the machina field on the table: the
+    field's ROBOT_RENDER_SAMPLES samples from NEAR to FAR (its z-depth
+    parameterisation) cut where the ray meets the table, then the table's
+    checker behind what the field leaves; black where a ray misses both."""
+    from nerf_kinematics_tpu_torch.data.machina import FAR, NEAR, machina_field
+    from nerf_kinematics_tpu_torch.ops.sampling import linspace
+
+    t = linspace(NEAR, FAR, ROBOT_RENDER_SAMPLES, device=o.device)
+    tf = (ROBOT_FLOOR_Z - o[:, 2]) / d[:, 2]
+    pf = o + d * tf[:, None]
+    hit = (d[:, 2] < 0) & (pf[:, 0].abs() < ROBOT_FLOOR_HALF) & (
+        pf[:, 1].abs() < ROBOT_FLOOR_HALF)
+    rgb, sigma = machina_field(o[:, None, :] + d[:, None, :] * t[:, None])
+    sigma = torch.where(t[None, :] < torch.where(hit, tf, math.inf)[:, None], sigma, 0.0)
+    dist = (FAR - NEAR) / (ROBOT_RENDER_SAMPLES - 1) * torch.linalg.vector_norm(
+        d, dim=-1, keepdim=True)
+    alpha = 1.0 - torch.exp(-sigma * dist)
+    trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
+    w = alpha * torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], dim=-1)
+    check = torch.remainder(torch.floor(pf[:, 0] / ROBOT_FLOOR_TILE)
+                            + torch.floor(pf[:, 1] / ROBOT_FLOOR_TILE), 2.0)[:, None]
+    light = torch.tensor([0.62, 0.55, 0.45], device=o.device)
+    dark = torch.tensor([0.30, 0.33, 0.38], device=o.device)
+    table = torch.where(hit[:, None], dark + check * (light - dark), 0.0)
+    return (w[..., None] * rgb).sum(-2) + (1.0 - w.sum(-1, keepdim=True)) * table
+
+
+def write_fk_capture(root: str, world, size, dev) -> dict:
+    """A robot capture in ``root``: poses.txt from fk_matrices(world) and
+    images_robot/TestNERF k.png rendered at the poses the loader will
+    return (up to its similarity) from the machina field on a table
+    (render_capture_rays), with the D405's field of view (87 x 58
+    degrees, so fl_x != fl_y off the square), on the card."""
+    from nerf_kinematics_tpu_torch.cameras.rays import get_rays
+    from nerf_kinematics_tpu_torch.io.image import write_png
+
+    W, H = size
+    fl_x = 0.5 * W / math.tan(math.radians(87.0) / 2)
+    fl_y = 0.5 * H / math.tan(math.radians(58.0) / 2)
+    os.makedirs(os.path.join(root, "images_robot"), exist_ok=True)
+    write_poses_txt(os.path.join(root, "poses.txt"), fk_matrices(world))
+    t0 = time.perf_counter()
+    for k, c2w in enumerate(world):
+        o, d = get_rays(H, W, fl_x, torch.as_tensor(c2w, dtype=torch.float32, device=dev),
+                        focal_y=fl_y)
+        o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+        rgb = torch.cat([render_capture_rays(o[s:s + 16384], d[s:s + 16384])
+                         for s in range(0, o.shape[0], 16384)])
+        img = (rgb.reshape(H, W, 3).clamp(0, 1) * 255 + 0.5).to(torch.uint8).cpu().numpy()
+        write_png(os.path.join(root, "images_robot", f"TestNERF {k}.png"), img)
+    return {"frames": len(world), "size": [W, H], "fl_x": fl_x, "fl_y": fl_y,
+            "seconds": time.perf_counter() - t0}
+
+
+def robot_fit(cfg, dev):
+    """Trainer(cfg) from the capture on disk (the robot loader), fit, then
+    validation against a constant image of the train views' mean colour;
+    -> (report, counts, points)."""
+    from nerf_kinematics_tpu_torch.ops import cuda_lib
+    from nerf_kinematics_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=dev)
+    load_s = time.perf_counter() - t0
+    ds = trainer.dataset
+    state = trainer.engine.init_state()
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    # ---- the main path: training and the held-out renders ------------------
+    t0 = time.perf_counter()
+    res = trainer.fit(state=state)
+    split = trainer.evaluate_split(res.state, "val")
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = dict(cuda_lib.LAUNCHES)
+    points = collections.Counter(cuda_lib.POINTS)
+    # -------------------------------------------------------------------------
+    mean_rgb = ds.images[ds.train_idx].reshape(-1, 3).mean(0)
+    const = [float(-10.0 * np.log10(np.mean((ds.images[int(i)] - mean_rgb) ** 2)))
+             for i in ds.val_idx]
+    losses = np.asarray(res.losses)
+    ms = statistics.median(s / k * 1e3 for k, s in res.chunk_seconds)
+    n_rays = cfg.nerf.num_random_rays
+    t = cfg.nerf.train
+    report = {
+        "engine": cfg.engine, "views": [len(ds.train_idx), len(ds.val_idx)],
+        "image": [ds.W, ds.H], "fl": [ds.intrinsics.fl_x, ds.intrinsics.fl_y],
+        "ndc": ds.use_ndc, "steps": len(losses), "rays_per_step": n_rays,
+        "samples_per_ray": [t.num_coarse, t.num_fine], "load_seconds": load_s,
+        "ms_per_step": ms, "rays_per_s": n_rays / ms * 1e3, "fit_seconds": fit_s,
+        "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+        "loss_first16": float(losses[:16].mean()), "loss_last16": float(losses[-16:].mean()),
+        "val_mean_psnr_db": split["mean_psnr"], "val_psnr_by_view_db": split["per_frame"],
+        "constant_image_psnr_db": float(np.mean(const)),
+        "launches_by_row": by_row(counts, points),
+    }
+    if cfg.engine == "ngp":
+        eng = trainer.engine
+        report["encoder"] = eng.ngp_config.resolved_encoder()
+        report["objective"] = "two-call" if eng.fused_objective_fn(
+            ds.near, ds.far, t) is not None else "autograd"
+    else:
+        from nerf_kinematics_tpu_torch.ops.classic_fused_cuda import fused_supported
+
+        report["route"] = "fused" if trainer.engine.cf_apply_fns()[0] is not None \
+            else "module"
+        report["route_why"] = {
+            net: f"fused_supported={fused_supported(m.config)} (use_viewdirs "
+                 f"{m.config.use_viewdirs}, skip_connect_every "
+                 f"{m.config.skip_connect_every}, trunk_depth {m.config.trunk_depth})"
+            for net, m in (("coarse", trainer.engine.model_coarse),
+                           ("fine", trainer.engine.model_fine)) if m is not None}
+    if not (np.isfinite(losses).all() and np.isfinite(split["mean_psnr"])):
+        raise AssertionError(f"robot ({cfg.experiment.id}): non-finite loss or PSNR")
+    trainer.close()
+    return report, counts, points
+
+
+def phase_robot(dev, quick: bool):
+    """The robot path on the card: two FK captures written here (the ring, 48
+    poses around the object; the slide, 11 poses on a line looking down, the
+    wheel capture's geometry) from the machina field at the D405's size;
+    the converter's command line on both; parallax on both; the robot
+    loader against the rendered poses; configs/wheel_ngp.yml as shipped on
+    the ring (the two-call step: rows 1, 2, 7 with 5 inside, 4 in the
+    occupancy sweeps) and configs/wheel_robot.yml (classic, NDC: rows 9,
+    10) on the slide, each with its steps cut; cli/full_pipeline.py on the
+    ring, then on the slide without the mesh."""
+    import subprocess
+
+    from nerf_kinematics_tpu_torch.cli import full_pipeline
+    from nerf_kinematics_tpu_torch.data.robot import load_robot
+    from nerf_kinematics_tpu_torch.export.mesh import load_ply
+    from nerf_kinematics_tpu_torch.metrics.parallax import (
+        analyze_transforms_json, summary_table)
+    from nerf_kinematics_tpu_torch.ops import cuda_lib
+    from nerf_kinematics_tpu_torch.train.config import load_config
+
+    report = {"phase": "robot", "quick": quick}
+    total = collections.Counter()
+    all_points = collections.Counter()
+    world = robot_world_poses()
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    with tempfile.TemporaryDirectory() as root:
+        # ---- the captures: FK poses.txt and PNG images at the D405's size -----
+        size, factor, cuts = (ROBOT_SIZE_QUICK, 2, {"size": [ROBOT_SIZE, ROBOT_SIZE_QUICK]}) \
+            if quick else (ROBOT_SIZE, 8, {})
+        caps = {}
+        for name in ("ring", "slide"):
+            caps[name] = os.path.join(root, name)
+            if name == "ring" and not quick:
+                # one frame first (after one that warms the field's kernels
+                # up): at the full size both captures must fit the budget
+                for _ in range(2):
+                    probe = write_fk_capture(os.path.join(root, "probe"), world[name][:1],
+                                             size, dev)
+                if probe["seconds"] * (ROBOT_RING_POSES + ROBOT_SLIDE_POSES) > ROBOT_RENDER_BUDGET_S:
+                    size, factor = ROBOT_SIZE_CUT, 4
+                    cuts["size"] = [ROBOT_SIZE, ROBOT_SIZE_CUT]
+                    cuts["downsample_factor"] = [8, 4]
+                report["render_probe_seconds"] = probe["seconds"]
+            report[f"capture_{name}"] = write_fk_capture(caps[name], world[name], size, dev)
+        report["cuts"] = cuts
+
+        # ---- the converter's command line on both ------------------------------
+        for name, d in caps.items():
+            t0 = time.perf_counter()
+            cmd = [sys.executable, "-m", "nerf_kinematics_tpu_torch.cli.parse_poses",
+                   "--poses", os.path.join(d, "poses.txt"),
+                   "--image_folder", os.path.join(d, "images_robot"),
+                   "--image_ext", "png", "--recenter",
+                   "--output", os.path.join(d, "transforms.json")]
+            out = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=300)
+            if out.returncode != 0:
+                raise AssertionError(f"robot: parse_poses on the {name}: {out.stderr[-2000:]}")
+            files = {k: os.path.join(d, f"transforms{k}.json")
+                     for k in ("", "_val", "_test", "_test_video")}
+            js = {k: json.load(open(p)) for k, p in files.items()}
+            sharp = [f["sharpness"] for f in js[""]["frames"]]
+            report[f"convert_{name}"] = {
+                "seconds": time.perf_counter() - t0, "stdout": out.stdout.splitlines(),
+                "frames": {k or "train": len(v["frames"]) for k, v in js.items()},
+                "aabb_scale": js[""]["aabb_scale"], "w_h": [js[""]["w"], js[""]["h"]],
+                "sharpness_range": [min(sharp), max(sharp)]}
+
+        # ---- parallax on both ----------------------------------------------------
+        metrics = {n: analyze_transforms_json(os.path.join(d, "transforms.json"), n)
+                   for n, d in caps.items()}
+        report["parallax"] = {n: m.as_dict() for n, m in metrics.items()}
+        report["parallax_table"] = summary_table(list(metrics.values())).splitlines()
+
+        # ---- the loader returns the rendered poses up to its similarity ---------
+        loaded = {}
+        for name, d in caps.items():
+            cfg = load_config(copy_config("wheel_ngp.yml", root, basedir=d))
+            ds = load_robot(cfg.dataset)
+            m, k = robot_similarity(world[name])
+            want = np.array(world[name])
+            want[:, :3, 3] = (want[:, :3, 3] - m) * k
+            # the scene's extent (the machina field on the table), in the
+            # loader's coordinates
+            lo = (np.array([-ROBOT_FLOOR_HALF, -ROBOT_FLOOR_HALF, ROBOT_FLOOR_Z]) - m) * k
+            hi = (np.array([ROBOT_FLOOR_HALF, ROBOT_FLOOR_HALF, 0.45]) - m) * k
+            loaded[name] = {
+                "max_abs_pose_err": float(np.abs(ds.poses - want).max()),
+                "object_centre": (-m * k).tolist(),
+                "scene_lo_hi": [lo.tolist(), hi.tolist()],
+                "inside_box": bool(np.abs(np.stack([lo, hi])).max() <= ROBOT_BOX),
+                "fl_x_fl_y": [ds.intrinsics.fl_x, ds.intrinsics.fl_y],
+                "image": [ds.W, ds.H], "split": [len(ds.train_idx), len(ds.val_idx)]}
+        report["loader"] = loaded
+
+        # ---- configs/wheel_ngp.yml as shipped on the ring -------------------------
+        steps = ROBOT_QUICK_STEPS if quick else ROBOT_NGP_STEPS
+        lines = {"basedir": caps["ring"], "logdir": os.path.join(root, "logs"),
+                 "train_iters": steps, "validate_every": 0, "save_every": 0,
+                 "print_every": 0, "downsample_factor": factor}
+        cfg = load_config(copy_config("wheel_ngp.yml", root, **lines))
+        report["wheel_ngp_cuts"] = {
+            "dataset.basedir": ["the wheel capture", "the ring"],
+            "experiment.train_iters": [10000, steps],
+            "experiment.validate_every": [1000, 0], "experiment.save_every": [5000, 0],
+            "experiment.print_every": [500, 0], **({"dataset.downsample_factor": [8, factor]}
+                                                    if factor != 8 else {})}
+        r, counts, points = robot_fit(cfg, dev)
+        total.update(counts)
+        all_points.update(points)
+        report["wheel_ngp_ring"] = r
+
+        # ---- configs/wheel_robot.yml as shipped on the slide (classic, NDC) ------
+        steps = ROBOT_QUICK_STEPS if quick else ROBOT_CLASSIC_STEPS
+        lines = dict(lines, basedir=caps["slide"], train_iters=steps)
+        cfg = load_config(copy_config("wheel_robot.yml", root, **lines))
+        report["wheel_robot_cuts"] = {
+            "dataset.basedir": ["the wheel capture", "the slide"],
+            "experiment.train_iters": [250000, steps],
+            "experiment.validate_every": [100, 0], "experiment.save_every": [5000, 0],
+            "experiment.print_every": [100, 0], **({"dataset.downsample_factor": [8, factor]}
+                                                   if factor != 8 else {})}
+        r, counts, points = robot_fit(cfg, dev)
+        total.update(counts)
+        all_points.update(points)
+        report["wheel_robot_slide"] = r
+
+        # ---- cli/full_pipeline.py on the ring, then on the slide ----------------
+        pipes = {}
+        for name, extra in (("ring", ["--mesh-res", "32" if quick else "256"]
+                             + (["--steps", str(ROBOT_QUICK_STEPS)] if quick else [])),
+                            ("slide", ["--steps", str(ROBOT_QUICK_STEPS if quick
+                                                      else ROBOT_PIPE_SLIDE_STEPS),
+                                       "--skip-mesh"])):
+            out = os.path.join(root, f"pipeline_{name}")
+            argv = ["--capture", caps[name], "--out", out, "--encoder", "cp_pallas",
+                    "--downsample", str(factor), "--device", str(dev), *extra]
+            torch.cuda.synchronize()
+            cuda_lib.reset_launch_counts()
+            t0 = time.perf_counter()
+            rep = full_pipeline.main(argv)
+            torch.cuda.synchronize()
+            total.update(cuda_lib.LAUNCHES)
+            all_points.update(cuda_lib.POINTS)
+            written = sorted(os.listdir(out))
+            ply = os.path.join(out, "scene.ply")
+            pipes[name] = {
+                "argv": argv, "seconds": time.perf_counter() - t0,
+                "stage_seconds": rep["stage_seconds"], "val_psnr_db": rep["val_psnr"],
+                "rays_per_s": rep["rays_per_sec"],
+                "low_parallax_warning": rep["low_parallax_warning"],
+                "directional_std": rep["parallax"]["directional_std"],
+                "video": os.path.basename(rep["video"]) if rep["video"] else None,
+                "files": written,
+                "report_matches_disk": json.load(open(os.path.join(out, "report.json")))
+                == json.loads(json.dumps(rep)),
+                "launches_by_row": by_row(dict(cuda_lib.LAUNCHES), cuda_lib.POINTS)}
+            if os.path.exists(ply):
+                v, f = load_ply(ply)
+                pipes[name]["ply_vertices_triangles"] = [len(v), len(f)]
+        report["full_pipeline"] = pipes
+    report["launches"] = dict(total)
+    emit(report)
+
+    # ---- pass criteria -----------------------------------------------------------
+    fail = []
+    for name in ("ring", "slide"):
+        c = report[f"convert_{name}"]
+        n = len(world[name])
+        if c["frames"] != {"train": n - 1, "_val": 1, "_test": 8, "_test_video": 60}:
+            fail.append(f"converter on the {name}: frames {c['frames']}")
+        if not loaded[name]["max_abs_pose_err"] <= ROBOT_LOADER_TOL:
+            fail.append(f"loader on the {name}: poses {loaded[name]['max_abs_pose_err']}")
+    if not report["parallax"]["slide"]["directional_std"] < ROBOT_LOW_PARALLAX:
+        fail.append("parallax: the slide reads high")
+    if not report["parallax"]["ring"]["directional_std"] > ROBOT_LOW_PARALLAX:
+        fail.append("parallax: the ring reads low")
+    # the ring trains the fast engine, whose box the scene must lie in; the
+    # slide is forward-facing and trains in NDC, which wants it beyond depth 1
+    if not loaded["ring"]["inside_box"]:
+        fail.append(f"the scene leaves the engine's box on the ring: {loaded['ring']}")
+    r = report["wheel_ngp_ring"]
+    rows = r["launches_by_row"]
+    if not r["loss_last16"] < r["loss_first16"]:
+        fail.append(f"wheel_ngp: loss {r['loss_first16']} -> {r['loss_last16']}")
+    if not quick:
+        if not r["val_mean_psnr_db"] >= r["constant_image_psnr_db"] + ROBOT_PSNR_MARGIN_DB:
+            fail.append(f"wheel_ngp: val {r['val_mean_psnr_db']:.2f} dB, constant image "
+                        f"{r['constant_image_psnr_db']:.2f} dB")
+        if not r["val_mean_psnr_db"] >= ROBOT_NGP_FLOOR_DB:
+            fail.append(f"wheel_ngp: val {r['val_mean_psnr_db']:.2f} dB under "
+                        f"{ROBOT_NGP_FLOOR_DB}")
+    if not (r["objective"] == "two-call" and all(rows[f"row {i}"] > 0 for i in (1, 2, 4, 7))
+            and rows["row 5 inside rows 6-8, points"] > 0):
+        fail.append(f"wheel_ngp: {r['objective']}, launches by row {rows}")
+    r = report["wheel_robot_slide"]
+    rows = r["launches_by_row"]
+    if not (r["loss_last16"] < r["loss_first16"]
+            and r["val_mean_psnr_db"] > r["constant_image_psnr_db"]):
+        fail.append(f"wheel_robot: loss {r['loss_first16']} -> {r['loss_last16']}, val "
+                    f"{r['val_mean_psnr_db']} dB, constant {r['constant_image_psnr_db']} dB")
+    if not (r["route"] == "fused" and rows["row 9"] > 0 and rows["row 10"] > 0):
+        fail.append(f"wheel_robot: route {r['route']}, launches by row {rows}")
+    p = report["full_pipeline"]
+    want = {"transforms.json", "transforms_val.json", "transforms_test.json",
+            "transforms_test_video.json", "parallax.json", "report.json", "scene.ply",
+            p["ring"]["video"]}
+    if not (want <= set(p["ring"]["files"])
+            and p["ring"]["ply_vertices_triangles"][0] > 0
+            and not p["ring"]["low_parallax_warning"] and p["ring"]["report_matches_disk"]):
+        fail.append(f"full_pipeline on the ring: {p['ring']}")
+    if not (p["slide"]["low_parallax_warning"] and "scene.ply" not in p["slide"]["files"]):
+        fail.append(f"full_pipeline on the slide: {p['slide']}")
+    if fail:
+        raise AssertionError(f"robot: {fail}")
     return total, all_points
 
 
@@ -3141,6 +3803,8 @@ def main(argv=None) -> int:
         add(phase_classic(fx, dev, args.quick, engine, aux, args.profile))
     if "halo" in phases:
         add(phase_halo(dev, args.quick))
+    if "robot" in phases:
+        add(phase_robot(dev, args.quick))
     with tempfile.TemporaryDirectory() as work:
         # machina400, generated in the scene phase (or here, for a subset
         # without it) and used by the cli and bench phases

@@ -14,9 +14,11 @@ NDC rays, legacy checkpoints. The blender, llff and instant-ngp loaders,
 the command lines (``cli/run_nerf.py``, ``cli/ngp_run.py``,
 ``cli/plot_metrics.py``, ``cli/make_scene.py``), snapshots and the bench
 (``python -m nerf_kinematics_tpu_torch.bench``); the synthetic scenes and
-orbit poses, the hash encoder, contracted scenes and mesh export. The pose
-tools, the robot loader and multi-GPU training come in later slices
-(``ROADMAP.md``).
+orbit poses, the hash encoder, contracted scenes and mesh export; the robot
+path: the pose converter (``poses/``, ``cli/parse_poses.py``), the robot
+loader (``data/robot.py``), the parallax diagnosis (``metrics/parallax.py``)
+and the full pipeline (``cli/full_pipeline.py``). COLMAP import, SfM, pose
+refinement and multi-GPU training come in later slices (``ROADMAP.md``).
 """
 
 from ._device import resolve_device

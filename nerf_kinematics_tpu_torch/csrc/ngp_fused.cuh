@@ -25,9 +25,18 @@
 //    bf16 tensor-core peak; the products no longer bound the kernels, the
 //    table gathers and (with SAVE) the saved activations do.
 //  * f32 mode: nkt_fused_body below, one thread per point with the layer's
-//    accumulators in registers and all layers' f32 weights staged once per
-//    block (one persistent block per SM), every weight read a broadcast
-//    16-byte load, the products on the f32 FMA pipe.
+//    accumulators in registers, the products on the f32 FMA pipe, every
+//    weight read a broadcast 16-byte load from shared memory (one persistent
+//    block per SM). Layers 1.. are staged once per block. The first layer
+//    is fed by the encoder level by level (level l's C features meet rows
+//    [l C, (l + 1) C) of W0). W0 is staged whole, once, where the config's
+//    largest f32 launch fits with it (the flagship's 256 x 64); otherwise
+//    one level's slice at a time: cp.async copies the next level's slice
+//    into the second of two buffers while the block works on the current
+//    one (a barrier a level). Whole, fox_ngp.yml's encoder (L 5, C 96: 480
+//    x 64 floats) asked for 280 320 B, above the 232 448 B a block may use;
+//    sliced, its largest launch (the per-point backward) asks for 206 848 B.
+//    Slicing the flagship too made rows 2 and 3 5-7 % slower (PERF.md).
 //
 // With SAVE the body also writes every layer's (rounded) input into a
 // (rows, ld) scratch array in device memory (bf16 in bf16 mode, f32 in f32
@@ -40,6 +49,8 @@
 #define NKT_THREADS 256
 #define NKT_W 64          // widest layer the kernels take; smem row stride
 #define NKT_MAX_LAYERS 8  // per MLP
+#define NKT_HS 257        // column stride of the f32 backward's per-thread buffer
+#define NKT_SMEM_MAX 232448  // bytes of shared memory a block may use
 
 // Mirrors ops/cuda_lib.py::FusedArgs field for field.
 struct FusedArgs {
@@ -105,13 +116,28 @@ struct BwdArgs {
 
 // Offsets (in floats) into dynamic shared memory.
 struct FusedLayout {
-  int w_off[2 * NKT_MAX_LAYERS];  // layer weights, [in][NKT_W], zero padded
+  int w_off[2 * NKT_MAX_LAYERS];  // layer weights, [in][NKT_W], zero padded;
+                                  // layer 0: the first of its slice buffers
   int b_off[2 * NKT_MAX_LAYERS];  // layer bias, [NKT_W]
+  int slice;                      // floats of one slice of W0, [rows][NKT_W]
+  int n_slices;                   // 1: W0 whole, staged once; else the levels
   int hs_off;                     // per-thread columns, [NKT_W][stride]
   int total;
 };
 
-// hs_floats: size of the per-thread column buffer behind the weights.
+// True when the config's largest f32 launch (the per-point backward: every
+// layer, columns of stride NKT_HS) fits with W0 whole; then every f32 launch
+// of the config stages W0 whole, else every one stages it by level.
+static bool w0_whole(const FusedArgs& a) {
+  long long f = (long long)a.cp.n_levels * a.cp.n_comp * NKT_W + NKT_W * NKT_HS;
+  for (int li = 0; li < a.nd + a.nc; ++li)
+    f += (li ? (li < a.nd ? a.d_in[li] : a.c_in[li - a.nd]) * NKT_W : 0) + NKT_W;
+  return f * (long long)sizeof(float) <= NKT_SMEM_MAX;
+}
+
+// hs_floats: size of the per-thread column buffer behind the weights. W0
+// takes one buffer when staged whole, two otherwise (level l's slice in
+// buffer g & 1, g counting the slices a block has used).
 static FusedLayout make_layout(const FusedArgs& a, bool color,
                                int hs_floats = NKT_W * NKT_THREADS) {
   FusedLayout lay;
@@ -121,10 +147,13 @@ static FusedLayout make_layout(const FusedArgs& a, bool color,
     lay.w_off[li] = 0;
     lay.b_off[li] = 0;
   }
+  const bool whole = w0_whole(a);
+  lay.n_slices = whole ? 1 : a.cp.n_levels;
+  lay.slice = (whole ? a.cp.n_levels : 1) * a.cp.n_comp * NKT_W;
   for (int li = 0; li < nl; ++li) {
     const int in = li < a.nd ? a.d_in[li] : a.c_in[li - a.nd];
     lay.w_off[li] = off;
-    off += in * NKT_W;
+    off += li == 0 ? (lay.n_slices > 1 ? 2 : 1) * lay.slice : in * NKT_W;
     lay.b_off[li] = off;
     off += NKT_W;
   }
@@ -182,8 +211,9 @@ static SaveRows make_rows(const FusedArgs& a) {
   return r;
 }
 
-// Stage the first nl layers' weights (rounded when bf) and biases into
-// shared memory; the caller synchronises the block afterwards.
+// Stage layers [1, nl)'s weights (rounded when bf) and every layer's bias
+// into shared memory; W0 comes in slices (nkt_stage_slice). The caller
+// synchronises the block afterwards.
 __device__ __forceinline__ void nkt_stage_weights(const FusedArgs& a,
                                                   const FusedLayout& lay,
                                                   int nl, bool bf,
@@ -197,7 +227,7 @@ __device__ __forceinline__ void nkt_stage_weights(const FusedArgs& a,
     const int out = dens ? a.d_out[li] : a.c_out[li - a.nd];
     float* sw = smem + lay.w_off[li];
     float* sb = smem + lay.b_off[li];
-    for (int e = tid; e < in * NKT_W; e += NKT_THREADS) {
+    for (int e = tid; li > 0 && e < in * NKT_W; e += NKT_THREADS) {
       const int k = e / NKT_W;
       const int j = e - k * NKT_W;
       float v = 0.0f;
@@ -209,6 +239,69 @@ __device__ __forceinline__ void nkt_stage_weights(const FusedArgs& a,
     }
     for (int j = tid; j < NKT_W; j += NKT_THREADS) sb[j] = j < out ? B[j] : 0.0f;
   }
+}
+
+// 4-byte asynchronous copy global -> shared; bytes 0 writes a zero (nothing
+// is read, src only has to be a valid address).
+__device__ __forceinline__ void nkt_cp_async4(float* dst, const float* src,
+                                              int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void nkt_cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void nkt_cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start copying a slice of W0 from level l's rows on (one level's C rows,
+// or all of W0 when staged whole) into buf ([rows][NKT_W], zero padded) as
+// one cp.async group.
+__device__ __forceinline__ void nkt_stage_slice(const FusedArgs& a,
+                                                const FusedLayout& lay, int l,
+                                                float* buf) {
+  const int out = a.d_out[0];
+  const float* W = a.dW[0] + (long long)l * a.cp.n_comp * out;
+  for (int e = threadIdx.x; e < lay.slice; e += NKT_THREADS) {
+    const int k = e / NKT_W;
+    const int j = e - k * NKT_W;
+    nkt_cp_async4(buf + e, j < out ? W + k * out + j : W, j < out ? 4 : 0);
+  }
+  nkt_cp_commit();
+}
+
+// Wait for this thread's copies, round them when bf, and make the block's
+// copies visible to every thread.
+__device__ __forceinline__ void nkt_slice_ready(const FusedLayout& lay,
+                                                bool bf, float* buf) {
+  nkt_cp_wait<0>();
+  if (bf)
+    for (int e = threadIdx.x; e < lay.slice; e += NKT_THREADS)
+      buf[e] = nkt_bf16r(buf[e]);
+  __syncthreads();
+}
+
+// W0's rows of level l, the g-th level a block uses. Staged by level: before
+// reading them the block waits for their copy and starts the copy of the
+// next level's slice into the other buffer, which every thread is done with
+// after this barrier. Slice 0 (of g = 0, or W0 whole) was staged and made
+// ready before the loop.
+__device__ __forceinline__ const float* nkt_level_weights(
+    const FusedArgs& a, const FusedLayout& lay, int l, long long g, bool bf,
+    float* smem) {
+  float* buf0 = smem + lay.w_off[0];
+  if (lay.n_slices == 1) return buf0 + l * a.cp.n_comp * NKT_W;
+  float* cur = buf0 + (g & 1) * lay.slice;
+  if (g > 0) nkt_slice_ready(lay, bf, cur);
+  nkt_stage_slice(a, lay, l + 1 < lay.n_slices ? l + 1 : 0,
+                  buf0 + ((g + 1) & 1) * lay.slice);
+  return cur;
 }
 
 // acc[0..NOUT) = sum_k hs[k] * W[k][0..NOUT): the thread's activations come
@@ -300,20 +393,25 @@ __device__ __forceinline__ void nkt_fused_body(const FusedArgs& a,
   const int tid = threadIdx.x;
   const bool bf = a.cp.use_bf16 != 0;
 
-  // ---- stage every layer's weights (rounded) and bias once per block ----
+  // ---- stage layers 1.. (rounded) and the biases once per block, W0's
+  // first slice ----
+  nkt_stage_slice(a, lay, 0, smem + lay.w_off[0]);
   nkt_stage_weights(a, lay, COLOR ? a.nd + a.nc : a.nd, bf, smem);
-  __syncthreads();
+  nkt_slice_ready(lay, bf, smem + lay.w_off[0]);
 
   float* hs = smem + lay.hs_off + tid;  // this thread's column
   const int C = a.cp.n_comp;
   const int T = a.cp.table;
   const long long n = a.n;
   const unsigned pois_levels = nkt_poison_levels(a.cp);
+  long long g = 0;  // W0's slices this block has used
 
+  // Every thread of the block runs every batch (the slices' barriers); a
+  // thread past the end computes point 0 again and writes nothing.
   for (long long base = (long long)blockIdx.x * NKT_THREADS; base < n;
        base += (long long)gridDim.x * NKT_THREADS) {
-    const long long i = base + tid;
-    if (i >= n) continue;
+    const bool valid = base + tid < n;
+    const long long i = valid ? base + tid : 0;
 
     float acc[NKT_W];
 #pragma unroll
@@ -321,8 +419,8 @@ __device__ __forceinline__ void nkt_fused_body(const FusedArgs& a,
 
     // ---- density layer 0, fed by the encoder four channels at a time ----
     const float px = a.xt[i], py = a.xt[n + i], pz = a.xt[2 * n + i];
-    const float* sw0 = smem + lay.w_off[0];
-    for (int l = 0; l < a.cp.n_levels; ++l) {
+    for (int l = 0; l < a.cp.n_levels; ++l, ++g) {
+      const float* sw0 = nkt_level_weights(a, lay, l, g, bf, smem);
       const NktTaps tx = nkt_taps(px, a.cp, l, 0);
       const NktTaps ty = nkt_taps(py, a.cp, l, 1);
       const NktTaps tz = nkt_taps(pz, a.cp, l, 2);
@@ -368,8 +466,9 @@ __device__ __forceinline__ void nkt_fused_body(const FusedArgs& a,
           }
           float ev = (ux * uy) * uz;
           if (bf) ev = nkt_bf16r(ev);
-          const int ch = l * C + c4 * 4 + q;
-          if (SAVE) act[(long long)(rows.d_row[0] + ch) * n + i] = ev;
+          const int ch = c4 * 4 + q;
+          if (SAVE && valid)
+            act[(long long)(rows.d_row[0] + l * C + ch) * n + i] = ev;
           const float4* w = reinterpret_cast<const float4*>(sw0 + ch * NKT_W);
 #pragma unroll
           for (int j4 = 0; j4 < NKT_W / 4; ++j4) {
@@ -382,6 +481,7 @@ __device__ __forceinline__ void nkt_fused_body(const FusedArgs& a,
         }
       }
     }
+    if (!valid) continue;  // no barrier below
     // A layer's output is the next layer's input; the last density layer's
     // is the first part of the color MLP's input.
     for (int li = 0; li < a.nd; ++li) {
@@ -427,4 +527,5 @@ __device__ __forceinline__ void nkt_fused_body(const FusedArgs& a,
     }
     a.out[3 * n + i] = sigma;
   }
+  nkt_cp_wait<0>();  // the last prefetch
 }

@@ -58,7 +58,6 @@
 //    registers across its tiles).
 #include "nkt_mma.cuh"
 
-#define NKT_HS 257     // column stride of the backward's per-thread buffer
 #define NKT_TP 32      // points per tile of the weight-gradient kernel
 #define NKT_AS 33      // row stride of its input tile (no bank conflicts)
 #define NKT_MAX_Q 16   // groups of four entries one thread may own there
@@ -199,14 +198,17 @@ __global__ void __launch_bounds__(NKT_THREADS, 1)
   const int warp0 = tid & ~31;
   const bool bf = a.cp.use_bf16 != 0;
 
+  nkt_stage_slice(a, lay, 0, smem + lay.w_off[0]);
   nkt_stage_weights(a, lay, a.nd + a.nc, bf, smem);
-  __syncthreads();
+  nkt_slice_ready(lay, bf, smem + lay.w_off[0]);
 
   // The thread's column, stride NKT_HS: a warp only ever touches its own 32
-  // columns, so the loop below needs no block-wide synchronisation.
+  // columns, so only W0's slices (nkt_level_weights) need block-wide
+  // barriers, and every thread runs every batch.
   float* hs = smem + lay.hs_off + tid;
   const int C = a.cp.n_comp;
   const long long n = a.n;
+  long long gsl = 0;  // W0's slices this block has used
 
   for (long long base = (long long)blockIdx.x * NKT_THREADS; base < n;
        base += (long long)gridDim.x * NKT_THREADS) {
@@ -249,22 +251,27 @@ __global__ void __launch_bounds__(NKT_THREADS, 1)
         g[j] = j < a.d_in[li] ? hs[j * NKT_HS] : 0.0f;
     }
 
-    // ---- encoder: d_enc = W0 g one level at a time, to denc -------------
+    // ---- encoder: d_enc = W0 g one level at a time (at most NKT_W
+    // channels at once through the columns), to denc ---------------------
     const long long LC = (long long)a.cp.n_levels * C;
-    for (int l = 0; l < a.cp.n_levels; ++l) {
-      nkt_dense_t_any(smem + lay.w_off[0] + (l * C) * NKT_W, g, C, a.d_out[0],
-                      hs);
-      __syncwarp();
-      for (int pp = 0; pp < 32; ++pp) {
-        const long long ip = base + warp0 + pp;
-        if (ip >= n) break;  // the same for the whole warp
-        const float* col = smem + lay.hs_off + warp0 + pp;
-        for (int c = lane; c < C; c += 32)
-          b.denc[ip * LC + l * C + c] = col[c * NKT_HS];
+    for (int l = 0; l < a.cp.n_levels; ++l, ++gsl) {
+      const float* sw0 = nkt_level_weights(a, lay, l, gsl, bf, smem);
+      for (int c0 = 0; c0 < C; c0 += NKT_W) {
+        const int cw = C - c0 < NKT_W ? C - c0 : NKT_W;
+        nkt_dense_t_any(sw0 + c0 * NKT_W, g, cw, a.d_out[0], hs);
+        __syncwarp();
+        for (int pp = 0; pp < 32; ++pp) {
+          const long long ip = base + warp0 + pp;
+          if (ip >= n) break;  // the same for the whole warp
+          const float* col = smem + lay.hs_off + warp0 + pp;
+          for (int c = lane; c < cw; c += 32)
+            b.denc[ip * LC + l * C + c0 + c] = col[c * NKT_HS];
+        }
+        __syncwarp();
       }
-      __syncwarp();
     }
   }
+  nkt_cp_wait<0>();  // the last prefetch
 }
 
 // ---------------------------------------------------------------------------
@@ -426,7 +433,7 @@ __global__ void __launch_bounds__(NKT_MMA_MAX_WARPS * 32, 1)
 
 // partial[w_off + k * J + j] = sum over the block's tiles of bf16(A[k][p]) *
 // bf16(G[j][p]) (no rounding when bf is 0); partial[b_off + j] = sum of
-// G[j][p]. A: (K, n) layer input (the NGP kernels save it rounded already,
+// G[j][p] (b_off < 0: no bias). A: (K, n) layer input (the NGP kernels save it rounded already,
 // the classic kernels in f32), G: (J, n) masked f32 cotangent. The thread owns groups
 // of four consecutive j: group q = tid + 256 * i is k = q / J4, j4 = q % J4.
 // UNIFORM: J4 divides 256, so j4 is the same for all of a thread's groups.
@@ -513,7 +520,7 @@ __global__ void __launch_bounds__(NKT_THREADS)
         if (j + c < J) mine[w_off + k * J + j + c] = acc[i][c];
     }
   }
-  if (tid < J) mine[b_off + tid] = dbacc;
+  if (tid < J && b_off >= 0) mine[b_off + tid] = dbacc;
 }
 
 __global__ void nkt_reduce_partials_kernel(const float* __restrict__ partial,
@@ -774,16 +781,7 @@ static size_t wgrad_smem(int K, int J) {
   return (size_t)(nkt_as_floats(K) + 2 * NKT_TP * JP) * sizeof(float);
 }
 
-static bool dims_ok(const FusedArgs& a) {
-  if (a.cp.n_comp > NKT_W || a.cp.n_comp % 4) return false;
-  for (int li = 0; li < a.nd; ++li)
-    if (a.d_in[li] * ((a.d_out[li] + 3) / 4) > NKT_MAX_Q * NKT_THREADS)
-      return false;
-  for (int li = 0; li < a.nc; ++li)
-    if (a.c_in[li] * ((a.c_out[li] + 3) / 4) > NKT_MAX_Q * NKT_THREADS)
-      return false;
-  return true;
-}
+static bool dims_ok(const FusedArgs& a) { return a.cp.n_comp % 4 == 0; }
 
 #define NKT_CHECK(expr)                        \
   do {                                         \
@@ -804,25 +802,35 @@ extern "C" int nkt_wgrad_launch(const float* A, const float* G, long long n,
       return (int)cudaErrorInvalidValue;
     return wg_launch<false>(p, partial, blocks, (cudaStream_t)stream);
   }
-  if (K * ((J + 3) / 4) > NKT_MAX_Q * NKT_THREADS)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t bytes = wgrad_smem(K, J);
+  // A thread owns at most NKT_MAX_Q groups: a wider layer (fox_ngp.yml's
+  // first, 480 x 64) goes in launches of at most kc input rows, the bias
+  // with the first.
   const int J4 = (J + 3) / 4;
-  if (NKT_THREADS % J4 == 0) {
-    NKT_CHECK(cudaFuncSetAttribute(nkt_wgrad_kernel<true>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)bytes));
-    nkt_wgrad_kernel<true><<<blocks, NKT_THREADS, bytes, st>>>(
-        A, G, n, K, J, bf, partial, total, w_off, b_off);
-  } else {
-    NKT_CHECK(cudaFuncSetAttribute(nkt_wgrad_kernel<false>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)bytes));
-    nkt_wgrad_kernel<false><<<blocks, NKT_THREADS, bytes, st>>>(
-        A, G, n, K, J, bf, partial, total, w_off, b_off);
+  const int kc = NKT_MAX_Q * NKT_THREADS / J4;
+  if (kc < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool uniform = NKT_THREADS % J4 == 0;
+  for (int k0 = 0; k0 < K; k0 += kc) {
+    const int Kc = K - k0 < kc ? K - k0 : kc;
+    const size_t bytes = wgrad_smem(Kc, J);
+    const float* Ak = A + (long long)k0 * n;
+    const int wo = w_off + k0 * J, bo = k0 == 0 ? b_off : -1;
+    if (uniform) {
+      NKT_CHECK(cudaFuncSetAttribute(nkt_wgrad_kernel<true>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)bytes));
+      nkt_wgrad_kernel<true><<<blocks, NKT_THREADS, bytes, st>>>(
+          Ak, G, n, Kc, J, bf, partial, total, wo, bo);
+    } else {
+      NKT_CHECK(cudaFuncSetAttribute(nkt_wgrad_kernel<false>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)bytes));
+      nkt_wgrad_kernel<false><<<blocks, NKT_THREADS, bytes, st>>>(
+          Ak, G, n, Kc, J, bf, partial, total, wo, bo);
+    }
+    NKT_CHECK(cudaGetLastError());
   }
-  return (int)cudaGetLastError();
+  return (int)cudaSuccess;
 }
 
 // flat = the sum of the first `blocks` rows of partial, in row order.

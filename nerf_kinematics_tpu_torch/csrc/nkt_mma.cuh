@@ -34,7 +34,6 @@
 #define NKT_TAP_BYTES (NKT_MT * 3 * 12)  // a warp's taps of a level (NktTapS)
 #define NKT_LIST_CAP 64               // values a warp sums again together
 #define NKT_LIST_BYTES (NKT_LIST_CAP * 2)
-#define NKT_SMEM_MAX 232448           // bytes of shared memory a block may use
 
 __device__ __forceinline__ uint32_t nkt_pack2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -349,22 +348,14 @@ __device__ __forceinline__ void nkt_save_tile(const uint32_t* tile, int lde,
 }
 
 // 16-byte asynchronous copy global -> shared; bytes < 16 zero-fills the
-// rest (0: nothing is read, src only has to be a valid address).
+// rest (0: nothing is read, src only has to be a valid address). Commit
+// and wait: nkt_cp_commit / nkt_cp_wait of ngp_fused.cuh.
 __device__ __forceinline__ void nkt_cp_async16(void* dst, const void* src,
                                                int bytes) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(bytes)
                : "memory");
-}
-
-__device__ __forceinline__ void nkt_cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void nkt_cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Grid of a persistent kernel: enough blocks for the work, at most as many

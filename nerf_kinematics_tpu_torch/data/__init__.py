@@ -1,9 +1,8 @@
 """Dataset loaders, keyed by the config's ``dataset.type``: ``blender``
 (nerf_synthetic layout), ``llff`` (forward-facing, NDC), ``ngp``
-(instant-ngp transforms.json) and ``synthetic`` (the procedural sphere,
-rendered on the given device) are ported; the ``robot`` (forward-kinematics
-capture) type raises ``NotImplementedError`` naming the ROADMAP item it
-waits for.
+(instant-ngp transforms.json), ``robot`` (a forward-kinematics capture:
+``poses.txt`` and indexed images) and ``synthetic`` (the procedural sphere,
+rendered on the given device).
 
 Counterpart of ``nerf_kinematics_tpu/data/__init__.py``.
 """
@@ -11,24 +10,16 @@ Counterpart of ``nerf_kinematics_tpu/data/__init__.py``.
 from .blender import load_blender
 from .llff import load_llff
 from .ngp_transforms import load_ngp_transforms
+from .robot import load_robot
 from .synthetic import make_synthetic_scene
 from .types import NerfDataset
-
-
-def _waits(kind: str, item: str):
-    def loader(cfg, **kw):
-        raise NotImplementedError(
-            f"dataset.type {kind!r} is not ported yet (ROADMAP {item})")
-
-    return loader
 
 
 LOADERS = {
     "blender": load_blender,
     "llff": load_llff,
     "ngp": load_ngp_transforms,
-    # the robot capture needs the pose tools
-    "robot": _waits("robot", "A.8: poses"),
+    "robot": load_robot,
     "synthetic": make_synthetic_scene,
 }
 
@@ -57,4 +48,4 @@ def load_dataset(cfg, *, white_background: bool = False, device=None) -> NerfDat
 
 
 __all__ = ["NerfDataset", "LOADERS", "load_dataset", "load_blender", "load_llff",
-           "load_ngp_transforms", "make_synthetic_scene"]
+           "load_ngp_transforms", "load_robot", "make_synthetic_scene"]

@@ -196,6 +196,20 @@ def read_image_u8(path: str) -> np.ndarray:
     return arr[:, :, None] if arr.ndim == 2 else arr
 
 
+def image_size(path: str) -> tuple:
+    """(width, height) of an image file: a PNG's from its IHDR chunk,
+    anything else's through Pillow."""
+    if _is_png(path):
+        with open(path, "rb") as f:
+            head = f.read(24)
+        if head[:8] != _SIGNATURE or head[12:16] != b"IHDR":
+            raise ValueError(f"{path}: not a PNG")
+        w, h = struct.unpack(">II", head[16:24])
+        return int(w), int(h)
+    with _pillow().open(path) as im:
+        return im.size
+
+
 def to_rgb(img: np.ndarray) -> np.ndarray:
     """Gray / gray + alpha / RGB / RGBA uint8 -> RGB (alpha dropped), as
     Pillow's ``convert("RGB")``."""
@@ -356,8 +370,13 @@ def _lanczos_matrix(in_size: int, out_size: int) -> np.ndarray:
 
 
 def _pass(img: np.ndarray, m: np.ndarray, axis: int) -> np.ndarray:
-    acc = np.tensordot(img.astype(np.int64), m, axes=([axis], [1]))
-    acc = np.moveaxis(acc, -1, axis) + (1 << (_PRECISION_BITS - 1))
+    # In float64 every product and partial sum is an integer below 2^53
+    # (255 x 2^23 a tap, under 2^16 taps), so a BLAS product gives the
+    # integer sum exactly, in any order, and several times faster than an
+    # int64 tensordot.
+    x = np.ascontiguousarray(np.moveaxis(img, axis, -1), dtype=np.float64)
+    acc = x @ np.ascontiguousarray(m.T, dtype=np.float64)
+    acc = np.moveaxis(acc, -1, axis).astype(np.int64) + (1 << (_PRECISION_BITS - 1))
     return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
 
 

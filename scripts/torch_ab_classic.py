@@ -6,7 +6,8 @@ line-table gradient at the flagship step's 393 216 points; bf16, and in
 turns f32 too), row 1 (the hull lookup at 2.56 M points and at the two-call
 step's 524 288), rows 2 and 3 (the fused forwards at a 400^2 frame's
 10.24 M and 20.48 M points), rows 6 and 7 (the fused gradients at the step's
-393 216 points), row 8 (the fast engine's whole-step kernel), the
+393 216 points; rows 2, 3, 6 and 7 in f32 mode too, the FMA bodies),
+row 8 (the fast engine's whole-step kernel), the
 ``fused_train: full`` train step and the two-call train step (rows 7 and 2).
 
     git archive <rev> nerf_kinematics_tpu_torch | tar -x -C build/ab_parent
@@ -95,7 +96,8 @@ def _kernel_rows(cs, dev) -> dict:
     10 at the classic step's fine pass (f32); rows 4 and 5 at the occupancy
     sweep's 96^3 and the flagship step's 393 216 points, rows 6-8 at the
     step's shapes, row 1 at 2.56 M points and at the two-call step's 524 288,
-    rows 3 and 2 at a 400^2 frame's 20.48 M and 10.24 M points (bf16)."""
+    rows 3 and 2 at a 400^2 frame's 20.48 M and 10.24 M points (bf16); rows
+    2, 3, 6 and 7 in f32 mode too (rows 2 and 3 at 10.24 M points)."""
     import dataclasses
 
     import torch
@@ -129,7 +131,7 @@ def _kernel_rows(cs, dev) -> dict:
     e = NGPEngine(fx.config, 1.0, device=dev)
     e.load_flax_params(fx.params)
     p8, c8 = e._fused_params(detach=True), e.ngp_config.cp
-    c32 = dataclasses.replace(c8, use_bf16=False)  # rows 4 and 5's f32 instances
+    c32 = dataclasses.replace(c8, use_bf16=False)  # the f32 instances and bodies
     gen = torch.Generator(device=dev).manual_seed(4321)
     x4 = cs.random_points(ngp.occ_resolution ** 3, gen, dev)[0].T.contiguous()
     x5 = cs.random_points(R * S, gen, dev)[0].T.contiguous()
@@ -139,6 +141,7 @@ def _kernel_rows(cs, dev) -> dict:
     x1s = x1[:, : R * 64].contiguous()
     xf, vf = cs.random_points(160000 * 128, gen, dev)
     xf2 = xf[:, : 160000 * 64].contiguous()
+    vf2 = vf[:, : 160000 * 64].contiguous()
     x6, v6 = cs.random_points(R * S, gen, dev)
     g6 = torch.randn((4, R * S), generator=gen, device=dev)
     g6[3] *= 1e-3
@@ -162,6 +165,11 @@ def _kernel_rows(cs, dev) -> dict:
         "row2_ms": lambda: ngp_fused_sigma_cf(p8, xf2, c8),
         "row6_ms": lambda: ngp_fused_apply_cf_bwd(p8, x6, v6, g6, c8),
         "row7_ms": lambda: ngp_fused_train_cf(p8, x6, v6, dists, tgt, c8, S, True, inv),
+        # f32 mode: the FMA bodies (W0 staged level by level), row 3 at 10.24 M
+        "row2_f32_ms": lambda: ngp_fused_sigma_cf(p8, xf2, c32),
+        "row3_f32_ms": lambda: ngp_fused_apply_cf(p8, xf2, vf2, c32),
+        "row6_f32_ms": lambda: ngp_fused_apply_cf_bwd(p8, x6, v6, g6, c32),
+        "row7_f32_ms": lambda: ngp_fused_train_cf(p8, x6, v6, dists, tgt, c32, S, True, inv),
         # not timed in turns: the plain version, and the parts by kernel
         "row10_plain": lambda: cfc.classic_fused_apply_cf_bwd_ref(prm, xt, vd, g4, mcfg),
     }

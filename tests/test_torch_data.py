@@ -278,8 +278,13 @@ def test_dataset_cache_round_trip(written, tmp_path):
     _same_dataset(again, first)
     _same_dataset(jcache.load_cached(path), first)
     assert tcache.load_cached(str(tmp_path / "missing.npz")) is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LOADERS["robot"](tc)
+    # the robot loader is ported: a capture's poses.txt and indexed images
+    from test_torch_poses import slide_poses, write_capture
+
+    cap = write_capture(tmp_path / "capture", slide_poses(10), size=(16, 8), seed=1)
+    rob = LOADERS["robot"](tc.__class__(type="robot", basedir=cap, downsample_factor=2))
+    assert rob.images.shape == (10, 4, 8, 3) and list(rob.val_idx) == [0, 8]
+    assert rob.render_poses.shape == (60, 4, 4) and rob.use_ndc is False
     # the synthetic scenes are ported: the sphere at the config's near / far
     syn = LOADERS["synthetic"](tc.__class__(type="synthetic", near=0.5, far=3.5),
                                n_views=3, resolution=8, device="cpu")

@@ -41,7 +41,10 @@ def _port_files():
                 "utils/guards.py", "utils/profiling.py", "utils/flops.py",
                 "bench.py", "train/config.py", "poses/__init__.py", "poses/orbit.py",
                 "data/synthetic.py", "rendering/render_buffer.py", "ops/contraction.py",
-                "ops/hashgrid.py", "export/__init__.py", "export/mesh.py"):
+                "ops/hashgrid.py", "export/__init__.py", "export/mesh.py",
+                "poses/parser.py", "poses/normalize.py", "poses/sharpness.py",
+                "poses/camera_path.py", "poses/pipeline.py", "data/robot.py",
+                "metrics/parallax.py", "cli/parse_poses.py", "cli/full_pipeline.py"):
         assert f"nerf_kinematics_tpu_torch/{new}" in names
     return files
 

@@ -163,14 +163,21 @@ def test_fit_resumes_and_uneven_cadence(tmp_path):
 def test_what_the_trainer_does_not_load_yet(tmp_path):
     """Without a dataset the trainer loads ``cfg.dataset`` from disk
     (tests/test_torch_data.py trains so) or makes the synthetic scene on
-    its device; the loader still to port says so and names its ROADMAP
-    item."""
+    its device. Every loader is ported: a robot capture (poses.txt and
+    indexed images) loads too, with the D405's two focal lengths."""
     import dataclasses
 
+    from test_torch_poses import ring_poses, write_capture
+
     cfg = tcfg.config_from_dict(_raw(tmp_path))
-    c = cfg.replace(dataset=dataclasses.replace(cfg.dataset, type="robot"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(c, device="cpu")
+    cap = write_capture(tmp_path / "capture", ring_poses(9), size=(24, 16), missing=(4,),
+                        extra=1)
+    c = cfg.replace(dataset=dataclasses.replace(cfg.dataset, type="robot", basedir=cap))
+    rob = Trainer(c, device="cpu")
+    assert rob.dataset.images.shape == (9, 16, 24, 3) and rob.images.shape[0] == 7
+    assert rob.dataset.aabb_scale == 2.0 and rob.engine.scene_bound == 1.0
+    assert rob.dataset.intrinsics.fl_x != rob.dataset.intrinsics.fl_y
+    rob.close()
     c = cfg.replace(dataset=dataclasses.replace(cfg.dataset, type="synthetic"))
     syn = Trainer(c, device="cpu")  # the sphere, 12 views of 64 px, on the CPU
     assert syn.dataset.images.shape == (12, 64, 64, 3) and syn.images.shape[0] == 10
