@@ -50,6 +50,15 @@ width through the entry points a user calls:
     slide from the robot loader, each against a constant image; and
     ``cli/full_pipeline.py`` on both (the low-parallax warning on the
     slide only);
+  * the other pose sources: a COLMAP text model of the ring's known poses
+    through ``cli/colmap2nerf.py`` (the poses back up to one similarity),
+    the bundle adjustment at a fox49-sized problem (49 cameras, 5000
+    points, 3000 iterations on the card, the focal-optimising call held
+    against the same call on the CPU), the SfM front-end
+    (``cli/sfm2nerf.py``) where cv2 imports, on the ring's poses over
+    tests/test_sfm.py's sprite scene, and photometric refinement of a
+    perturbed held-out pose and of five perturbed training poses against
+    the ring's ``wheel_ngp`` field (row 1 places every step's samples);
   * the command lines on machina400, with ``configs/*.yml`` read by the
     port's own YAML reader: ``cli/ngp_run.py`` trains 512 steps from
     ``configs/machina_ngp.yml``, saves a snapshot, reloads it (the val PSNR
@@ -105,7 +114,7 @@ from nerf_kinematics_tpu_torch.bench import nvidia_smi_line
 from nerf_kinematics_tpu_torch.utils.flops import PEAK_BYTES_PER_S, PEAK_FLOPS
 
 PHASES = ("kernels", "grad_kernels", "serve", "golden", "train", "train_autodiff",
-          "classic", "halo", "robot", "scene", "cli", "bench")
+          "classic", "halo", "robot", "poses", "scene", "cli", "bench")
 
 KERNEL_REPS = 5        # timed launches per kernel (median), after 2 warm-ups
 
@@ -2990,10 +2999,11 @@ def write_fk_capture(root: str, world, size, dev) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
-def robot_fit(cfg, dev):
+def robot_fit(cfg, dev, keep=None):
     """Trainer(cfg) from the capture on disk (the robot loader), fit, then
     validation against a constant image of the train views' mean colour;
-    -> (report, counts, points)."""
+    -> (report, counts, points). ``keep`` (a dict) receives the trainer and
+    its trained state."""
     from nerf_kinematics_tpu_torch.ops import cuda_lib
     from nerf_kinematics_tpu_torch.train.trainer import Trainer
 
@@ -3051,10 +3061,37 @@ def robot_fit(cfg, dev):
     if not (np.isfinite(losses).all() and np.isfinite(split["mean_psnr"])):
         raise AssertionError(f"robot ({cfg.experiment.id}): non-finite loss or PSNR")
     trainer.close()
+    if keep is not None:
+        keep.update(trainer=trainer, state=res.state)
     return report, counts, points
 
 
-def phase_robot(dev, quick: bool):
+def robot_lines(root: str, capture: str, steps: int, factor: int) -> dict:
+    """The lines a robot config's YAML copy changes: the capture, the steps
+    cut, no validation, snapshots or printing."""
+    return {"basedir": capture, "logdir": os.path.join(root, "logs"),
+            "train_iters": steps, "validate_every": 0, "save_every": 0,
+            "print_every": 0, "downsample_factor": factor}
+
+
+def robot_ngp_config(root: str, capture: str, factor: int, quick: bool):
+    """configs/wheel_ngp.yml as shipped on a capture, its steps cut; -> (cfg,
+    the cuts)."""
+    from nerf_kinematics_tpu_torch.train.config import load_config
+
+    steps = ROBOT_QUICK_STEPS if quick else ROBOT_NGP_STEPS
+    cfg = load_config(copy_config("wheel_ngp.yml", root,
+                                  **robot_lines(root, capture, steps, factor)))
+    cuts = {
+        "dataset.basedir": ["the wheel capture", "the ring"],
+        "experiment.train_iters": [10000, steps],
+        "experiment.validate_every": [1000, 0], "experiment.save_every": [5000, 0],
+        "experiment.print_every": [500, 0], **({"dataset.downsample_factor": [8, factor]}
+                                                if factor != 8 else {})}
+    return cfg, cuts
+
+
+def phase_robot(dev, quick: bool, root=None, keep=None):
     """The robot path on the card: two FK captures written here (the ring, 48
     poses around the object; the slide, 11 poses on a line looking down, the
     wheel capture's geometry) from the machina field at the D405's size;
@@ -3063,7 +3100,9 @@ def phase_robot(dev, quick: bool):
     the ring (the two-call step: rows 1, 2, 7 with 5 inside, 4 in the
     occupancy sweeps) and configs/wheel_robot.yml (classic, NDC: rows 9,
     10) on the slide, each with its steps cut; cli/full_pipeline.py on the
-    ring, then on the slide without the mesh."""
+    ring, then on the slide without the mesh. With ``root`` the captures
+    stay there; ``keep`` (a dict) receives the ring's capture and its
+    wheel_ngp trainer and state, for the poses phase."""
     import subprocess
 
     from nerf_kinematics_tpu_torch.cli import full_pipeline
@@ -3080,7 +3119,7 @@ def phase_robot(dev, quick: bool):
     world = robot_world_poses()
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    with tempfile.TemporaryDirectory() as root:
+    with contextlib.nullcontext(root) if root else tempfile.TemporaryDirectory() as root:
         # ---- the captures: FK poses.txt and PNG images at the D405's size -----
         size, factor, cuts = (ROBOT_SIZE_QUICK, 2, {"size": [ROBOT_SIZE, ROBOT_SIZE_QUICK]}) \
             if quick else (ROBOT_SIZE, 8, {})
@@ -3150,26 +3189,19 @@ def phase_robot(dev, quick: bool):
         report["loader"] = loaded
 
         # ---- configs/wheel_ngp.yml as shipped on the ring -------------------------
-        steps = ROBOT_QUICK_STEPS if quick else ROBOT_NGP_STEPS
-        lines = {"basedir": caps["ring"], "logdir": os.path.join(root, "logs"),
-                 "train_iters": steps, "validate_every": 0, "save_every": 0,
-                 "print_every": 0, "downsample_factor": factor}
-        cfg = load_config(copy_config("wheel_ngp.yml", root, **lines))
-        report["wheel_ngp_cuts"] = {
-            "dataset.basedir": ["the wheel capture", "the ring"],
-            "experiment.train_iters": [10000, steps],
-            "experiment.validate_every": [1000, 0], "experiment.save_every": [5000, 0],
-            "experiment.print_every": [500, 0], **({"dataset.downsample_factor": [8, factor]}
-                                                    if factor != 8 else {})}
-        r, counts, points = robot_fit(cfg, dev)
+        cfg, report["wheel_ngp_cuts"] = robot_ngp_config(root, caps["ring"], factor, quick)
+        ring_fit = {}
+        r, counts, points = robot_fit(cfg, dev, keep=ring_fit)
         total.update(counts)
         all_points.update(points)
         report["wheel_ngp_ring"] = r
+        if keep is not None:
+            keep.update(ring=caps["ring"], size=size, factor=factor, **ring_fit)
 
         # ---- configs/wheel_robot.yml as shipped on the slide (classic, NDC) ------
         steps = ROBOT_QUICK_STEPS if quick else ROBOT_CLASSIC_STEPS
-        lines = dict(lines, basedir=caps["slide"], train_iters=steps)
-        cfg = load_config(copy_config("wheel_robot.yml", root, **lines))
+        cfg = load_config(copy_config("wheel_robot.yml", root,
+                                      **robot_lines(root, caps["slide"], steps, factor)))
         report["wheel_robot_cuts"] = {
             "dataset.basedir": ["the wheel capture", "the slide"],
             "experiment.train_iters": [250000, steps],
@@ -3269,6 +3301,466 @@ def phase_robot(dev, quick: bool):
         fail.append(f"full_pipeline on the slide: {p['slide']}")
     if fail:
         raise AssertionError(f"robot: {fail}")
+    return total, all_points
+
+
+# ---- the other pose sources: COLMAP import, SfM, photometric refinement ------
+
+POSES_BA_CAMERAS = 49          # fox49's frames
+POSES_BA_POINTS = 5000
+POSES_BA_SEEN = (6, 10)        # cameras that see a point (consecutive on the orbit)
+POSES_BA_SIZE = (1920, 1080)   # fox49's frames (W, H)
+POSES_BA_FOCAL = 1400.0
+POSES_BA_FOCAL_START = 1.03    # the focal-optimising run starts this far off
+POSES_BA_ITERS = 3000          # cli/sfm2nerf.py's default --ba_iters
+POSES_BA_PX = 0.5              # mean reprojection error after BA, px
+# the card's result against the same call on the CPU (the focal-optimising
+# call, whose path holds the other's): f32 sums in another order (the
+# gradient's index_add, whose order varies from run to run on the card)
+# through 3000 Adam steps. Three runs on an H100 read cameras 2.4e-6,
+# 1.4e-6, 9.5e-7; points 2.3e-6, 1.5e-6, 1.7e-6; focal_rel 1.5e-6, 5.2e-7,
+# 5.2e-7; px 1.1e-5, 2.6e-6, 2.2e-6 (PERF.md section 5): each limit is 3-5x
+# the largest reading.
+POSES_BA_CPU_TOL = {"cameras": 1e-5, "points": 1e-5, "focal_rel": 1e-5, "px": 3e-5}
+POSES_COLMAP_TOL = 1e-5        # of the ring's radius, after one similarity
+POSES_SFM_PX = 2.5             # tests/test_sfm.py's bounds
+POSES_SFM_RMS = 0.05           # of the ring's radius
+POSES_SPRITES = 300            # tests/test_sfm.py's textured point sprites
+POSES_SPRITE_FOV = 60.0        # and its camera's field of view, degrees
+# scripts/fox_pose_refine.py's settings; refine_poses as its stage 2 takes them
+POSES_REFINE = {"n_rays": 8192, "n_samples": 64, "n_iters": 120, "lr": 1e-3}
+POSES_MULTI = {"n_rays": 4096, "n_samples": 64, "n_iters": 200, "lr": 1e-3}
+POSES_MULTI_PERTURBED = 5
+POSES_QUICK_ITERS = {"ba": 600, "refine": 30, "multi": 40}
+# tests/test_pose_refine.py:99, its translation scaled from that test's box
+# (POSES_TEST_BOX) to the ring's (ROBOT_BOX)
+POSES_D_TRUE = (0.03, -0.02, 0.025, 0.03, -0.02, 0.02)
+POSES_TEST_BOX = 1.0
+
+
+def rotmat_to_qvec(R) -> np.ndarray:
+    """Rotation matrix -> COLMAP's (w, x, y, z) quaternion (Shepperd)."""
+    tr = np.trace(R)
+    if tr > 0:
+        s = np.sqrt(tr + 1.0) * 2
+        return np.array([0.25 * s, (R[2, 1] - R[1, 2]) / s, (R[0, 2] - R[2, 0]) / s,
+                         (R[1, 0] - R[0, 1]) / s])
+    i = int(np.argmax(np.diag(R)))
+    j, k = (i + 1) % 3, (i + 2) % 3
+    s = np.sqrt(1.0 + R[i, i] - R[j, j] - R[k, k]) * 2
+    q = np.empty(4)
+    q[0] = (R[k, j] - R[j, k]) / s
+    q[1 + i] = 0.25 * s
+    q[1 + j] = (R[j, i] + R[i, j]) / s
+    q[1 + k] = (R[k, i] + R[i, k]) / s
+    return q
+
+
+def world_to_colmap(c2w):
+    """NeRF camera-to-world (OpenGL axes) -> COLMAP world-to-camera (qvec,
+    tvec): the inverse of poses/colmap.py::colmap_pose_to_c2w."""
+    m = np.array(c2w, np.float64)
+    m[:3, 1:3] *= -1.0
+    R = m[:3, :3].T
+    return rotmat_to_qvec(R), -R @ m[:3, 3]
+
+
+def write_colmap_text(model_dir: str, world, names, size, fl) -> None:
+    """cameras.txt (one PINHOLE camera) and images.txt for known poses."""
+    os.makedirs(model_dir, exist_ok=True)
+    W, H = size
+    with open(os.path.join(model_dir, "cameras.txt"), "w") as f:
+        f.write("# Camera list\n")
+        f.write(f"1 PINHOLE {W} {H} {fl[0]!r} {fl[1]!r} {W / 2!r} {H / 2!r}\n")
+    with open(os.path.join(model_dir, "images.txt"), "w") as f:
+        f.write("# Image list with two lines of data per image\n")
+        for k, (c2w, name) in enumerate(zip(world, names)):
+            q, t = world_to_colmap(c2w)
+            f.write(f"{k + 1} {' '.join(repr(float(v)) for v in (*q, *t))} 1 {name}\n\n")
+
+
+def similarity(A, B):
+    """Umeyama: (s, R, t) with s R A + t the least-squares fit of B."""
+    muA, muB = A.mean(0), B.mean(0)
+    A0, B0 = A - muA, B - muB
+    U, S, Vt = np.linalg.svd(B0.T @ A0 / len(A))
+    D = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
+    R = U @ D @ Vt
+    s = float(np.trace(np.diag(S) @ D) / ((A0**2).sum() / len(A)))
+    return s, R, muB - s * R @ muA
+
+
+def ba_problem(seed: int = 0):
+    """A fox49-sized bundle adjustment: POSES_BA_CAMERAS cameras on an orbit
+    of radius 4 looking at the origin, POSES_BA_POINTS points in the unit
+    cube, each seen by 6-10 consecutive cameras, their exact projections;
+    the start perturbed as tests/test_sfm.py's (rotations 0.01, translations
+    0.02, points 0.05; camera 0 exact, the gauge). -> (args, exact)."""
+    from nerf_kinematics_tpu_torch.poses.colmap import qvec_to_rotmat
+    from nerf_kinematics_tpu_torch.poses.orbit import generate_orbit_poses
+
+    rng = np.random.default_rng(seed)
+    W, H = POSES_BA_SIZE
+    f, cx, cy = POSES_BA_FOCAL, W / 2.0, H / 2.0
+    c2w = generate_orbit_poses(np.zeros(3), radius=4.0, n_poses=POSES_BA_CAMERAS,
+                               height_wobble=1.0).numpy()
+    qt = [world_to_colmap(m) for m in c2w]
+    # axis-angle from the quaternion (w >= 0): 2 atan2(|v|, w) about v / |v|
+    rv = []
+    for q, _ in qt:
+        q = q if q[0] >= 0 else -q
+        n = float(np.linalg.norm(q[1:]))
+        rv.append(q[1:] / n * 2.0 * math.atan2(n, q[0]) if n > 0 else np.zeros(3))
+    rv, tv = np.array(rv), np.array([t for _, t in qt])
+    Rs = np.stack([qvec_to_rotmat(q) for q, _ in qt])
+    X = rng.uniform(-1.0, 1.0, (POSES_BA_POINTS, 3))
+    lo, hi = POSES_BA_SEEN
+    seen = [(rng.integers(0, POSES_BA_CAMERAS) + np.arange(rng.integers(lo, hi + 1)))
+            % POSES_BA_CAMERAS for _ in range(POSES_BA_POINTS)]
+    cam_idx = np.concatenate(seen)
+    pt_idx = np.repeat(np.arange(POSES_BA_POINTS), [len(s) for s in seen])
+    xc = np.einsum("kij,kj->ki", Rs[cam_idx], X[pt_idx]) + tv[cam_idx]
+    uv = np.stack([f * xc[:, 0] / xc[:, 2] + cx, f * xc[:, 1] / xc[:, 2] + cy], -1)
+    rv_n = rv + rng.normal(0, 0.01, rv.shape)
+    rv_n[0] = rv[0]
+    tv_n = tv + rng.normal(0, 0.02, tv.shape)
+    tv_n[0] = tv[0]
+    X_n = X + rng.normal(0, 0.05, X.shape)
+    return (rv_n, tv_n, X_n, cam_idx, pt_idx, uv), {"rv": rv, "tv": tv, "X": X, "f": f}
+
+
+def render_sprites(pts, patterns, c2w, H: int, W: int, focal: float) -> np.ndarray:
+    """tests/test_sfm.py's point-sprite render through an exact pinhole:
+    each point a unique random texture patch (distinct SIFT descriptors),
+    painted far to near on white."""
+    import cv2
+
+    w2c = np.linalg.inv(c2w)
+    xc = (w2c[:3, :3] @ pts.T).T + w2c[:3, 3]
+    z = -xc[:, 2]
+    u = focal * xc[:, 0] / z + W / 2.0
+    v = focal * (-xc[:, 1]) / z + H / 2.0
+    img = np.full((H, W, 3), 255, np.uint8)
+    for i in np.argsort(-z):
+        if not z[i] > 0.5:
+            continue
+        s = int(np.clip(focal * 0.22 / z[i], 8, 60))
+        x0, y0 = int(round(u[i])) - s // 2, int(round(v[i])) - s // 2
+        x1, y1 = x0 + s, y0 + s
+        if x1 <= 0 or y1 <= 0 or x0 >= W or y0 >= H:
+            continue
+        patch = cv2.resize(patterns[i], (s, s), interpolation=cv2.INTER_LINEAR)
+        cx0, cy0 = max(0, -x0), max(0, -y0)
+        cx1, cy1 = s - max(0, x1 - W), s - max(0, y1 - H)
+        img[max(0, y0):min(H, y1), max(0, x0):min(W, x1)] = patch[cy0:cy1, cx0:cx1]
+    return img
+
+
+def write_sprite_ring(root: str, world, size, focal: float) -> float:
+    """The ring's poses and frame size over tests/test_sfm.py's scene (its
+    300 sprites in the unit cube, its seed) through a pinhole of ``focal``
+    with square pixels: frames ``000.png`` ... in capture order;
+    -> seconds."""
+    import cv2
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(7)
+    pts = rng.uniform(-1, 1, (POSES_SPRITES, 3))
+    patterns = rng.integers(0, 255, (POSES_SPRITES, 8, 8, 3)).astype(np.uint8)
+    os.makedirs(root)
+    W, H = size
+    for k, c2w in enumerate(world):
+        cv2.imwrite(os.path.join(root, f"{k:03d}.png"),
+                    render_sprites(pts, patterns, c2w, H, W, focal))
+    return time.perf_counter() - t0
+
+
+def pose_error(a, b) -> float:
+    """The largest entry of |a - b| over two camera-to-world matrices."""
+    return float((torch.as_tensor(a) - torch.as_tensor(b)).abs().max())
+
+
+def sfm_front_end(root: str, world, size, focal: float, dev) -> dict:
+    """``cli/sfm2nerf.py`` (``--device``) on the sprite scene seen from the
+    ring: registrations, its mean reprojection error, and the camera centres
+    against the ring's after one similarity, as a share of its radius."""
+    import contextlib as _ctx
+    import io
+
+    from nerf_kinematics_tpu_torch.cli import sfm2nerf
+
+    render_s = write_sprite_ring(root, world, size, focal)
+    out = root + ".json"
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with _ctx.redirect_stdout(buf):
+        sfm2nerf.main(["--images", root, "--out", out, "--device", str(dev)])
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    summary = next(l for l in lines if l.startswith("registered "))
+    meta = json.load(open(out))
+    idx = [int(os.path.basename(fr["file_path"])[:3]) for fr in meta["frames"]]
+    got = np.array([fr["transform_matrix"] for fr in meta["frames"]])[:, :3, 3]
+    want = np.asarray(world)[idx, :3, 3]
+    s, R, t = similarity(got, want)
+    rms = float(np.sqrt(((s * got @ R.T + t - want) ** 2).sum(1).mean()))
+    radius = float(np.linalg.norm(want - want.mean(0), axis=1).mean())
+    return {"frames": len(world), "registered": int(summary.split()[1].split("/")[0]),
+            "mean_reproj_px": float(summary.split("mean reprojection ")[1].rstrip("px")),
+            "focal": meta["fl_x"], "focal_true": focal, "centre_rms_over_radius": rms / radius,
+            "render_seconds": render_s, "seconds": seconds, "stdout": lines}
+
+
+def phase_poses(dev, quick: bool, shared: dict):
+    """The pose sources besides the robot on the card: a COLMAP text model of
+    the ring's known poses through ``cli/colmap2nerf.py``; the bundle
+    adjustment at a fox49-sized problem (3000 iterations, with and without
+    the focal; the focal-optimising call also on the CPU, against which the
+    card's result is held); the SfM front-end through ``cli/sfm2nerf.py``
+    where cv2 imports, on the ring's poses and frame size over
+    tests/test_sfm.py's sprite scene and camera (the reference's front-end
+    reconstructs too few points on the ring's own frames to register them:
+    their checkered table repeats, the field's object has little texture,
+    and the D405's 87 degrees lie outside its focal candidates); photometric
+    refinement (``poses/refine.py``) of a perturbed held-out pose and of
+    five perturbed training poses against the ring's wheel_ngp field, its
+    samples placed by the hull proposal (row 1). The ring's capture and
+    field are the robot phase's (``shared``) where it ran, else made here as
+    it makes them."""
+    import subprocess
+
+    from nerf_kinematics_tpu_torch.ops import cuda_lib
+    from nerf_kinematics_tpu_torch.poses.pipeline import convert_poses
+    from nerf_kinematics_tpu_torch.poses.refine import apply_delta, refine_pose, refine_poses
+    from nerf_kinematics_tpu_torch.poses.sfm import bundle_adjust
+    from nerf_kinematics_tpu_torch.train.loop import eval_params
+
+    report = {"phase": "poses", "quick": quick}
+    seconds = {}
+    total = collections.Counter()
+    all_points = collections.Counter()
+    world = robot_world_poses()["ring"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    with tempfile.TemporaryDirectory() as root:
+        # ---- the ring: the robot phase's, or written here as it writes it -----
+        t0 = time.perf_counter()
+        if "ring" in shared:
+            ring, size, factor = shared["ring"], shared["size"], shared["factor"]
+            report["ring_from"] = "robot phase"
+        else:
+            size, factor = (ROBOT_SIZE_QUICK, 2) if quick else (ROBOT_SIZE, 8)
+            ring = os.path.join(root, "ring")
+            write_fk_capture(ring, world, size, dev)
+            report["ring_from"] = "written here"
+        seconds["ring"] = time.perf_counter() - t0
+        W, H = size
+        fl = (0.5 * W / math.tan(math.radians(87.0) / 2),
+              0.5 * H / math.tan(math.radians(58.0) / 2))
+        # the frames under names a COLMAP text model can hold (no spaces)
+        images = os.path.join(root, "frames")
+        os.makedirs(images)
+        names = [f"{k:03d}.png" for k in range(len(world))]
+        for k, name in enumerate(names):
+            os.symlink(os.path.join(ring, "images_robot", f"TestNERF {k}.png"),
+                       os.path.join(images, name))
+
+        # ---- COLMAP import: a text model of the known poses -------------------
+        t0 = time.perf_counter()
+        model = os.path.join(root, "colmap_text")
+        write_colmap_text(model, world, names, size, fl)
+        out_json = os.path.join(root, "colmap_transforms.json")
+        cmd = [sys.executable, "-m", "nerf_kinematics_tpu_torch.cli.colmap2nerf",
+               "--images", images, "--text", model, "--out", out_json]
+        proc = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"poses: colmap2nerf: {proc.stderr[-2000:]}")
+        seconds["colmap2nerf"] = time.perf_counter() - t0
+        meta = json.load(open(out_json))
+        got = np.array([fr["transform_matrix"] for fr in meta["frames"]])
+        s, R, t = similarity(world[:, :3, 3], got[:, :3, 3])
+        radius = float(np.linalg.norm(got[:, :3, 3], axis=1).mean())
+        pos_err = float(np.abs(s * world[:, :3, 3] @ R.T + t - got[:, :3, 3]).max())
+        rot_err = float(np.abs(R @ world[:, :3, :3] - got[:, :3, :3]).max())
+        conv = convert_poses(os.path.join(ring, "poses.txt"),
+                             os.path.join(ring, "images_robot"), image_ext="png",
+                             recenter=True, output=None)
+        want_sharp = {int(fr["file_path"].rsplit(" ", 1)[1].split(".")[0]): fr["sharpness"]
+                      for d in (conv.train, conv.val) for fr in d["frames"]}
+        got_sharp = {int(os.path.basename(fr["file_path"])[:3]): fr.get("sharpness")
+                     for fr in meta["frames"]}
+        report["colmap"] = {
+            "frames": len(meta["frames"]), "w_h": [meta["w"], meta["h"]],
+            "fl": [meta["fl_x"], meta["fl_y"]], "similarity_scale": s,
+            "radius": radius, "max_position_err": pos_err, "max_rotation_err": rot_err,
+            "sharpness_equal": got_sharp == want_sharp,
+            "stdout": proc.stdout.splitlines(), "seconds": seconds["colmap2nerf"]}
+
+        # ---- bundle adjustment at a fox49-sized problem ------------------------
+        args, exact = ba_problem()
+        iters = POSES_QUICK_ITERS["ba"] if quick else POSES_BA_ITERS
+        W_ba, H_ba = POSES_BA_SIZE
+        ba = {"cameras": POSES_BA_CAMERAS, "points": POSES_BA_POINTS,
+              "observations": len(args[3]), "iters": iters}
+        for optimize_focal in (False, True):
+            f0 = POSES_BA_FOCAL * (POSES_BA_FOCAL_START if optimize_focal else 1.0)
+            kw = dict(iters=iters, optimize_focal=optimize_focal)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g = bundle_adjust(*args, f0, W_ba / 2.0, H_ba / 2.0, device=dev, **kw)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            # the start's reprojection error: zero iterations
+            start_px = bundle_adjust(*args, f0, W_ba / 2.0, H_ba / 2.0, iters=0,
+                                     device=dev)[4]
+            b = ba["focal" if optimize_focal else "fixed"] = {
+                "focal_start": f0, "focal_end": g[3],
+                "focal_err_start": abs(f0 - exact["f"]), "focal_err_end": abs(g[3] - exact["f"]),
+                "mean_px_start": start_px, "mean_px": g[4], "seconds": card_s,
+                "ms_per_iter": card_s / iters * 1e3}
+            if optimize_focal:
+                # the same call on the CPU (some 40 s there: once)
+                t0 = time.perf_counter()
+                c = bundle_adjust(*args, f0, W_ba / 2.0, H_ba / 2.0, device="cpu", **kw)
+                b["cpu_seconds"] = time.perf_counter() - t0
+                b["cpu_mean_px"] = c[4]
+                b["vs_cpu"] = {"cameras": float(max(np.abs(g[0] - c[0]).max(),
+                                                    np.abs(g[1] - c[1]).max())),
+                               "points": float(np.abs(g[2] - c[2]).max()),
+                               "focal_rel": abs(g[3] - c[3]) / c[3], "px": abs(g[4] - c[4])}
+        report["bundle_adjust"] = ba
+        seconds["bundle_adjust"] = sum(v["seconds"] + v.get("cpu_seconds", 0.0)
+                                       for v in ba.values() if isinstance(v, dict))
+
+        # ---- the SfM front-end, where cv2 imports -------------------------------
+        try:
+            import cv2  # noqa: F401
+        except Exception as e:  # cv2 is an optional dependency of the front-end
+            report["sfm_front_end"] = f"cv2 absent ({type(e).__name__})"
+        else:
+            if quick:
+                report["sfm_front_end"] = "not run (--quick)"
+            else:
+                focal = 0.5 * W / math.tan(math.radians(POSES_SPRITE_FOV) / 2)
+                report["sfm_front_end"] = sfm_front_end(
+                    os.path.join(root, "sprite_ring"), world, size, focal, dev)
+                seconds["sfm2nerf"] = report["sfm_front_end"]["seconds"]
+
+        # ---- photometric refinement against the ring's wheel_ngp field --------
+        t0 = time.perf_counter()
+        if "trainer" in shared:
+            trainer, state = shared["trainer"], shared["state"]
+        else:
+            cfg, _ = robot_ngp_config(root, ring, factor, quick)
+            fit = {}
+            _, counts, points = robot_fit(cfg, dev, keep=fit)
+            total.update(counts)
+            all_points.update(points)
+            trainer, state = fit["trainer"], fit["state"]
+        seconds["field"] = time.perf_counter() - t0
+        engine, ds = trainer.engine, trainer.dataset
+        wb = bool(trainer.cfg.nerf.validation.white_background)
+        params = eval_params(state)
+        d_true = torch.tensor(POSES_D_TRUE, device=dev)
+        d_true[3:] *= ROBOT_BOX / POSES_TEST_BOX
+
+        def image_mse(c2w):
+            with torch.no_grad(), engine.bound(params):
+                rgb = trainer._render(c2w, state.aux)["rgb"]
+            return float(((rgb - torch.as_tensor(gt, device=dev)) ** 2).mean())
+
+        vi = int(ds.val_idx[0])
+        gt = ds.images[vi]
+        pose0 = torch.as_tensor(ds.poses[vi], dtype=torch.float32, device=dev)
+        pose_bad = apply_delta(pose0, d_true)
+        one = dict(POSES_REFINE, n_iters=POSES_QUICK_ITERS["refine"]) if quick else POSES_REFINE
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        # ---- the main path: refine_pose, then refine_poses ---------------------
+        t0 = time.perf_counter()
+        refined, delta, losses = refine_pose(engine, params, state.aux, gt, pose_bad,
+                                             ds.intrinsics, ds.near, ds.far,
+                                             white_background=wb, **one)
+        torch.cuda.synchronize()
+        t_one = time.perf_counter() - t0
+        launches_one = cuda_lib.LAUNCHES["occupancy_at_hull"]
+        train_imgs, train_poses = ds.split("train")
+        train_poses = torch.as_tensor(train_poses, dtype=torch.float32, device=dev)
+        picked = np.linspace(0, len(train_poses) - 1, POSES_MULTI_PERTURBED).round().astype(int)
+        bad = train_poses.clone()
+        for i in picked:
+            bad[i] = apply_delta(train_poses[i], d_true)
+        many = dict(POSES_MULTI, n_iters=POSES_QUICK_ITERS["multi"]) if quick else POSES_MULTI
+        t0 = time.perf_counter()
+        refined_tr, deltas = refine_poses(engine, params, state.aux, train_imgs, bad,
+                                          ds.intrinsics, ds.near, ds.far,
+                                          white_background=wb, **many)
+        torch.cuda.synchronize()
+        t_many = time.perf_counter() - t0
+        counts = dict(cuda_lib.LAUNCHES)
+        points = collections.Counter(cuda_lib.POINTS)
+        # -------------------------------------------------------------------------
+        total.update(counts)
+        all_points.update(points)
+        err_before = [pose_error(bad[i], train_poses[i]) for i in picked]
+        err_after = [pose_error(refined_tr[i], train_poses[i]) for i in picked]
+        report["refine_pose"] = {
+            "view": vi, "image": [ds.W, ds.H], "d_true": d_true.tolist(), **one,
+            "image_mse_perturbed": image_mse(pose_bad), "image_mse_refined": image_mse(refined),
+            "image_mse_true_pose": image_mse(pose0),
+            "pose_err_perturbed": pose_error(pose_bad, pose0),
+            "pose_err_refined": pose_error(refined, pose0),
+            "loss_first_last": [losses[0], losses[-1]], "delta": delta.tolist(),
+            "seconds": t_one, "ms_per_iter": t_one / one["n_iters"] * 1e3,
+            "row1_launches": launches_one}
+        report["refine_poses"] = {
+            "poses": len(train_poses), "perturbed": picked.tolist(), **many,
+            "mean_pose_err_before": float(np.mean(err_before)),
+            "mean_pose_err_after": float(np.mean(err_after)),
+            "unperturbed_mean_drift": float(np.mean([
+                pose_error(refined_tr[i], train_poses[i])
+                for i in range(len(train_poses)) if i not in set(picked.tolist())])),
+            "seconds": t_many, "ms_per_iter": t_many / many["n_iters"] * 1e3,
+            "row1_launches": counts["occupancy_at_hull"] - launches_one}
+        report["launches_by_row"] = by_row(counts, points)
+        seconds["refine"] = t_one + t_many
+    report["seconds"] = seconds
+    report["launches"] = dict(total)
+    emit(report)
+
+    # ---- pass criteria -----------------------------------------------------------
+    fail = []
+    c = report["colmap"]
+    if not (c["frames"] == len(world) and c["max_position_err"] <= POSES_COLMAP_TOL * c["radius"]
+            and c["max_rotation_err"] <= POSES_COLMAP_TOL and c["sharpness_equal"]):
+        fail.append(f"colmap2nerf: {c}")
+    for key in ("fixed", "focal"):
+        b = ba[key]
+        if not quick and not b["mean_px"] < POSES_BA_PX:
+            fail.append(f"bundle_adjust ({key}): {b['mean_px']} px")
+        if key == "focal" and not b["focal_err_end"] < b["focal_err_start"]:
+            fail.append(f"bundle_adjust: focal error {b['focal_err_start']} -> "
+                        f"{b['focal_err_end']}")
+    bad_tol = {k: v for k, v in ba["focal"]["vs_cpu"].items() if not v <= POSES_BA_CPU_TOL[k]}
+    if bad_tol:
+        fail.append(f"bundle_adjust against the CPU: {bad_tol}")
+    sf = report["sfm_front_end"]
+    if isinstance(sf, dict) and not (
+            sf["registered"] == sf["frames"] and sf["mean_reproj_px"] < POSES_SFM_PX
+            and sf["centre_rms_over_radius"] < POSES_SFM_RMS):
+        fail.append(f"sfm2nerf on the ring: {sf}")
+    r = report["refine_pose"]
+    if not (r["image_mse_refined"] < 0.5 * r["image_mse_perturbed"]
+            and r["pose_err_refined"] < r["pose_err_perturbed"]):
+        fail.append(f"refine_pose: {r}")
+    m = report["refine_poses"]
+    if not m["mean_pose_err_after"] < m["mean_pose_err_before"]:
+        fail.append(f"refine_poses: {m}")
+    if not (r["row1_launches"] >= r["n_iters"] and m["row1_launches"] >= m["n_iters"]):
+        fail.append(f"row 1 not launched every refinement step: {r['row1_launches']}, "
+                    f"{m['row1_launches']}")
+    if fail:
+        raise AssertionError(f"poses: {fail}")
     return total, all_points
 
 
@@ -3803,9 +4295,16 @@ def main(argv=None) -> int:
         add(phase_classic(fx, dev, args.quick, engine, aux, args.profile))
     if "halo" in phases:
         add(phase_halo(dev, args.quick))
-    if "robot" in phases:
-        add(phase_robot(dev, args.quick))
     with tempfile.TemporaryDirectory() as work:
+        # the robot phase's ring capture and its trained field, which the
+        # poses phase takes where the robot phase ran
+        ring = {}
+        if "robot" in phases:
+            os.makedirs(os.path.join(work, "robot"))
+            add(phase_robot(dev, args.quick, root=os.path.join(work, "robot"), keep=ring))
+        if "poses" in phases:
+            add(phase_poses(dev, args.quick, ring))
+        ring.clear()
         # machina400, generated in the scene phase (or here, for a subset
         # without it) and used by the cli and bench phases
         scene_dir = os.path.join(work, "machina400")

@@ -17,8 +17,12 @@ the command lines (``cli/run_nerf.py``, ``cli/ngp_run.py``,
 orbit poses, the hash encoder, contracted scenes and mesh export; the robot
 path: the pose converter (``poses/``, ``cli/parse_poses.py``), the robot
 loader (``data/robot.py``), the parallax diagnosis (``metrics/parallax.py``)
-and the full pipeline (``cli/full_pipeline.py``). COLMAP import, SfM, pose
-refinement and multi-GPU training come in later slices (``ROADMAP.md``).
+and the full pipeline (``cli/full_pipeline.py``); the other pose sources:
+COLMAP import (``poses/colmap.py``, ``cli/colmap2nerf.py``), SfM with its
+bundle adjustment on the device (``poses/sfm.py``, ``cli/sfm2nerf.py``) and
+photometric pose refinement (``poses/refine.py``). The grid / projected
+occupancy proposals and multi-GPU training come in later slices
+(``ROADMAP.md``).
 """
 
 from ._device import resolve_device

@@ -1,10 +1,13 @@
 """Pose layer: robot forward-kinematics pose parsing and NeRF-convention
 conversion (the reference's ``parser_instant_ngp.py``), the orbit poses and
-camera paths.
+camera paths; the other pose sources as modules of their own: COLMAP import
+(``colmap.py``), structure-from-motion with its bundle adjustment on the
+device (``sfm.py``) and photometric pose refinement against a trained field
+(``refine.py``).
 
 Counterpart of ``nerf_kinematics_tpu/poses/__init__.py``, with the same
-exports; the CLI wrapper is ``nerf_kinematics_tpu_torch.cli.parse_poses``.
-COLMAP import, SfM and pose refinement follow (ROADMAP A.8b, A.8c).
+exports; the CLI wrappers are ``nerf_kinematics_tpu_torch.cli.parse_poses``,
+``cli.colmap2nerf`` and ``cli.sfm2nerf``.
 """
 
 from .parser import parse_poses_file, parse_poses_text

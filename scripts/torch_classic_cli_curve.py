@@ -10,7 +10,14 @@ whose PSNR must equal the command line's at that step. Prints one JSON
 object per run and the all-white image's PSNR on that view (the plateau a
 run that has not started to fit sits on).
 
+``--fused off`` sets both networks' ``fused`` mode in the copy, so the
+point pipeline runs through the module in place of the fused kernel.
+``--draw_seeds`` adds, for each, a run through the Python API from the
+first seed's weights with the step's generator seeded anew: the same
+start, other pixels, depth jitter and density noise.
+
     python3 scripts/torch_classic_cli_curve.py                 # the card
+    python3 scripts/torch_classic_cli_curve.py --seeds 42 --fused off --draw_seeds 1,2
     python3 scripts/torch_classic_cli_curve.py --device cpu --resolution 16 \\
         --samples 32 --steps 4 --every 2 --rays 64              # a CPU rehearsal
 """
@@ -20,6 +27,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import sys
 import tempfile
 import time
@@ -53,6 +61,10 @@ def main(argv=None) -> int:
     ap.add_argument("--resolution", type=int, default=chip_smoke.SCENE["resolution"])
     ap.add_argument("--samples", type=int, default=chip_smoke.SCENE["n_samples"])
     ap.add_argument("--rays", type=int, default=None, help="default: the YAML's 1024")
+    ap.add_argument("--fused", choices=("auto", "on", "off"), default=None,
+                    help="both networks' fused mode; default: the YAML's")
+    ap.add_argument("--draw_seeds", default="",
+                    help="API runs from the first seed's weights with these draws")
     args = ap.parse_args(argv)
     device = "cuda" if args.device is None else args.device
     if device != "cpu" and not torch.cuda.is_available():
@@ -74,9 +86,19 @@ def main(argv=None) -> int:
                      "print_every": args.every}
             if args.rays is not None:
                 lines["num_random_rays"] = args.rays
-            return chip_smoke.copy_config("machina_classic.yml", d,
+            path = chip_smoke.copy_config("machina_classic.yml", d,
                                           dataset_cache=os.path.join(root, "cache"),
                                           **lines)
+            if args.fused is not None:
+                with open(path) as f:
+                    text = f.read()
+                text, n = re.subn(r"^(    hidden_size:[^\n]*)$",
+                                  rf"\1\n    fused: {args.fused}", text, flags=re.M)
+                if n != 2:
+                    raise AssertionError("machina_classic.yml: not two models")
+                with open(path, "w") as f:
+                    f.write(text)
+            return path
 
         cli = {}
         for seed in seeds:
@@ -107,6 +129,20 @@ def main(argv=None) -> int:
                           "val_psnr_db": result.val_psnr,
                           "run_nerf_val_psnr_db": cli[seed][args.every],
                           "equal": equal, "all_white_val_psnr_db": white}), flush=True)
+
+        for draw in [int(s) for s in args.draw_seeds.split(",") if s]:
+            cfg = load_config(copy(f"draw{draw}", seed))
+            trainer = Trainer(cfg, device=device)
+            try:
+                state = trainer.engine.init_state()
+                state.generator.manual_seed(draw)
+                t0 = time.perf_counter()
+                trainer.fit(max_iters=args.steps, state=state)
+            finally:
+                trainer.close()
+            print(json.dumps({"route": "Trainer.fit", "seed": seed, "draw_seed": draw,
+                              "steps": args.steps, "seconds": time.perf_counter() - t0,
+                              "val_psnr_db": val_curve(trainer.rundir)}), flush=True)
     return 0 if equal else 1
 
 
