@@ -70,7 +70,23 @@ width through the entry points a user calls:
     renders the fast engine's ``--fast`` video from the ``ngp_run``
     checkpoint;
   * the port's bench (``python -m nerf_kinematics_tpu_torch.bench``) on the
-    same scene: rays/s, MFU, time to 25 dB, frame rates.
+    same scene: rays/s, MFU, time to 25 dB, frame rates;
+  * the grid and projected occupancy proposals: ``configs/machina_ngp.yml``
+    with ``ngp.occ_proposal`` hull, grid and projected, 512 steps each from
+    the train phase's start, each against a constant image, and the three
+    grid lookups on the card against the CPU at 524 288 points, non-finite
+    points included;
+  * data parallelism (``parallel/``) on the one card: a step through an
+    NCCL group of world 1, bit for bit the step without a group; two ranks
+    over gloo on cuda:0 (started by this script with ``--mesh-rank``)
+    against one process: 512 steps of machina_ngp.yml (step 1, the refresh
+    at 256 and the step after it from the ranks' state, the loss curve
+    beside five one-process controls from weights nudged by one ulp), 100
+    of machina_classic.yml (rows 9, 10), the frame batch split over the
+    ranks; and ``torchrun --nproc_per_node 2 -m
+    nerf_kinematics_tpu_torch.cli.run_nerf --mesh`` on machina400 (512
+    steps, then the ``--fast`` video, against one process's render of the
+    same checkpoint).
 
 The kernel phases also hold every kernel to its plain version on non-finite
 inputs (the cases of tests/test_torch_nonfinite.py, and row 1 on NaN and
@@ -114,7 +130,8 @@ from nerf_kinematics_tpu_torch.bench import nvidia_smi_line
 from nerf_kinematics_tpu_torch.utils.flops import PEAK_BYTES_PER_S, PEAK_FLOPS
 
 PHASES = ("kernels", "grad_kernels", "serve", "golden", "train", "train_autodiff",
-          "classic", "halo", "robot", "poses", "scene", "cli", "bench")
+          "classic", "halo", "robot", "poses", "scene", "cli", "bench", "proposals",
+          "mesh")
 
 KERNEL_REPS = 5        # timed launches per kernel (median), after 2 warm-ups
 
@@ -1618,13 +1635,20 @@ ROUTE_TOL = {"f32": 2e-3, "bf16": 5e-3}  # gradients across routes, per leaf,
 UNFUSED_BF16_TOL = 0.25    # the unfused route rounds every layer's output to bf16
 
 
-def _train_config(fx, logdir, quick: bool, **ngp_kw):
+def _train_config(fx, logdir, quick: bool, steps=None, **ngp_kw):
+    """The train phase's configuration (machina_ngp.yml, seed TRAIN_SEED):
+    ``steps`` (default TRAIN_STEPS) with a refresh every TRAIN_STEPS // 3
+    (a full sweep first, then incremental ones); -> (cfg, steps)."""
     import dataclasses
 
     shrink = 16 if quick else 1
-    steps = 96 if quick else TRAIN_STEPS
+    every = (96 if quick else TRAIN_STEPS) // 3
+    if steps is None:
+        steps = 96 if quick else TRAIN_STEPS
+    elif quick:
+        steps = max(steps // 8, 2 * every)
     ngp = dataclasses.replace(
-        fx.config.ngp, occ_update_every=steps // 3,
+        fx.config.ngp, occ_update_every=every,
         occ_full_every=2048 if not quick else 128, **ngp_kw)
     exp = dataclasses.replace(
         fx.config.experiment, logdir=logdir, id="chip_smoke", print_every=0,
@@ -3313,11 +3337,13 @@ POSES_BA_SIZE = (1920, 1080)   # fox49's frames (W, H)
 POSES_BA_FOCAL = 1400.0
 POSES_BA_FOCAL_START = 1.03    # the focal-optimising run starts this far off
 POSES_BA_ITERS = 3000          # cli/sfm2nerf.py's default --ba_iters
+POSES_BA_CPU_ITERS = 600       # the focal call on the card against the CPU
 POSES_BA_PX = 0.5              # mean reprojection error after BA, px
 # the card's result against the same call on the CPU (the focal-optimising
-# call, whose path holds the other's): f32 sums in another order (the
+# call, whose path holds the other's, at POSES_BA_CPU_ITERS on both sides: at
+# 3000 the CPU took 56 s of the phase): f32 sums in another order (the
 # gradient's index_add, whose order varies from run to run on the card)
-# through 3000 Adam steps. Three runs on an H100 read cameras 2.4e-6,
+# through the Adam steps. At 3000 steps three runs on an H100 read cameras 2.4e-6,
 # 1.4e-6, 9.5e-7; points 2.3e-6, 1.5e-6, 1.7e-6; focal_rel 1.5e-6, 5.2e-7,
 # 5.2e-7; px 1.1e-5, 2.6e-6, 2.2e-6 (PERF.md section 5): each limit is 3-5x
 # the largest reading.
@@ -3619,10 +3645,13 @@ def phase_poses(dev, quick: bool, shared: dict):
                 "mean_px_start": start_px, "mean_px": g[4], "seconds": card_s,
                 "ms_per_iter": card_s / iters * 1e3}
             if optimize_focal:
-                # the same call on the CPU (some 40 s there: once)
+                # the same call on the card and on the CPU, at fewer iterations
+                kw["iters"] = min(iters, POSES_BA_CPU_ITERS)
+                g = bundle_adjust(*args, f0, W_ba / 2.0, H_ba / 2.0, device=dev, **kw)
                 t0 = time.perf_counter()
                 c = bundle_adjust(*args, f0, W_ba / 2.0, H_ba / 2.0, device="cpu", **kw)
                 b["cpu_seconds"] = time.perf_counter() - t0
+                b["cpu_iters"] = kw["iters"]
                 b["cpu_mean_px"] = c[4]
                 b["vs_cpu"] = {"cameras": float(max(np.abs(g[0] - c[0]).max(),
                                                     np.abs(g[1] - c[1]).max())),
@@ -4220,6 +4249,735 @@ def phase_classic(fx, dev, quick: bool, engine, aux, profile: bool):
             points_fit + points_serve)
 
 
+# ---- the grid / projected occupancy proposals --------------------------------
+
+PROPOSAL_STEPS = 512           # each mode, from the train phase's start
+PROPOSAL_MARGIN_DB = ROBOT_PSNR_MARGIN_DB  # val mean over a constant image's
+PROPOSAL_POINTS = 524288       # the two-call step's proposal points
+PROPOSAL_TRILINEAR_TOL = 1e-6  # card against CPU, relative to max(1, |value|)
+
+
+def constant_image_psnr(ds) -> float:
+    """The held-out views' mean PSNR of a constant image of the training
+    views' mean colour."""
+    mean_rgb = ds.images[ds.train_idx].reshape(-1, 3).mean(0)
+    return float(np.mean([-10.0 * np.log10(np.mean((ds.images[int(i)] - mean_rgb) ** 2))
+                          for i in ds.val_idx]))
+
+
+def lookup_points(n: int, bound: float, gen) -> torch.Tensor:
+    """(n, 3) world points over [-1.1, 1.1]^3 * bound on the CPU, the first
+    twelve with a NaN on each axis and on pairs of axes, or +-inf."""
+    pts = (torch.rand((n, 3), generator=gen) * 2.2 - 1.1) * bound
+    nan, inf = float("nan"), float("inf")
+    for i, axes in enumerate([(0,), (1,), (2,), (0, 1), (0, 2), (1, 2), (0, 1, 2)]):
+        pts[i, list(axes)] = nan
+    pts[7, 0], pts[8, 1], pts[9, 2] = inf, -inf, inf
+    pts[10] = torch.tensor([-inf, inf, -inf])
+    pts[11, 0], pts[11, 2] = nan, inf
+    return pts
+
+
+def grid_lookups_on_card(grid, dev) -> dict:
+    """occupancy_at, occupancy_at_nearest and occupancy_at_projected on the
+    card at PROPOSAL_POINTS points against the same calls on the CPU: exact
+    for nearest and projected, PROPOSAL_TRILINEAR_TOL for trilinear, and
+    the same NaN, +inf and -inf masks for all three."""
+    from nerf_kinematics_tpu_torch.ops import occupancy as occ
+
+    gen = torch.Generator().manual_seed(11)
+    cpu_grid = occ.OccupancyGrid(grid.density.cpu(), grid.bound.cpu())
+    pts = lookup_points(PROPOSAL_POINTS, float(grid.bound), gen)
+    fns = {
+        "occupancy_at": lambda g, x: occ.occupancy_at(g, x),
+        "occupancy_at_nearest": lambda g, x: occ.occupancy_at_nearest(g, x),
+        "occupancy_at_projected": lambda g, x: occ.occupancy_at_projected(
+            occ.axis_projections(g), x, occ._linear_to_unit(g)),
+    }
+    out = {}
+    for name, fn in fns.items():
+        want = fn(cpu_grid, pts)
+        xd = pts.to(dev)
+        got, ms = timed(lambda: fn(grid, xd))
+        got = got.cpu()
+        # raises where a NaN, +inf or -inf mask differs
+        nonfinite = same_masks(name, [("card against the CPU", got, want)])
+        fin = torch.isfinite(want)
+        err = float(((got[fin] - want[fin]).abs()
+                     / want[fin].abs().clamp(min=1.0)).max())
+        out[name] = {"ms": ms, "max_rel_err": err, "nonfinite_values": nonfinite,
+                     "exact": bool(torch.equal(got[fin], want[fin]))}
+    return out
+
+
+def phase_proposals(fx, dev, quick: bool, dataset):
+    """machina_ngp.yml with ``ngp.occ_proposal`` hull, grid and projected,
+    PROPOSAL_STEPS steps each from the train phase's start on its views (the
+    two-call step: rows 2 and 7; the hull's row 1 only for hull), each
+    against a constant image; then the three grid lookups on the card
+    against the CPU on the grid-proposal run's trained grid."""
+    from nerf_kinematics_tpu_torch.ops import cuda_lib
+    from nerf_kinematics_tpu_torch.train.trainer import Trainer
+
+    report = {"phase": "proposals", "quick": quick}
+    total = collections.Counter()
+    all_points = collections.Counter()
+    const = constant_image_psnr(dataset)
+    report["constant_image_psnr_db"] = const
+    fail = []
+    grid = None
+    with tempfile.TemporaryDirectory() as logdir:
+        for mode in ("hull", "grid", "projected"):
+            cfg, steps = _train_config(fx, logdir, quick, steps=PROPOSAL_STEPS,
+                                       occ_proposal=mode)
+            trainer = Trainer(cfg, dataset, device=dev)
+            state = trainer.engine.init_state()
+            torch.cuda.synchronize()
+            cuda_lib.reset_launch_counts()
+            # ---- the main path: training and the held-out renders -----------
+            t0 = time.perf_counter()
+            res = trainer.fit(state=state)
+            split = trainer.evaluate_split(res.state, "val")
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            counts = dict(cuda_lib.LAUNCHES)
+            points = collections.Counter(cuda_lib.POINTS)
+            # -----------------------------------------------------------------
+            total.update(counts)
+            all_points.update(points)
+            losses = np.asarray(res.losses)
+            ms = statistics.median(s / k * 1e3 for k, s in res.chunk_seconds)
+            r = report[mode] = {
+                "steps": steps, "ms_per_step": ms, "fit_seconds": fit_s,
+                "loss_first16": float(losses[:16].mean()),
+                "loss_last16": float(losses[-16:].mean()),
+                "val_psnr_db": split["per_frame"][0], "val_mean_psnr_db": split["mean_psnr"],
+                "refreshes": [[i, k] for i, k, _ in res.occupancy_refreshes],
+                "launches_by_row": by_row(counts, points)}
+            if not (np.isfinite(losses).all()
+                    and split["mean_psnr"] >= const + (0.0 if quick else PROPOSAL_MARGIN_DB)):
+                fail.append(f"{mode}: val mean {split['mean_psnr']:.2f} dB, constant "
+                            f"image {const:.2f} dB")
+            hull_launches = counts["occupancy_at_hull"]
+            if (hull_launches > 0) != (mode == "hull") or counts["ngp_fused_train_cf"] != steps:
+                fail.append(f"{mode}: launches {counts}")
+            if mode == "grid":
+                grid = res.state.aux
+            trainer.close()
+            del trainer, res, state
+    report["lookups"] = grid_lookups_on_card(grid, dev)
+    for name, r in report["lookups"].items():
+        exact = name != "occupancy_at"
+        if (exact and not r["exact"]) or r["max_rel_err"] > PROPOSAL_TRILINEAR_TOL:
+            fail.append(f"{name} on the card: {r}")
+    emit(report)
+    if fail:
+        raise AssertionError(f"proposals: {fail}")
+    return total, all_points
+
+
+# ---- data parallelism: parallel/ on one card -----------------------------------
+
+MESH_STEPS = 512               # machina_ngp.yml: a full refresh at 256, incremental at 512
+MESH_CLASSIC_STEPS = 100
+MESH_FRAMES = 8
+MESH_GRAD_TOL = 1e-5           # step 1's rank-mean gradient, of each leaf's largest |g|
+MESH_G_LIVE = 2e-6             # parameters compared where |g| exceeds this
+MESH_STEP1_LOSS_RTOL = 1e-5    # step 1's loss: one batch, the same weights
+MESH_PARAM_TOL = 1e-6          # step 1's parameters where |g| > MESH_G_LIVE
+# Beyond step 1: the refresh at MESH_STEPS // 2, run in one process from the
+# ranks' state before it, gives the ranks' grid bit for bit; the step after
+# it, taken in one process from the ranks' state, is held as step 1 is; the
+# generator ends in the same state. The loss curve: MESH_CONTROLS runs of
+# one process from weights nudged by one ulp (a random half, seeds 1..)
+# part from the unnudged run as rounding alone parts it; the ranks' first
+# MESH_FIRST_LOSSES losses are held within MESH_LOSS_RTOL and the mean of
+# their last MESH_LAST_LOSSES within MESH_LAST_RTOL, or within the largest
+# parting of a control where that is wider (their readings: PERF.md
+# section 6).
+MESH_CONTROLS = 5
+MESH_LOCKSTEP = 8              # steps one process takes from the ranks' state after the refresh
+MESH_FIRST_LOSSES = 32
+MESH_LOSS_RTOL = 1e-3
+MESH_LAST_LOSSES = 100
+MESH_LAST_RTOL = 0.02
+MESH_WINDOW = 64               # steps a window of the printed curve gaps
+MESH_VAL_DB = 0.2
+MESH_RANK_TIMEOUT = 420        # seconds a rank (or a torchrun command) may take
+MESH_TORCHRUN_STEPS = 512
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def fixture_engine(fx, dev, mesh=None):
+    """The fixture's trained fast engine and grid on ``dev``."""
+    from nerf_kinematics_tpu_torch.io.convert import grid_from_numpy
+    from nerf_kinematics_tpu_torch.train.ngp_engine import NGPEngine
+
+    engine = NGPEngine(fx.config, scene_bound=1.0, device=dev, mesh=mesh)
+    engine.load_flax_params(fx.params)
+    return engine, grid_from_numpy(fx.grid_density, fx.grid_bound, device=dev)
+
+
+def _digest(t: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def mesh_views(fx, dev, quick: bool) -> tuple:
+    """The train phase's views and the classic phase's views of the
+    fixture's model, as build_dataset renders them."""
+    engine, aux = fixture_engine(fx, dev)
+    with torch.no_grad():
+        return (build_dataset(fx, engine, aux, dev, quick),
+                build_dataset(fx, engine, aux, dev, quick,
+                              size=100 if quick else CLASSIC_SIZE))
+
+
+def save_views(path: str, views) -> None:
+    from nerf_kinematics_tpu_torch.io.fixture import _intrinsics_row
+
+    arrays = {}
+    for k, ds in enumerate(views):
+        arrays.update({f"images{k}": ds.images, f"poses{k}": ds.poses,
+                       f"intrinsics{k}": _intrinsics_row(ds.intrinsics),
+                       f"near_far{k}": np.asarray([ds.near, ds.far])})
+    np.save(path, arrays, allow_pickle=True)
+
+
+def load_views(path: str) -> tuple:
+    """:func:`save_views`'s file -> the datasets (two views held out)."""
+    from nerf_kinematics_tpu_torch.data.types import dataset_from_arrays
+    from nerf_kinematics_tpu_torch.io.fixture import intrinsics_from_row
+
+    a = np.load(path, allow_pickle=True).item()
+    return tuple(dataset_from_arrays(a[f"images{k}"], a[f"poses{k}"],
+                                     intrinsics_from_row(a[f"intrinsics{k}"]),
+                                     *a[f"near_far{k}"], n_val=2) for k in range(2))
+
+
+SNAP_KEYS = ("params", "mu", "nu", "count", "step", "grid", "gen")
+
+
+def snapshot(state) -> dict:
+    """A fast-engine train state as arrays (:data:`SNAP_KEYS`: its grid and
+    its generator's state included)."""
+    return {"params": state.params.cpu().numpy(), "mu": state.opt_state.mu.cpu().numpy(),
+            "nu": state.opt_state.nu.cpu().numpy(),
+            "count": np.int64(int(state.opt_state.count)), "step": np.int64(int(state.step)),
+            "grid": state.aux.density.cpu().numpy(),
+            "gen": state.generator.get_state().numpy()}
+
+
+def state_from(trainer, snap: dict):
+    """:func:`snapshot`'s arrays -> a train state of ``trainer``'s engine."""
+    st = trainer.engine.init_state()
+    dev = st.params.device
+    for t, k in ((st.params, "params"), (st.opt_state.mu, "mu"), (st.opt_state.nu, "nu"),
+                 (st.opt_state.count, "count"), (st.step, "step")):
+        t.copy_(torch.as_tensor(snap[k], device=dev))
+    st.aux = st.aux._replace(density=torch.as_tensor(snap["grid"], device=dev))
+    st.generator.set_state(torch.from_numpy(np.ascontiguousarray(snap["gen"])))
+    return st
+
+
+def snapshot_first_refresh(engine, snaps: dict) -> None:
+    """Have ``engine``'s first refresh of a train state keep the state's
+    :func:`snapshot` before it (``snaps["before"]``) and after it
+    (``snaps["after"]``). ``del engine.update_occupancy`` undoes it."""
+    refresh = engine.update_occupancy
+
+    def hooked(aux, *args, **kw):
+        if "before" in snaps or not hasattr(aux, "params"):
+            return refresh(aux, *args, **kw)
+        snaps["before"] = snapshot(aux)
+        aux = refresh(aux, *args, **kw)
+        snaps["after"] = snapshot(aux)
+        return aux
+
+    engine.update_occupancy = hooked
+
+
+def steps_from(trainer, snap: dict, n: int) -> tuple:
+    """``n`` train steps of ``trainer`` from :func:`snapshot`'s state ->
+    (the gradient Adam saw in the first, the parameters after it, every
+    step's loss)."""
+    st = state_from(trainer, snap)
+    b1 = trainer.engine.adam.b1
+    mu0 = st.opt_state.mu.clone()
+    losses = []
+    for k in range(n):
+        st, m = trainer._train_step(st, trainer.images, trainer.poses, trainer.ray_buf)
+        losses.append(float(m["loss"]))
+        if k == 0:
+            g = ((st.opt_state.mu - b1 * mu0) / (1.0 - b1)).cpu().numpy()
+            p = st.params.cpu().numpy()
+    return g, p, np.asarray(losses)
+
+
+def mesh_controls(trainer, start: dict) -> np.ndarray:
+    """MESH_CONTROLS runs of ``trainer.fit`` from :func:`snapshot`'s state
+    ``start``, each with one ulp added to or taken from a random half of its
+    weights (seeds 1..) -> their losses, one row each."""
+    rows = []
+    for seed in range(1, MESH_CONTROLS + 1):
+        st = state_from(trainer, start)
+        rng = np.random.default_rng(seed)
+        n = st.params.numel()
+        pick = torch.as_tensor(rng.random(n) < 0.5, device=st.params.device)
+        toward = torch.as_tensor(np.where(rng.random(n) < 0.5, np.inf, -np.inf),
+                                 dtype=torch.float32, device=st.params.device)
+        st.params.copy_(torch.where(pick, torch.nextafter(st.params, toward), st.params))
+        rows.append(trainer.fit(state=st).losses)
+    return np.asarray(rows)
+
+
+def mesh_runs(fx, dev, quick: bool, mesh, views, rank0=None) -> tuple:
+    """What the mesh phase runs on every rank (``mesh``) and in one process
+    (None): machina_ngp.yml from the train phase's start for MESH_STEPS
+    steps, its first step alone as well (the rank-mean gradient Adam saw is
+    its first moment over 1 - b1), its state before and after the first
+    refresh, and the step after that refresh again; machina_classic.yml
+    MESH_CLASSIC_STEPS steps on the classic phase's views, its first step
+    alone as well; the frame-batch renderer on MESH_FRAMES frames of the
+    fixture's model. ``views``: :func:`mesh_views`'s datasets.
+    ``rank0`` (one process only): rank 0's arrays. From its states around
+    the refresh this process runs the refresh and MESH_LOCKSTEP steps; then
+    the controls (:func:`mesh_controls`).
+    -> (arrays, report, launches, points)."""
+    from nerf_kinematics_tpu_torch.data.machina import orbit_poses
+    from nerf_kinematics_tpu_torch.ops import cuda_lib
+    from nerf_kinematics_tpu_torch.train.config import config_from_dict
+    from nerf_kinematics_tpu_torch.train.trainer import Trainer
+
+    import dataclasses
+
+    arrays, report = {}, {}
+    launches = dict.fromkeys(cuda_lib.LAUNCHES, 0)
+    points = collections.Counter()
+
+    def count():
+        for k, v in cuda_lib.LAUNCHES.items():
+            launches[k] += v
+        points.update(cuda_lib.POINTS)
+
+    views, views_c = views
+    base_c = config_from_dict(CLASSIC_CONFIG)
+    with tempfile.TemporaryDirectory() as logdir:
+        cfg_n, steps_n = _train_config(fx, logdir, quick, steps=MESH_STEPS)
+        cfg_c = base_c.replace(experiment=dataclasses.replace(
+            base_c.experiment, logdir=logdir, id="mesh_classic", print_every=0,
+            validate_every=0, save_every=0,
+            train_iters=20 if quick else MESH_CLASSIC_STEPS, randomseed=CLASSIC_SEED))
+        for tag, cfg, ds in (("ngp", cfg_n, views), ("classic", cfg_c, views_c)):
+            trainer = Trainer(cfg, ds, device=dev, use_mesh=mesh is not None)
+            state = trainer.init_or_resume()
+            one = state.clone()
+            snaps = {}
+            if tag == "ngp":
+                snaps["start"] = snapshot(state)
+                snapshot_first_refresh(trainer.engine, snaps)
+            torch.cuda.synchronize()
+            cuda_lib.reset_launch_counts()
+            # ---- the main path -------------------------------------------
+            one, _ = trainer._train_step(one, trainer.images, trainer.poses,
+                                          trainer.ray_buf)
+            res = trainer.fit(state=state)
+            torch.cuda.synchronize()
+            count()
+            # ----------------------------------------------------------------
+            b1 = trainer.engine.adam.b1
+            arrays[f"{tag}_g1"] = (one.opt_state.mu / (1.0 - b1)).cpu().numpy()
+            arrays[f"{tag}_p1"] = one.params.cpu().numpy()
+            arrays[f"{tag}_losses"] = np.asarray(res.losses)
+            r = report[tag] = {
+                "steps": len(res.losses),
+                "ms_per_step": statistics.median(s / k * 1e3 for k, s in res.chunk_seconds),
+                "params_sha256": _digest(res.state.params)}
+            if res.state.aux is not None:
+                r["grid_sha256"] = _digest(res.state.aux.density)
+                r["refreshes"] = [[i, k] for i, k, _ in res.occupancy_refreshes]
+            if trainer.is_main:
+                r["val_psnr_db"] = trainer.validate(res.state)["val_psnr"]
+            if tag == "ngp":
+                del trainer.engine.update_occupancy
+                r["generator_sha256"] = _digest(res.state.generator.get_state())
+                for k in ("before", "after"):
+                    arrays.update({f"ngp_{k}_{n}": v for n, v in snaps[k].items()})
+                ranks_at = (None if rank0 is None else
+                            {k: {n: rank0[f"ngp_{k}_{n}"] for n in SNAP_KEYS}
+                             for k in ("before", "after")})
+                g, p, lk = steps_from(trainer, snaps["after"] if rank0 is None
+                                      else ranks_at["after"],
+                                      1 if rank0 is None else MESH_LOCKSTEP)
+                arrays.update(ngp_g_mid=g, ngp_p_mid=p, ngp_lockstep_losses=lk)
+                if rank0 is not None:
+                    st = trainer.engine.update_occupancy(
+                        state_from(trainer, ranks_at["before"]), full=True)
+                    arrays["ngp_grid_from_ranks"] = st.aux.density.cpu().numpy()
+                    arrays["control_losses"] = mesh_controls(trainer, snaps["start"])
+            trainer.close()
+            del trainer, res, state, one
+    # ---- serving: the frame batch over the ranks ------------------------------
+    engine, aux = fixture_engine(fx, dev, mesh=mesh)
+    poses = torch.tensor(orbit_poses(MESH_FRAMES), device=dev)
+    batch = engine.make_fast_render_batch(fx.intrinsics, fx.config.dataset.near,
+                                          fx.config.dataset.far, False)
+    cuda_lib.reset_launch_counts()
+    out, ms = timed(lambda: batch(poses, aux))
+    count()
+    report["serve"] = {"frames": MESH_FRAMES, "ms": ms,
+                       "sha256": {k: _digest(v) for k, v in sorted(out.items())}}
+    return arrays, report, launches, points
+
+
+def mesh_rank_main(args) -> int:
+    """One rank of the mesh phase's two (``--mesh-rank``): joins the gloo
+    group on cuda:0, runs :func:`mesh_runs` and writes its results."""
+    import torch.distributed as dist
+
+    from nerf_kinematics_tpu_torch.io.fixture import read_fixture
+    from nerf_kinematics_tpu_torch.parallel.mesh import make_mesh
+    from nerf_kinematics_tpu_torch.parallel.multihost import initialize_multihost
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_multihost(f"127.0.0.1:{args.mesh_port}", args.mesh_world, args.mesh_rank,
+                         backend="gloo", device=dev)
+    mesh = make_mesh(dev)
+    views = load_views(os.path.join(args.mesh_out, "views.npy"))
+    arrays, report, launches, points = mesh_runs(read_fixture(), dev, args.quick, mesh,
+                                                 views)
+    report.update(rank=mesh.rank, world=mesh.world, backend=mesh.backend,
+                  launches=launches,
+                  points=[[k, b, v] for (k, b), v in points.items()])
+    np.savez(os.path.join(args.mesh_out, f"rank{mesh.rank}.npz"), **arrays)
+    with open(os.path.join(args.mesh_out, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_ranks(argvs, timeout: float, env=None) -> list:
+    """Start every command at once and wait for all: any failure or a
+    command past ``timeout`` seconds kills the others and raises. Each
+    command leads a process group of its own, and what is left of a group
+    is killed whole (a launcher's workers with it). -> their (stdout,
+    stderr)."""
+    import signal
+    import subprocess
+
+    procs = [subprocess.Popen(a, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=env, start_new_session=True)
+             for a in argvs]
+    deadline = time.monotonic() + timeout
+    outs, bad = [], None
+    for k, p in enumerate(procs):
+        try:
+            out, err = p.communicate(timeout=max(deadline - time.monotonic(), 1.0))
+        except subprocess.TimeoutExpired:
+            bad = f"command {k} passed {timeout} s"
+            break
+        outs.append((out, err))
+        if p.returncode != 0:
+            bad = f"command {k} exited {p.returncode}:\n{err[-3000:]}"
+            break
+    for p in procs:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(p.pid, signal.SIGKILL)
+        if p.poll() is None:
+            p.communicate()
+    if bad is not None:
+        raise AssertionError(f"mesh: {bad}")
+    return outs
+
+
+def leafwise_gap(got, want, layout) -> dict:
+    """Each leaf's largest |got - want| over its largest |want|."""
+    gaps = {}
+    for name, _, off, n in layout.entries:
+        w = want[off:off + n]
+        gaps[name] = float(np.abs(got[off:off + n] - w).max() / max(np.abs(w).max(), 1e-30))
+    return gaps
+
+
+def step_against(got: dict, want: dict, tag: str, which: str, layout, loss, want_loss) -> dict:
+    """One step of the ranks (``got``'s ``{tag}_g{which}`` gradient, ``{tag}_p{which}``
+    parameters) against the same step in one process (``want``'s): each
+    leaf's gradient gap, the parameters where |g| > MESH_G_LIVE, the loss,
+    the gradient's signs."""
+    g, want_g = got[f"{tag}_g{which}"], want[f"{tag}_g{which}"]
+    live = np.abs(want_g) > MESH_G_LIVE
+    flipped = np.sign(g) != np.sign(want_g)
+    gap = np.abs(got[f"{tag}_p{which}"] - want[f"{tag}_p{which}"])
+    return {"grad_gap_by_leaf_max": max(leafwise_gap(g, want_g, layout).values()),
+            "loss_rel": float(abs(loss - want_loss) / abs(want_loss)),
+            "params_gap_where_live": float(gap[live].max()), "live_share": float(live.mean()),
+            "grad_signs_differ": int(flipped.sum()),
+            "grad_signs_differ_where_live": int((flipped & live).sum())}
+
+
+def step_ok(c: dict) -> bool:
+    """:func:`step_against`'s reading within the step-1 tolerances."""
+    return (c["grad_gap_by_leaf_max"] <= MESH_GRAD_TOL
+            and c["params_gap_where_live"] <= MESH_PARAM_TOL
+            and c["loss_rel"] <= MESH_STEP1_LOSS_RTOL
+            and not c["grad_signs_differ_where_live"])
+
+
+def phase_mesh(fx, dev, quick: bool, basedir: str):
+    """Data parallelism (parallel/) on the card: (a) one step of
+    machina_ngp.yml through an NCCL group of world 1, bit for bit the step
+    without a group; (b) two ranks over gloo, both on cuda:0, against one
+    process: machina_ngp.yml from the train phase's start, MESH_STEPS steps;
+    machina_classic.yml, MESH_CLASSIC_STEPS steps (rows 9, 10); the frame
+    batch of the fixture's model split over the ranks; (c) ``torchrun
+    --nproc_per_node 2 ... cli.run_nerf --mesh`` on machina400:
+    MESH_TORCHRUN_STEPS steps, then the ``--fast`` video, against one
+    process's render of the same checkpoint. Two ranks time-slice one card:
+    their ms a step is no speed result."""
+    import torch.distributed as dist
+
+    from nerf_kinematics_tpu_torch.io.image import read_png
+    from nerf_kinematics_tpu_torch.ops import cuda_lib
+    from nerf_kinematics_tpu_torch.parallel.mesh import Mesh
+    from nerf_kinematics_tpu_torch.train.loop import build_shuffled_ray_buffer
+    from nerf_kinematics_tpu_torch.train.ngp_engine import NGPEngine
+
+    report = {"phase": "mesh", "quick": quick}
+    seconds = {}
+    total = collections.Counter()
+    all_points = collections.Counter()
+    fail = []
+    here = os.path.abspath(__file__)
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(here) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+
+    # ---- (a) NCCL at world 1: the step without a group, bit for bit ----------
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    mesh1 = Mesh(rank=0, world=1, device=dev, backend=str(dist.get_backend()))
+    both = mesh_views(fx, dev, quick)
+    views = both[0]
+    with tempfile.TemporaryDirectory() as logdir:
+        cfg, _ = _train_config(fx, logdir, quick)
+    imgs, poses = views.split("train")
+    buf = build_shuffled_ray_buffer(torch.as_tensor(imgs, device=dev),
+                                    torch.as_tensor(poses, device=dev), views.intrinsics,
+                                    seed=cfg.experiment.randomseed)
+    stepped = {}
+    for tag, m in (("alone", None), ("nccl", mesh1)):
+        eng = NGPEngine(cfg, 1.0, device=dev, mesh=m)
+        st = eng.init_state()
+        step = eng.make_train_step(views.intrinsics, views.near, views.far, False)
+        cuda_lib.reset_launch_counts()
+        st, met = step(st, None, None, buf)
+        torch.cuda.synchronize()
+        total.update(cuda_lib.LAUNCHES)
+        all_points.update(cuda_lib.POINTS)
+        stepped[tag] = (st, float(met["loss"]))
+    (a, la), (b, lb) = stepped["alone"], stepped["nccl"]
+    same = (torch.equal(a.opt_state.mu, b.opt_state.mu) and torch.equal(a.params, b.params)
+            and la == lb)
+    report["nccl_world1"] = {"backend": mesh1.backend, "world": mesh1.world,
+                             "gradient_and_step_bit_equal": same, "loss": la}
+    if not same:
+        fail.append("the NCCL world-1 step differs from the step without a group")
+    dist.destroy_process_group()
+    del stepped, a, b, buf
+    seconds["nccl_world1"] = time.perf_counter() - t0
+
+    # ---- (b) two ranks over gloo on cuda:0 against one process -----------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    with tempfile.TemporaryDirectory() as out_dir:
+        save_views(os.path.join(out_dir, "views.npy"), both)
+        port = free_port()
+        argvs = [[sys.executable, here, "--mesh-rank", str(r), "--mesh-world", "2",
+                  "--mesh-port", str(port), "--mesh-out", out_dir]
+                 + (["--quick"] if quick else []) for r in range(2)]
+        run_ranks(argvs, MESH_RANK_TIMEOUT, env=env)
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                rep = json.load(f)
+            ranks.append((dict(np.load(os.path.join(out_dir, f"rank{r}.npz"))), rep))
+    seconds["two_ranks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arrays, single, launches, points = mesh_runs(fx, dev, quick, None, both,
+                                                 rank0=ranks[0][0])
+    seconds["one_process"] = time.perf_counter() - t0
+    total.update(launches)
+    all_points.update(points)
+    for _, rep in ranks:
+        total.update(rep["launches"])
+        all_points.update({(k, b): v for k, b, v in rep["points"]})
+    (a0, r0), (a1, r1) = ranks
+    from nerf_kinematics_tpu_torch.train.config import config_from_dict
+    from nerf_kinematics_tpu_torch.train.loop import ClassicNerf
+
+    layouts = {"ngp": NGPEngine(fx.config, 1.0, device="cpu").layout,
+               "classic": ClassicNerf(config_from_dict(CLASSIC_CONFIG), device="cpu").layout}
+    cmp = report["two_ranks"] = {"ranks": [[r0["rank"], r0["world"], r0["backend"]],
+                                           [r1["rank"], r1["world"], r1["backend"]]]}
+    for tag in ("ngp", "classic"):
+        c = cmp[tag] = {
+            "step1": step_against(a0, arrays, tag, "1", layouts[tag],
+                                  a0[f"{tag}_losses"][0], arrays[f"{tag}_losses"][0]),
+            "ranks_step1_equal": bool(np.array_equal(a0[f"{tag}_g1"], a1[f"{tag}_g1"])),
+            "ms_per_step_one_process": single[tag]["ms_per_step"],
+            "ms_per_step_two_ranks": [r0[tag]["ms_per_step"], r1[tag]["ms_per_step"]],
+            "ranks_final_params_equal": r0[tag]["params_sha256"] == r1[tag]["params_sha256"]}
+        if not step_ok(c["step1"]):
+            fail.append(f"{tag}: step 1 against one process: {c['step1']}")
+        if not (c["ranks_step1_equal"] and c["ranks_final_params_equal"]):
+            fail.append(f"{tag}: the ranks' states differ")
+        if "grid_sha256" in r0[tag] and r0[tag]["grid_sha256"] != r1[tag]["grid_sha256"]:
+            fail.append(f"{tag}: the ranks' grids differ")
+    # the NGP run past step 1: the refresh, the step after it, the draws
+    c = cmp["ngp"]
+    half = int(a0["ngp_after_step"])
+    lock = arrays["ngp_lockstep_losses"]
+    c.update(
+        refresh_at=half,
+        refresh_from_ranks_state_bit_equal=bool(np.array_equal(
+            arrays["ngp_grid_from_ranks"], a0["ngp_after_grid"])),
+        grid_cells_differ_at_refresh=int((arrays["ngp_after_grid"]
+                                          != a0["ngp_after_grid"]).sum()),
+        grid_max_gap_at_refresh=float(np.abs(arrays["ngp_after_grid"]
+                                             - a0["ngp_after_grid"]).max()),
+        after_refresh=step_against(a0, arrays, "ngp", "_mid", layouts["ngp"],
+                                   a0["ngp_lockstep_losses"][0], lock[0]),
+        lockstep_losses_rel=(np.abs(lock / a0["ngp_losses"][half:half + len(lock)] - 1)
+                             .tolist()),
+        draws_equal=bool(r0["ngp"]["generator_sha256"] == r1["ngp"]["generator_sha256"]
+                         == single["ngp"]["generator_sha256"]
+                         and np.array_equal(a0["ngp_before_gen"], arrays["ngp_before_gen"])))
+    if not (c["refresh_from_ranks_state_bit_equal"] and step_ok(c["after_refresh"])
+            and c["draws_equal"]):
+        fail.append(f"ngp: past step 1 against one process: {c}")
+
+    # the NGP run's curve and its validation, beside the controls' curves
+    def parted(lm, l1):
+        k = MESH_FIRST_LOSSES
+        return (float(np.max(np.abs(lm[:k] - l1[:k]) / np.abs(l1[:k]))),
+                float(abs(lm[-MESH_LAST_LOSSES:].mean() / l1[-MESH_LAST_LOSSES:].mean() - 1)))
+
+    def windows(lm, l1):
+        rel = np.abs(lm / l1 - 1)
+        return [float(rel[k:k + MESH_WINDOW].mean()) for k in range(0, len(rel), MESH_WINDOW)]
+
+    l1 = arrays["ngp_losses"]
+    first_rel, last_rel = parted(a0["ngp_losses"], l1)
+    ctrl = [parted(lc, l1) for lc in arrays["control_losses"]]
+    ctrl_first, ctrl_last = [f for f, _ in ctrl], [l for _, l in ctrl]
+    win = windows(a0["ngp_losses"], l1)
+    win_ctrl = [windows(lc, l1) for lc in arrays["control_losses"]]
+    envelope = np.max(win_ctrl, axis=0)
+    above = [k * MESH_WINDOW for k, (x, e) in enumerate(zip(win, envelope)) if x > e]
+    val_gap = abs(r0["ngp"]["val_psnr_db"] - single["ngp"]["val_psnr_db"])
+    c.update(first_losses_max_rel=first_rel, last_mean_rel=last_rel,
+             controls_first_losses_max_rel=ctrl_first, controls_last_mean_rel=ctrl_last,
+             window_mean_rel=win, controls_window_mean_rel_max=envelope.tolist(),
+             windows_above_controls=above,
+             val_psnr_db=[r0["ngp"]["val_psnr_db"], single["ngp"]["val_psnr_db"]],
+             refreshes=r0["ngp"]["refreshes"])
+    first_ok = first_rel <= max(MESH_LOSS_RTOL, max(ctrl_first))
+    last_ok = last_rel <= max(MESH_LAST_RTOL, max(ctrl_last))
+    if not first_ok or (not quick and (not last_ok or val_gap > MESH_VAL_DB)):
+        fail.append(f"ngp: two ranks against one process: first {first_rel} (controls "
+                    f"{ctrl_first}), last {last_rel} (controls {ctrl_last}), val "
+                    f"{val_gap} dB")
+    serve_equal = r0["serve"]["sha256"] == single["serve"]["sha256"] == r1["serve"]["sha256"]
+    cmp["serve"] = {"frames": MESH_FRAMES, "bit_equal": serve_equal,
+                    "ms_two_ranks": [r0["serve"]["ms"], r1["serve"]["ms"]],
+                    "ms_one_process": single["serve"]["ms"]}
+    if not serve_equal:
+        fail.append("serve: the frame batch over two ranks differs from one process's")
+
+    # ---- (c) torchrun --nproc_per_node 2 ... run_nerf --mesh ------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    steps = 64 if quick else MESH_TORCHRUN_STEPS
+    with tempfile.TemporaryDirectory() as root:
+        logdir = os.path.join(root, "logs")
+        yml = copy_config("machina_ngp.yml", root, logdir=logdir, basedir=basedir,
+                          randomseed=TRAIN_SEED, train_iters=steps, save_every=steps,
+                          print_every=steps // 2, validate_every=steps)
+        launcher = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+                    "--nproc_per_node", "2", "--master_addr", "127.0.0.1"]
+        cli = ["-m", "nerf_kinematics_tpu_torch.cli.run_nerf", "--config", yml, "--mesh"]
+        trained = run_ranks([launcher + ["--master_port", str(free_port())] + cli],
+                            MESH_RANK_TIMEOUT, env=env)[0]
+        video = run_ranks([launcher + ["--master_port", str(free_port())] + cli
+                           + ["--render-video", "--fast", "--load-checkpoint",
+                              str(steps)]], MESH_RANK_TIMEOUT, env=env)[0]
+        rundir = os.path.join(logdir, "machina-ngp")
+        with open(os.path.join(rundir, "metrics.jsonl")) as f:
+            recs = [json.loads(l) for l in f]
+        keys = [(r["tag"], r["step"]) for r in recs]
+        frames = sorted(n for n in os.listdir(os.path.join(rundir, "video"))
+                        if n.startswith("frame_"))
+        ckpts = sorted(os.listdir(os.path.join(rundir, "checkpoints")))
+        # one process's render of the same checkpoint, as the video writes it
+        from nerf_kinematics_tpu_torch.cli.run_nerf import load_state
+        from nerf_kinematics_tpu_torch.rendering.fast_render import FastRenderSettings
+        from nerf_kinematics_tpu_torch.train.config import load_config
+        from nerf_kinematics_tpu_torch.train.loop import eval_params
+        from nerf_kinematics_tpu_torch.train.trainer import Trainer
+
+        tr = Trainer(load_config(yml), device=dev)
+        st = load_state(tr, str(steps))
+        val = tr.cfg.nerf.validation
+        ds = tr.dataset
+        render = tr.engine.make_fast_render_fn(
+            ds.intrinsics, ds.near, ds.far, ds.use_ndc, settings=FastRenderSettings(
+                num_coarse=val.num_coarse, num_fine=64, fg_fraction=0.35,
+                white_background=val.white_background))
+        mismatched = 0
+        with torch.no_grad(), tr.engine.bound(eval_params(st)):
+            for i, p in enumerate(ds.render_poses):
+                rgb = render(torch.as_tensor(p, dtype=torch.float32, device=dev),
+                             st.aux)["rgb"].float().cpu().numpy()
+                u8 = np.clip(rgb * 255, 0, 255).astype(np.uint8)
+                mismatched += not np.array_equal(
+                    u8, read_png(os.path.join(rundir, "video", f"frame_{i:04d}.png")))
+        tr.close()
+        n_frames = len(ds.render_poses)
+    seconds["torchrun"] = time.perf_counter() - t0
+    report["torchrun"] = {
+        "steps": steps, "frames": len(frames), "render_poses": n_frames,
+        "checkpoints": ckpts, "metrics_records": len(recs),
+        "records_written_once": len(keys) == len(set(keys)),
+        "frames_unequal_to_one_process": mismatched,
+        "train_printed": trained[0].strip().splitlines()[-2:],
+        "video_printed": video[0].strip().splitlines()[-1:]}
+    if not (len(keys) == len(set(keys)) and recs and ckpts == [f"ckpt_{steps:08d}.pt"]):
+        fail.append(f"torchrun: logs {report['torchrun']}")
+    if mismatched or len(frames) != n_frames:
+        fail.append(f"torchrun: {mismatched} of {n_frames} frames differ from one "
+                    f"process's ({len(frames)} written)")
+    report["seconds"] = seconds
+    report["launches"] = dict(total)
+    report["launches_by_row"] = by_row(total, all_points)
+    emit(report)
+    if fail:
+        raise AssertionError(f"mesh: {fail}")
+    return total, all_points
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -4231,7 +4989,14 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="all",
                     help="comma-separated subset of: " + ", ".join(PHASES)
                     + " (default: all; a subset prints no result line)")
+    # one rank of the mesh phase's two, started by the phase itself
+    ap.add_argument("--mesh-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-world", type=int, default=2, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-port", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.mesh_rank is not None:
+        return mesh_rank_main(args)
     phases = PHASES if args.phases == "all" else tuple(args.phases.split(","))
     unknown = [p for p in phases if p not in PHASES]
     if unknown:
@@ -4310,7 +5075,7 @@ def main(argv=None) -> int:
         scene_dir = os.path.join(work, "machina400")
         if "scene" in phases:
             add(phase_scene(fx, dev, args.quick, args.profile, scene_dir))
-        elif {"cli", "bench"} & set(phases):
+        elif {"cli", "bench", "mesh"} & set(phases):
             from nerf_kinematics_tpu_torch.data.machina import write_machina_dataset
 
             write_machina_dataset(scene_dir, **(SCENE_QUICK if args.quick else SCENE))
@@ -4318,6 +5083,15 @@ def main(argv=None) -> int:
             add(phase_cli(dev, args.quick, scene_dir))
         if "bench" in phases:
             add(phase_bench(dev, scene_dir))
+        if "proposals" in phases:
+            if dataset is None:
+                engine, aux = fixture_engine(fx, dev)
+                with torch.no_grad():
+                    dataset = build_dataset(fx, engine, aux, dev, args.quick)
+            add(phase_proposals(fx, dev, args.quick, dataset))
+        dataset = engine = aux = None
+        if "mesh" in phases:
+            add(phase_mesh(fx, dev, args.quick, scene_dir))
     if phases != PHASES:
         emit({"phase": "total", "seconds": time.perf_counter() - t_start,
               "partial": list(phases)})

@@ -13,9 +13,19 @@ Flags:
     --max-iters N     override experiment.train_iters
     --export-legacy   also write the reference's checkpoint{iter}.ckpt files
     --device cpu      run on the CPU (the plain versions of the kernels)
+    --mesh            data parallelism over the ranks of a process group
 
-``--mesh`` (data parallelism over several GPUs) is not ported yet and
-raises. Counterpart of ``nerf_kinematics_tpu/cli/run_nerf.py``.
+``--mesh`` under ``torchrun`` splits each step's rays over the ranks and the
+``--fast`` video's frames (the pose batch padded to a multiple of the world
+size, the padding dropped); each rank takes ``cuda:{LOCAL_RANK % devices}``
+(NCCL when every rank has its own GPU, gloo when they share one or run on
+the CPU) and rank 0 alone writes logs, checkpoints, images and the video:
+
+    torchrun --nproc_per_node 2 -m nerf_kinematics_tpu_torch.cli.run_nerf \
+        --config configs/machina_ngp.yml --mesh
+
+Without a process group, or with a world of 1, ``--mesh`` is the
+single-device path. Counterpart of ``nerf_kinematics_tpu/cli/run_nerf.py``.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -45,7 +56,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--load-checkpoint", default=None, help="Checkpoint step or legacy .ckpt path")
     p.add_argument("--max-iters", type=int, default=None, help="Override train_iters")
     p.add_argument("--mesh", action="store_true",
-                   help="Shard rays over all devices (not ported yet)")
+                   help="Shard rays (and --fast frames) over the ranks of a "
+                        "process group (torchrun)")
     p.add_argument("--export-legacy", action="store_true", help="Write torch-layout ckpts too")
     p.add_argument("--device", default=None,
                    help="torch device (default: the GPU; 'cpu' to run on the CPU)")
@@ -57,19 +69,29 @@ def main(argv=None) -> dict:
     ``rays_per_sec``, ``fps``, ``frames``, ``video``), for callers in the
     same process."""
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: multi-GPU data parallelism is not ported yet (ROADMAP A.9)")
     from .._device import resolve_device
     from ..train.config import load_config
     from ..train.trainer import Trainer
 
-    device = resolve_device(args.device)
+    device = args.device
+    joined = False  # whether this command joined the group, and leaves it
+    if args.mesh:
+        from ..parallel.multihost import initialize_multihost, local_rank
+
+        if device is None and torch.cuda.is_available():
+            device = torch.device("cuda", local_rank() % torch.cuda.device_count())
+            torch.cuda.set_device(device)
+        existed = dist.is_initialized()
+        joined = initialize_multihost(device=device) and not existed
+    device = resolve_device(device)
     cfg = load_config(args.config)
-    trainer = Trainer(cfg, device=device, export_legacy=args.export_legacy)
+    trainer = Trainer(cfg, device=device, export_legacy=args.export_legacy,
+                      use_mesh=args.mesh)
 
     try:
         if args.eval:
+            if not trainer.is_main:
+                return {}
             state = load_state(trainer, args.load_checkpoint)
             v = trainer.validate(state)
             if not v:
@@ -82,14 +104,16 @@ def main(argv=None) -> dict:
             return _render_video(trainer, state, fast=args.fast,
                                  fast_fg=args.fast_fg, fast_fine=args.fast_fine)
         result = trainer.fit(max_iters=args.max_iters)
-        if result.val_psnr is not None:
+        if trainer.is_main and result.val_psnr is not None:
             print(f"final val_psnr={result.val_psnr:.3f} dB")
-        if result.rays_per_sec is not None:
+        if trainer.is_main and result.rays_per_sec is not None:
             print(f"throughput={result.rays_per_sec:.0f} rays/s")
         return {"val_psnr": result.val_psnr, "rays_per_sec": result.rays_per_sec,
                 "step": int(result.state.step)}
     finally:
         trainer.close()
+        if joined:
+            dist.destroy_process_group()
 
 
 def load_state(trainer, load_checkpoint):
@@ -153,8 +177,12 @@ def _render_video(trainer, state, fast: bool = False, fast_fg: float = 0.35,
     if poses is None:
         raise SystemExit("dataset has no render path (no *_test_video.json / spiral)")
     outdir = os.path.join(trainer.rundir, "video")
-    os.makedirs(outdir, exist_ok=True)
     engine, device = trainer.engine, trainer.device
+    mesh = trainer.mesh
+    if mesh is not None and not fast:
+        mesh = None  # the evaluation renderer runs on rank 0 alone
+        if not trainer.is_main:
+            return {}
 
     render = trainer._render
     if fast:
@@ -164,23 +192,38 @@ def _render_video(trainer, state, fast: bool = False, fast_fg: float = 0.35,
         if not hasattr(engine, "make_fast_render_fn"):
             raise SystemExit("--fast needs the fast engine (engine: ngp)")
         val = trainer.cfg.nerf.validation
-        render = engine.make_fast_render_fn(
-            ds.intrinsics, ds.near, ds.far, ds.use_ndc,
-            settings=FastRenderSettings(num_coarse=val.num_coarse, num_fine=fast_fine,
-                                        fg_fraction=fast_fg,
-                                        white_background=val.white_background))
+        settings = FastRenderSettings(num_coarse=val.num_coarse, num_fine=fast_fine,
+                                      fg_fraction=fast_fg,
+                                      white_background=val.white_background)
+        render = engine.make_fast_render_fn(ds.intrinsics, ds.near, ds.far,
+                                            ds.use_ndc, settings=settings)
 
     # All frames in flight and one synchronisation before the clock stops;
     # the poses go to the device in one transfer, and a first frame (the
     # kernels' first launch) is rendered before the clock starts.
     n = len(poses)
-    dposes = torch.as_tensor(np.asarray(poses), dtype=torch.float32, device=device)
+    pose_arr = np.asarray(poses)
+    pad = 0
+    if mesh is not None:
+        # frames split over the ranks: pad the pose batch to a multiple of
+        # the world size with the last pose; the padded frames are dropped
+        pad = (-n) % mesh.world
+        pose_arr = np.concatenate([pose_arr] + [pose_arr[-1:]] * pad)
+    dposes = torch.as_tensor(pose_arr, dtype=torch.float32, device=device)
     with torch.no_grad(), engine.bound(eval_params(state)):
         render(dposes[0], state.aux)["rgb"].sum().item()
         t0 = time.perf_counter()
-        outs = [render(p, state.aux)["rgb"] for p in dposes]
+        if mesh is not None:
+            batch = engine.make_fast_render_batch(ds.intrinsics, ds.near, ds.far,
+                                                  ds.use_ndc, settings=settings)
+            outs = list(batch(dposes, state.aux)["rgb"][:n])
+        else:
+            outs = [render(p, state.aux)["rgb"] for p in dposes]
         _sync(device)
-        dt = time.perf_counter() - t0
+        dt = (time.perf_counter() - t0) * n / (n + pad)
+    if not trainer.is_main:
+        return {"frames": n, "fps": n / dt}
+    os.makedirs(outdir, exist_ok=True)
 
     frames = []
     for i, o in enumerate(outs):

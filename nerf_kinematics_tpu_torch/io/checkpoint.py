@@ -21,11 +21,17 @@ _NAME = re.compile(r"ckpt_(\d+)\.pt$")
 
 
 class CheckpointManager:
-    def __init__(self, directory: str):
+    """Checkpoints under ``directory``; ``create=False`` (a rank that only
+    reads them) leaves the directory to the writer."""
+
+    def __init__(self, directory: str, create: bool = True):
         self.directory = directory
-        os.makedirs(directory, exist_ok=True)
+        if create:
+            os.makedirs(directory, exist_ok=True)
 
     def steps(self):
+        if not os.path.isdir(self.directory):
+            return []
         found = (_NAME.match(n) for n in os.listdir(self.directory))
         return sorted(int(m.group(1)) for m in found if m)
 

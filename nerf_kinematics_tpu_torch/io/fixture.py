@@ -21,8 +21,10 @@ from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from ..data.types import Intrinsics
+from ..ops.occupancy import OccupancyGrid, pair_projections
 from .convert import params_from_npz
 from ..train.config import Config, config_from_json, config_to_json
 
@@ -101,3 +103,49 @@ def read_fixture(path: str = MACHINA_NGP) -> Fixture:
             step=int(z["step"]),
             golden=golden,
         )
+
+
+# configs/fox_ngp.yml's ``ngp.fused: off`` route trained on the card for
+# chip_smoke.py's ``halo`` phase (scripts/torch_halo_witness.py record).
+HALO_FOX_UNFUSED = os.path.join(FIXTURE_DIR, "halo_fox_unfused_1000.npz")
+
+
+def _bf16_bits(t) -> np.ndarray:
+    t = torch.as_tensor(t, dtype=torch.float32).detach().cpu()
+    return t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+
+
+def _from_bf16_bits(bits: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(bits).view(np.int16)).view(
+        torch.bfloat16).to(torch.float32)
+
+
+def write_halo_state(path: str, params, density, bound: float, **extra) -> None:
+    """A trained state of a bf16 fast-engine model, small enough to commit:
+    the flat parameters rounded to bf16 (the bf16 route's forward reads
+    every weight and table entry through that rounding, so its renders and
+    its next step's forward are unchanged) and the grid's three pair
+    projections rounded to bf16 (all the hull proposal reads, and it reads
+    them so rounded). ``extra``: numpy arrays or JSON strings kept beside."""
+    grid = OccupancyGrid(torch.as_tensor(density, dtype=torch.float32).cpu(),
+                         torch.tensor(float(bound)))
+    arrays = {"params_bf16": _bf16_bits(params),
+              "proj_bf16": _bf16_bits(pair_projections(grid)),
+              "bound": np.asarray(float(bound), np.float32)}
+    arrays.update({k: np.asarray(v) for k, v in extra.items()})
+    np.savez_compressed(path, **arrays)
+
+
+def read_halo_state(path: str = HALO_FOX_UNFUSED, device=None) -> dict:
+    """:func:`write_halo_state`'s file -> {"params": (P,) f32, "grid": the
+    visual hull of the stored projections (its pair projections are those
+    projections exactly), and every other array as stored}."""
+    with np.load(path) as z:
+        out = {k: z[k] for k in z.files}
+    proj = _from_bf16_bits(out.pop("proj_bf16"))
+    density = torch.minimum(torch.minimum(proj[0][:, :, None], proj[1][:, None, :]),
+                            proj[2][None, :, :])
+    out["params"] = _from_bf16_bits(out.pop("params_bf16")).to(device)
+    out["grid"] = OccupancyGrid(density.contiguous().to(device),
+                                torch.tensor(float(out.pop("bound")), device=device))
+    return out

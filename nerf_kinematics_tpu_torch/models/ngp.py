@@ -53,7 +53,8 @@ class NGPConfig:
     occ_resolution: int = 96
     occ_update_every: int = 256
     # Proposal lookup: "hull" (visual-hull proxy from the three 2D
-    # pair-projections), "grid", "projected". Only "hull" is ported.
+    # pair-projections), "grid" (the grid at the nearest cell), "projected"
+    # (the 1D axis-projection proxy); ops/occupancy.py.
     occ_proposal: str = "hull"
     occ_bins: int = 64
     occ_floor: float = 1e-2

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -292,7 +293,9 @@ def _sources():
 def build_library(verbose: bool = False) -> str:
     """Compile ``csrc/*.cu`` into one shared library; returns its path. The
     file name carries a hash of the sources and flags, so an unchanged tree
-    reuses the library it built before."""
+    reuses the library it built before. Processes that build at once (the
+    ranks of one job) take turns on a lock of the build directory: the first
+    compiles and links, the others find its library."""
     cu, hdr = _sources()
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in cu + hdr:
@@ -305,6 +308,21 @@ def build_library(verbose: bool = False) -> str:
     if os.path.isfile(lib):
         BUILD_INFO.update(seconds=0.0, library=lib, cached=True)
         return lib
+    # the lock is held until the file closes, however the block ends
+    with open(os.path.join(out_dir, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.isfile(lib):
+            BUILD_INFO.update(seconds=time.perf_counter() - t0, library=lib,
+                              cached=True)
+            return lib
+        _compile_and_link(cu, out_dir, lib, verbose)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, library=lib, cached=False)
+    return lib
+
+
+def _compile_and_link(cu, out_dir: str, lib: str, verbose: bool) -> None:
+    """One ``nvcc -c`` a source, all started together, then one link into
+    ``lib``; the caller holds the build directory's lock."""
     nvcc = _nvcc()
     extra = ["-Xptxas", "-v"] if verbose else []
     procs = []
@@ -335,12 +353,8 @@ def build_library(verbose: bool = False) -> str:
     if link.returncode != 0:
         raise RuntimeError("linking the CUDA kernels failed:\n" + link.stdout)
     os.replace(tmp, lib)
-    BUILD_INFO.update(
-        seconds=time.perf_counter() - t0, library=lib, cached=False
-    )
     if verbose:
         print("\n".join(logs))
-    return lib
 
 
 def load_library(verbose: bool = False):

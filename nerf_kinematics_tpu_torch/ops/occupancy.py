@@ -4,9 +4,14 @@ A maintained EMA occupancy volume reweights each ray's uniform depth bins and
 resamples them through the inverse CDF, so samples concentrate in occupied
 space while every shape stays static.
 
-Ported: the full-sweep update (:func:`update_grid`), the incremental update
-(:func:`update_grid_incremental`) and the visual-hull proposal
-(``mode="hull"``). The ``grid`` / ``projected`` proposals are not ported yet.
+Maintenance: the full sweep (:func:`update_grid`) and the incremental decay
+and requery (:func:`update_grid_incremental`). Proposals
+(:func:`occupancy_sample`'s ``mode``): ``"hull"``, the visual-hull proxy of
+the three pair projections (row 1's kernel); ``"grid"``, the grid itself at
+the nearest cell; ``"projected"``, the separable proxy of the three axis
+projections. The last two are gathers in plain PyTorch: the reference's
+one-hot matmuls stand in for a gather on its chip, and give the gather's
+numbers, including the bf16 rounding of the projections.
 
 The grid is stored ``density[x, y, z]`` (axis 0 = x).
 """
@@ -117,6 +122,108 @@ def update_grid_incremental(
     return grid._replace(density=new.reshape(R, R, R))
 
 
+def occupancy_at(grid: OccupancyGrid, pts: torch.Tensor,
+                 to_unit: Optional[Callable] = None) -> torch.Tensor:
+    """Trilinear occupancy lookup at world points (..., 3) -> (...,), between
+    cell centres, clamped to the outer centres. A NaN coordinate gives NaN
+    (its weights are NaN; the gather takes cell 0); +-inf the outer
+    centres."""
+    to_unit = to_unit or _linear_to_unit(grid)
+    R = grid.resolution
+    u = torch.clamp(to_unit(pts) * R - 0.5, 0.0, R - 1.0)  # cell-centre coords
+    fl = torch.floor(u)
+    i0 = torch.clamp(torch.where(torch.isnan(fl), 0.0, fl), 0, R - 2).to(torch.int64)
+    w = u - i0
+    d = grid.density
+    out = 0
+    for dx in (0, 1):
+        for dy in (0, 1):
+            for dz in (0, 1):
+                v = d[i0[..., 0] + dx, i0[..., 1] + dy, i0[..., 2] + dz]
+                wx = w[..., 0] if dx else 1.0 - w[..., 0]
+                wy = w[..., 1] if dy else 1.0 - w[..., 1]
+                wz = w[..., 2] if dz else 1.0 - w[..., 2]
+                out = out + v * wx * wy * wz
+    return out
+
+
+def occupancy_at_nearest(grid: OccupancyGrid, pts: torch.Tensor,
+                         to_unit: Optional[Callable] = None) -> torch.Tensor:
+    """Occupancy of the cell holding each world point (..., 3) -> (...,):
+    one gather a point. The cell index is the unit coordinate times R
+    truncated toward zero, clamped to the grid, as the reference's int32
+    cast gives it: a NaN coordinate takes cell 0 on its axis, +inf the last
+    cell, -inf the first."""
+    to_unit = to_unit or _linear_to_unit(grid)
+    R = grid.resolution
+    t = torch.trunc(to_unit(pts) * R)
+    idx = torch.clamp(torch.where(torch.isnan(t), 0.0, t), 0, R - 1).to(torch.int64)
+    flat = idx[..., 0] * (R * R) + idx[..., 1] * R + idx[..., 2]
+    return grid.density.reshape(-1)[flat]
+
+
+def axis_projections(grid: OccupancyGrid) -> torch.Tensor:
+    """(R, 3) per-axis max-projections: ``proj[t, a]`` is the largest density
+    of the slab at index t of axis a, an upper bound of the occupancy along
+    each axis."""
+    d = grid.density
+    return torch.stack([d.amax(dim=(1, 2)), d.amax(dim=(0, 2)), d.amax(dim=(0, 1))],
+                       dim=-1)
+
+
+def occupancy_at_projected(proj: torch.Tensor, pts: torch.Tensor,
+                           to_unit: Callable) -> torch.Tensor:
+    """Separable occupancy proxy at world points (..., 3) -> (...,):
+    ``min(px[x], py[y], pz[z])`` at the nearest cell, an upper bound of the
+    grid's occupancy, with the projections rounded to bf16 as the
+    reference's one-hot lookup reads them. A NaN coordinate reads 0 on its
+    axis (no cell matches it), so the point's minimum is at most 0; +-inf
+    read the end cells."""
+    R = proj.shape[0]
+    idx = torch.floor(torch.clamp(to_unit(pts) * R, 0.0, R - 1.0)).reshape(-1, 3)
+    nan = torch.isnan(idx)
+    rows = torch.where(nan, 0.0, idx).to(torch.int64)
+    table = proj.to(torch.bfloat16).to(torch.float32)
+    vals = torch.gather(table, 0, rows)  # (P, 3): table[rows[p, a], a]
+    vals = torch.where(nan, torch.zeros_like(vals), vals)
+    return torch.amin(vals, dim=-1).reshape(pts.shape[:-1])
+
+
+def _bin_points(rays_o, rays_d, z_bins):
+    mids = 0.5 * (z_bins[..., 1:] + z_bins[..., :-1])
+    return rays_o[..., None, :] + rays_d[..., None, :] * mids[..., :, None]
+
+
+def _proposal_weights(occ: torch.Tensor, floor: float) -> torch.Tensor:
+    occ = occ / (torch.amax(occ, dim=-1, keepdim=True) + 1e-9)
+    return occ + floor
+
+
+def occupancy_proposal(grid: OccupancyGrid, rays_o: torch.Tensor,
+                       rays_d: torch.Tensor, z_bins: torch.Tensor,
+                       floor: float = 1e-2,
+                       to_unit: Optional[Callable] = None) -> torch.Tensor:
+    """Per-bin proposal weights from the grid at bin centres (nearest cell,
+    :func:`occupancy_at_nearest`), normalized by the per-ray maximum, plus a
+    uniform ``floor`` so unseen space keeps receiving samples. Returns
+    (..., n_bins - 1) weights."""
+    pts = _bin_points(rays_o, rays_d, z_bins)
+    return _proposal_weights(occupancy_at_nearest(grid, pts, to_unit=to_unit), floor)
+
+
+def occupancy_proposal_projected(grid: OccupancyGrid, rays_o: torch.Tensor,
+                                 rays_d: torch.Tensor, z_bins: torch.Tensor,
+                                 floor: float = 1e-2,
+                                 to_unit: Optional[Callable] = None) -> torch.Tensor:
+    """Per-bin proposal weights from the separable proxy
+    (:func:`occupancy_at_projected`); the contract of
+    :func:`occupancy_proposal`."""
+    to_unit = to_unit or _linear_to_unit(grid)
+    pts = _bin_points(rays_o, rays_d, z_bins)
+    occ = occupancy_at_projected(axis_projections(grid), pts, to_unit)
+    return _proposal_weights(occ, floor)
+
+
 def pair_projections(grid: OccupancyGrid) -> torch.Tensor:
     """(3, R, R) per-axis-pair max-projections: Pxy (max over z), Pxz (max
     over y), Pyz (max over x): the visual-hull factorization of the grid."""
@@ -159,8 +266,7 @@ def occupancy_proposal_hull(
         pts = rays_o[..., None, :] + rays_d[..., None, :] * mids[..., :, None]
         xt = to_unit(pts).reshape(-1, 3).T.contiguous()
         occ = occupancy_at_hull_cuda(proj2, xt).reshape(pts.shape[:-1])
-    occ = occ / (torch.amax(occ, dim=-1, keepdim=True) + 1e-9)
-    return occ + floor
+    return _proposal_weights(occ, floor)
 
 
 def occupancy_sample(
@@ -180,24 +286,24 @@ def occupancy_sample(
 ) -> torch.Tensor:
     """Occupancy-weighted depth sampling: uniform bins -> occupancy PDF ->
     inverse-CDF resample at stratified positions (sorted, no per-ray sort).
-    Only ``mode="hull"`` is ported."""
-    if mode != "hull":
-        if mode in ("grid", "projected"):
-            raise NotImplementedError(
-                f"occupancy proposal mode {mode!r} is not ported yet "
-                "(ROADMAP A.6: the grid / projected proposals)"
-            )
+    ``mode``: "hull" (the pair-projection proxy, row 1's kernel), "grid"
+    (the grid at the nearest cell) or "projected" (the axis-projection
+    proxy). ``u`` (n_rays, num_samples) replaces the generator's jitter."""
+    proposals = {
+        "grid": occupancy_proposal,
+        "projected": occupancy_proposal_projected,
+        "hull": occupancy_proposal_hull,
+    }
+    if mode not in proposals:
         raise ValueError(
             f"unknown occupancy proposal mode {mode!r}; expected one of "
-            "['grid', 'hull', 'projected']"
+            f"{sorted(proposals)}"
         )
     n_rays = rays_o.shape[0]
     bins = linspace(
         float(near), float(far), num_bins + 1, device=rays_o.device
     ).expand(n_rays, num_bins + 1)
-    weights = occupancy_proposal_hull(
-        grid, rays_o, rays_d, bins, to_unit=to_unit, floor=floor
-    )
+    weights = proposals[mode](grid, rays_o, rays_d, bins, to_unit=to_unit, floor=floor)
     return sample_pdf(
         bins, weights, num_samples, deterministic=deterministic,
         stratified_u=True, generator=generator, u=u,

@@ -21,9 +21,18 @@ Random draws come from ``TrainState.generator`` in a fixed order per step:
   4. the fine depth jitter, (n_rays, num_fine) uniforms;
   5. the fine pass's density noise.
 
-Every one of them can be passed in instead (``offset=``, ``pixels=``,
+The train step makes all of them before the objective, which only consumes
+them. Every one of them can be passed in instead (``offset=``, ``pixels=``,
 ``u_coarse=``, ``u_fine=``, ``noise_coarse=``, ``noise_fine=``), which is
 how tests feed this package and the reference the same numbers.
+
+Data parallelism (an engine built with ``mesh=``, ``parallel/mesh.py``).
+Every rank draws the global batch and the global draws above, in that
+order, from the same generator (or takes the same global draws passed in),
+then computes its contiguous share of the rays; the flat gradient and the
+loss metrics are averaged over the ranks once a step, before Adam. Each
+rank's objective already scales by its own ray count, so N ranks take the
+step one device takes, and their states stay equal.
 
 Optimizer. Adam over the flat buffer with each engine's constants
 (``engine.adam``): the fast engine's (b2 0.99, eps 1e-15, coupled 1e-6 decay
@@ -43,6 +52,7 @@ from torch import nn
 
 from .._device import resolve_device
 from ..cameras.rays import get_rays, ndc_rays, pixel_dirs
+from ..parallel.mesh import all_reduce_mean, shard_batch
 from ..rendering.renderer import render_image, render_rays
 from ..utils.logging import get_logger
 
@@ -375,6 +385,34 @@ def build_train_step(engine, intrinsics, near, far, use_ndc: bool = False):
     objective = build_objective(engine, near, far)
     adam: AdamConfig = engine.adam
     decay_masks: Dict[Any, torch.Tensor] = {}
+    mesh = getattr(engine, "mesh", None)
+    if mesh is not None and n_rays % mesh.world:
+        raise ValueError(f"num_random_rays {n_rays} does not split over "
+                         f"{mesh.world} ranks")
+
+    def step_draws(gen, u_coarse, u_fine, noise_coarse, noise_fine):
+        """The step's global draws after the batch, from ``gen`` in the
+        module's order (coarse jitter, coarse noise, fine jitter, fine
+        noise; the jitter only with ``perturb``, the noise only with a noise
+        std), or the global ones given; then this rank's rows (all of them
+        without a mesh). The objective only consumes them, so one device and
+        N ranks draw alike."""
+        noisy = settings.radiance_field_noise_std > 0
+
+        def draw(x, cols, wanted, fn):
+            if x is None and wanted:
+                x = fn((n_rays, cols), generator=gen, dtype=torch.float32,
+                       device=gen.device)
+            return shard_batch(x, mesh)
+
+        Sc, Sf = settings.num_coarse, settings.num_fine
+        u_coarse = draw(u_coarse, Sc, settings.perturb, torch.rand)
+        noise_coarse = draw(noise_coarse, Sc, noisy, torch.randn)
+        if Sf > 0:
+            u_fine = draw(u_fine, Sf, settings.perturb, torch.rand)
+            s_fine = Sc + Sf if settings.merge_hierarchical else Sf
+            noise_fine = draw(noise_fine, s_fine, noisy, torch.randn)
+        return u_coarse, u_fine, noise_coarse, noise_fine
 
     def train_step(state: TrainState, images, poses, ray_buf=None, *,
                    offset=None, pixels=None, u_coarse=None, u_fine=None,
@@ -390,6 +428,9 @@ def build_train_step(engine, intrinsics, near, far, use_ndc: bool = False):
                 batch = sample_batch_shuffled(gen, ray_buf, offset)
             else:
                 batch = sample_batch(gen, images, poses, pixels)
+            batch = tuple(shard_batch(t, mesh) for t in batch)
+            u_coarse, u_fine, noise_coarse, noise_fine = step_draws(
+                gen, u_coarse, u_fine, noise_coarse, noise_fine)
         (loss, (loss_c, loss_f)), grads = objective(
             batch, state.aux, gen, u_coarse=u_coarse, u_fine=u_fine,
             noise_coarse=noise_coarse, noise_fine=noise_fine)
@@ -397,8 +438,13 @@ def build_train_step(engine, intrinsics, near, far, use_ndc: bool = False):
             dev = state.params.device
             if adam.weight_decay and dev not in decay_masks:
                 decay_masks[dev] = layout.decay_mask(dev, adam.weight_decay)
-            adam_update(state.params, layout.flatten(grads), state.opt_state,
-                        sched, decay_masks.get(dev), adam)
+            g = layout.flatten(grads)
+            if mesh is not None:
+                g = all_reduce_mean(g, mesh)
+                loss, loss_c, loss_f = all_reduce_mean(
+                    torch.stack([loss, loss_c, loss_f]), mesh)
+            adam_update(state.params, g, state.opt_state, sched,
+                        decay_masks.get(dev), adam)
             if state.ema is not None:
                 state.ema.mul_(ema_decay).add_(state.params,
                                                alpha=1.0 - ema_decay)
@@ -459,13 +505,16 @@ class ClassicNerf:
     (``ops/classic_fused_cuda.py``) when its ``fused`` mode is "auto" or "on"
     and the config is one the kernel takes, else through the module. The
     optimizer is ``CLASSIC_ADAM`` (optax's defaults, no decay); the coarse
-    pass trains through the coarse loss (weight 1 by default)."""
+    pass trains through the coarse loss (weight 1 by default). ``mesh``
+    (``parallel/mesh.py``): the ranks the train step splits its rays over."""
 
     adam = CLASSIC_ADAM
 
-    def __init__(self, cfg, device=None, generator: Optional[torch.Generator] = None):
+    def __init__(self, cfg, device=None, generator: Optional[torch.Generator] = None,
+                 mesh=None):
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.mesh = mesh
         self.model = ClassicModel(cfg.model_coarse, cfg.model_fine,
                                   generator).to(self.device)
         self.model_coarse = self.model.coarse

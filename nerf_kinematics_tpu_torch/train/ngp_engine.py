@@ -52,6 +52,7 @@ from ..ops.occupancy import (
 )
 from ..ops.sampling import _uniform, hierarchical_sample, linspace, stratified_sample
 from ..ops.volume_render import raw2outputs_cf
+from ..parallel.mesh import all_gather_rows, shard_batch
 from ..rendering.fast_render import FastRenderSettings, render_image_fast
 from ..rendering.renderer import render_image
 from .config import Config
@@ -77,13 +78,16 @@ GPU_CHUNK_RAYS = 32768
 class NGPEngine:
     """Single NGP model for both passes. ``device=None`` means the GPU and
     raises when there is none; pass ``device="cpu"`` to run the plain
-    PyTorch versions of the kernels on the CPU."""
+    PyTorch versions of the kernels on the CPU. ``mesh``
+    (``parallel/mesh.py``): the ranks the train step splits its rays over
+    and the frame-batch renderer its frames."""
 
     adam = NGP_ADAM
 
     def __init__(self, cfg: Config, scene_bound: float = 1.0, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         # The fast engine always uses sorted fine-only importance samples.
         cfg = cfg.replace(
             nerf=dataclasses.replace(
@@ -257,8 +261,9 @@ class NGPEngine:
     # -- occupancy acceleration ---------------------------------------------
     def proposal_for(self, aux: Optional[OccupancyGrid], near, far, settings,
                      generator: Optional[torch.Generator] = None):
-        """(rays_o, rays_d) -> (N, num_coarse) occupancy-placed depths, or
-        None without a grid."""
+        """(rays_o, rays_d) -> (N, num_coarse) depths placed by the
+        ``ngp.occ_proposal`` lookup ("hull", "grid" or "projected"), or None
+        without a grid."""
         if aux is None or not self.ngp_config.use_occupancy:
             return None
         to_unit = self._occ_to_unit()
@@ -331,7 +336,9 @@ class NGPEngine:
 
         Eligibility mirrors the reference's: fused cp encoder, proposal-only
         coarse pass (coarse_loss_weight 0), importance fine samples,
-        viewdirs on, no density noise, and a ray count divisible by 128.
+        viewdirs on, no density noise, and a ray count divisible by 128
+        (under a mesh, each rank's count too: an eligible step whose
+        per-rank count is not raises, rather than take another route).
         ``ngp.fused_train: full`` takes the whole step in one call instead
         (:meth:`_full_objective`), and needs the hull proposal on a linear
         scene with static near / far. ``loss_c`` is the MSE of the
@@ -357,6 +364,12 @@ class NGPEngine:
                     "noise_std 0, and num_random_rays % 128 == 0"
                 )
             return None
+        n_global = self.cfg.nerf.num_random_rays
+        if self.mesh is not None and (n_global // self.mesh.world) % RAYS_PER_BLOCK:
+            raise ValueError(
+                f"the fused objective takes rays in blocks of {RAYS_PER_BLOCK}: "
+                f"{n_global} rays over {self.mesh.world} ranks leaves "
+                f"{n_global // self.mesh.world} a rank")
 
         S = settings.num_fine
         white_bg = settings.white_background
@@ -566,15 +579,22 @@ class NGPEngine:
     def make_fast_render_batch(self, intrinsics, near, far,
                                use_ndc: bool = False, settings=None):
         """Frame-batch serving: (c2ws (F, 4, 4), aux) -> maps dict with a
-        leading frame axis. Single device: a loop over the frames, all
-        launches enqueued without a host synchronisation in between.
-        Sharding the frame axis over several GPUs is not ported yet."""
+        leading frame axis: a loop over the frames, all launches enqueued
+        without a host synchronisation in between. Under the engine's mesh
+        rank r renders its contiguous block of F / world frames and every
+        rank gets all F (``all_gather``); F must be a multiple of the world
+        size (``cli/run_nerf.py`` pads the pose batch)."""
         render_view = self.make_fast_render_fn(intrinsics, near, far, use_ndc,
                                                settings)
+        mesh = self.mesh
 
         def batched(c2ws, aux):
-            frames = [render_view(c, aux) for c in c2ws]
-            return {k: torch.stack([f[k] for f in frames]) for k in frames[0]}
+            if mesh is not None and len(c2ws) % mesh.world:
+                raise ValueError(f"{len(c2ws)} frames do not split over "
+                                 f"{mesh.world} ranks; pad the pose batch")
+            frames = [render_view(c, aux) for c in shard_batch(c2ws, mesh)]
+            return {k: all_gather_rows(torch.stack([f[k] for f in frames]), mesh)
+                    for k in frames[0]}
 
         return batched
 

@@ -7,6 +7,12 @@ train/val x loss/psnr plus rays per second in ``metrics.jsonl``.
 
 Steps are enqueued in chunks sized to the smallest event cadence; the host
 reads the device (metrics, validation, checkpoints) on those cadences only.
+
+With ``use_mesh`` and a process group of two or more ranks
+(``parallel/``), every rank trains the replicated state on its share of
+each step's rays; rank 0 alone writes metrics, checkpoints and validation
+renders, and the others meet it at a barrier after each checkpoint and at
+the end of ``fit``.
 """
 
 from __future__ import annotations
@@ -19,10 +25,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..data.types import NerfDataset
 from ..io.checkpoint import CheckpointManager
 from ..metrics.psnr import psnr
 from ..metrics.writer import ScalarWriter
+from ..parallel.mesh import barrier, make_mesh
 from ..utils.logging import get_logger
 from .config import Config
 from .loop import ClassicNerf, TrainState, build_shuffled_ray_buffer, eval_params
@@ -45,16 +53,31 @@ class TrainResult:
     chunk_seconds: list = field(default_factory=list)
 
 
+class _NoWriter:
+    """The metrics writer of a rank that writes none."""
+
+    def scalar(self, tag: str, value: float, step: int) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 class Trainer:
     """Fits the engine ``cfg.engine`` names ("ngp" or "classic") to a
     dataset: the one given, or the one ``cfg.dataset`` describes on disk
     (``data/__init__.py::load_dataset``). ``device=None`` means the GPU.
     ``export_legacy`` (classic engine only) writes the reference's
     ``checkpoint{iter}.ckpt`` next to each checkpoint, with the weights
-    validation scores."""
+    validation scores. ``use_mesh``: split each step's rays over the ranks
+    of the process group (``parallel/mesh.py::make_mesh``; ``self.mesh`` is
+    None, the single-device path, without a group of two or more)."""
 
     def __init__(self, cfg: Config, dataset: Optional[NerfDataset] = None,
-                 device=None, export_legacy: bool = False):
+                 device=None, export_legacy: bool = False, use_mesh: bool = False):
         if dataset is None:
             from ..data import load_dataset
 
@@ -63,23 +86,29 @@ class Trainer:
                 device=device)
         self.cfg = cfg
         self.dataset = ds = dataset
+        self.mesh = make_mesh(resolve_device(device)) if use_mesh else None
         if cfg.engine == "ngp":
             from .ngp_engine import NGPEngine
 
             bound = max(ds.aabb_scale / 2.0, 1.0)
-            self.engine = NGPEngine(cfg, scene_bound=bound, device=device)
+            self.engine = NGPEngine(cfg, scene_bound=bound, device=device,
+                                    mesh=self.mesh)
         elif cfg.engine == "classic":
-            self.engine = ClassicNerf(cfg, device=device)
+            self.engine = ClassicNerf(cfg, device=device, mesh=self.mesh)
         else:
             raise ValueError(f"unknown engine {cfg.engine!r}")
         self.export_legacy = export_legacy and cfg.engine == "classic"
         self.device = self.engine.device
+        # the rank that writes metrics, checkpoints and renders
+        self.is_main = self.mesh is None or self.mesh.is_main
 
         exp = cfg.experiment
         self.rundir = os.path.join(exp.logdir, exp.id)
-        os.makedirs(self.rundir, exist_ok=True)
-        self.writer = ScalarWriter(self.rundir)
-        self.ckpt = CheckpointManager(os.path.join(self.rundir, "checkpoints"))
+        if self.is_main:
+            os.makedirs(self.rundir, exist_ok=True)
+        self.writer = ScalarWriter(self.rundir) if self.is_main else _NoWriter()
+        self.ckpt = CheckpointManager(os.path.join(self.rundir, "checkpoints"),
+                                      create=self.is_main)
 
         self._train_step = self.engine.make_train_step(
             ds.intrinsics, ds.near, ds.far, ds.use_ndc)
@@ -222,15 +251,17 @@ class Trainer:
                 dt = time.perf_counter() - t0
                 result.rays_per_sec = (it - start_step) * n_rays / max(dt, 1e-9)
                 m = result.last_metrics
-                log.info("iter %d/%d loss %.5f psnr %.2f | %.0f rays/s",
-                         it, total, m["loss"], m["psnr"], result.rays_per_sec)
+                if self.is_main:
+                    log.info("iter %d/%d loss %.5f psnr %.2f | %.0f rays/s",
+                             it, total, m["loss"], m["psnr"], result.rays_per_sec)
                 self.writer.scalar("train/loss", m["loss"], it)
                 self.writer.scalar("train/psnr", m["psnr"], it)
                 self.writer.scalar("perf/rays_per_sec", result.rays_per_sec, it)
                 # metrics.jsonl doubles as the run's liveness heartbeat
                 self.writer.flush()
 
-            if exp.validate_every > 0 and ((it % exp.validate_every) < k or it == total):
+            if (self.is_main and exp.validate_every > 0
+                    and ((it % exp.validate_every) < k or it == total)):
                 v = self.validate(state)
                 if v:
                     result.val_psnr = v["val_psnr"]
@@ -244,12 +275,13 @@ class Trainer:
 
         # Final mean over the whole validation split: the per-step val/psnr
         # scalar is view 0 only.
-        if len(self.dataset.val_idx) > 1:
+        if self.is_main and len(self.dataset.val_idx) > 1:
             mean = self.evaluate_split(state, "val")["mean_psnr"]
             self.writer.scalar("val/psnr_mean", mean, it)
             log.info("final val mean psnr %.2f dB over %d views", mean,
                      len(self.dataset.val_idx))
         self.writer.flush()
+        barrier(self.mesh)
         result.state = state
         return result
 
@@ -257,7 +289,11 @@ class Trainer:
                         val_psnr: Optional[float] = None) -> None:
         """Write a checkpoint of iteration ``it`` and, with ``export_legacy``,
         the reference's ``checkpoint{it}.ckpt`` of the weights validation
-        scores (the EMA shadow when the run keeps one)."""
+        scores (the EMA shadow when the run keeps one). Under a mesh rank 0
+        writes and every rank waits for it."""
+        if not self.is_main:
+            barrier(self.mesh)
+            return
         self.ckpt.save(it, state, metrics, layout=self.engine.layout)
         if self.export_legacy:
             from ..io.torch_compat import export_legacy_checkpoint
@@ -270,6 +306,7 @@ class Trainer:
                     os.path.join(self.rundir, f"checkpoint{it}.ckpt"), it,
                     coarse, fine, loss=metrics.get("loss"), psnr=val_psnr)
         log.info("saved checkpoint at iter %d", it)
+        barrier(self.mesh)
 
     def close(self):
         self.writer.close()

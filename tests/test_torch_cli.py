@@ -229,8 +229,14 @@ def test_run_nerf_train_validate_checkpoint_resume(scene, tmp_path, capsys):
     assert len([f for f in os.listdir(vid["outdir"]) if f.startswith("frame_")]) == 40
     with pytest.raises(SystemExit):
         run_nerf.main(["--config", cfg_path, "--render-video", "--fast", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A.9"):
-        run_nerf.main(["--config", cfg_path, "--mesh", "--device", "cpu"])
+    # --mesh without a process group is the single-device path, to the bit
+    runs = []
+    for i, flags in enumerate(([], ["--mesh"])):
+        path = _write_yaml(tmp_path / f"m{i}.yml", _classic_raw(scene, str(tmp_path / f"m{i}")))
+        runs.append(run_nerf.main(["--config", path, "--max-iters", "6", "--device", "cpu",
+                                   *flags]))
+    assert runs[0]["step"] == runs[1]["step"] == 6
+    assert runs[1]["val_psnr"] == runs[0]["val_psnr"] and np.isfinite(runs[0]["val_psnr"])
 
 
 def test_run_nerf_silent_run_and_plot_metrics(scene, tmp_path, capsys):

@@ -46,7 +46,8 @@ def _port_files():
                 "poses/camera_path.py", "poses/pipeline.py", "data/robot.py",
                 "metrics/parallax.py", "cli/parse_poses.py", "cli/full_pipeline.py",
                 "poses/colmap.py", "poses/sfm.py", "poses/refine.py",
-                "cli/colmap2nerf.py", "cli/sfm2nerf.py"):
+                "cli/colmap2nerf.py", "cli/sfm2nerf.py", "parallel/__init__.py",
+                "parallel/mesh.py", "parallel/multihost.py"):
         assert f"nerf_kinematics_tpu_torch/{new}" in names
     return files
 

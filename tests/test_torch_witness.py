@@ -33,7 +33,9 @@ Margins, from what the scripts measured (PERF.md section 6, C.1 and C.2):
 """
 
 import importlib.util
+import json
 import pathlib
+import types
 
 import pytest
 import torch
@@ -100,3 +102,46 @@ def test_classic_seed_42_ends_where_jax_ends(tmp_path):
     jl, tl = out["jax"]["loss_by_window"][-1], out["port"]["loss_by_window"][-1]
     assert abs(tl - jl) <= LAST_LOSS_RTOL * jl, out
     assert abs(out["gap_db"]) <= MARGIN_DB, out
+
+
+# The card's state of configs/fox_ngp.yml's ``fused: off`` route: JAX against
+# the port parts by bf16 rounding (the layers of both round the same values;
+# f32 sums in another order can move a rounding by one bf16 step): 9.3e-4
+# measured on the content crop. The card's central crop against the port's
+# plain versions on the CPU: 9.3e-10 measured (that crop is nearly black).
+CROP_TOL = 2e-3
+CARD_CROP_TOL = 1e-5
+CONTENT_CROP = (0, 48)  # a 32^2 window of held-out view 0 on a satellite
+
+
+def test_card_halo_state_renders_in_both_packages():
+    """The card's trained ``fused: off`` state of ``configs/fox_ngp.yml`` on
+    the halo scene (``nerf_kinematics_tpu_torch/fixtures/
+    halo_fox_unfused_1000.npz``, ``torch_halo_witness.py record``): 32^2
+    crops of held-out view 0 through the JAX package's ``make_render_fn``
+    and the port's, from the same parameters and grid, against each other,
+    and the card's own render of its crop against the port's."""
+    import numpy as np
+
+    from nerf_kinematics_tpu_torch.io.fixture import intrinsics_from_row, read_halo_state
+
+    w = _script("torch_halo_witness")
+    st = read_halo_state()
+    meta = json.loads(str(st["meta"]))
+    raw = w.route_raw(w.fox_raw(), "unfused", 1000, int(meta["rays"]))
+    te, tstate, je, jstate = w.replay_pair(raw, st, bound=16.0)
+    near, far = (float(v) for v in st["near_far"])
+    scene = types.SimpleNamespace(near=near, far=far)
+    pose = st["crop_pose"]
+    view = intrinsics_from_row(st["intrinsics"])
+    for at in (tuple(int(v) for v in st["crop_at"]), CONTENT_CROP):
+        intr = w.crop_intrinsics(view, *at)
+        port = w.port_render(te, tstate.params, tstate.aux, intr, scene, pose).numpy()
+        jax_img = w.jax_render(je, jstate, intr, scene, pose)
+        assert port.shape == jax_img.shape == (w.CROP, w.CROP, 3)
+        assert np.isfinite(port).all()
+        assert np.abs(port - jax_img).max() <= CROP_TOL, at
+        if at == CONTENT_CROP:
+            assert port.std() > 0.1  # the satellite's edge, not a flat window
+        else:
+            assert np.abs(port - st["card_crop"]).max() <= CARD_CROP_TOL
