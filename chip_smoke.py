@@ -1001,6 +1001,26 @@ def classic_wgrad_yardstick(prm, n: int, reps: int, flush):
 
 
 GRAD_TOL = {"bf16": 5e-3, "f32": 2e-4}  # per leaf, relative to its largest entry
+# (levels, channels, table rows, samples a ray) of encodings other than
+# machina_ngp.yml's, for rows 6 and 7, so that every instance of the tile
+# kernel (csrc/ngp_fused_bwd.cu::launch_tile_for) runs: wheel_ngp.yml's at
+# its 64 fine samples (the generic instance up to 256), fox_ngp.yml's at the
+# halo two-call route's 48 (its own), and 8 x 64 (the generic one up to 512)
+OTHER_WIDTHS = {"wheel_ngp": (4, 32, 128, 64), "fox_ngp": (5, 96, 256, 48),
+                "8_levels_x_64": (8, 64, 128, 48)}
+
+
+def seeded_fused_params(cp, gen, dev) -> dict:
+    """Seeded weights of the shipped MLPs (density 64 -> 64 -> 16, color
+    32 -> 64 -> 64 -> 64 -> 3) on the encoding ``cp``, He-scaled."""
+    w = lambda k, j: torch.randn((k, j), generator=gen, device=dev) * (2.0 / k) ** 0.5
+    b = lambda j: torch.randn((j, 1), generator=gen, device=dev) * 0.1
+    dens = [(cp.out_dim, 64), (64, 64), (64, 16)]
+    col = [(32, 64), (64, 64), (64, 64), (64, 3)]
+    return {"lines": torch.randn((cp.n_levels, 3, cp.table_size, cp.n_components),
+                                 generator=gen, device=dev) * 0.5,
+            "dW": [w(*s) for s in dens], "db": [b(s[1]) for s in dens],
+            "cW": [w(*s) for s in col], "cb": [b(s[1]) for s in col]}
 TRAIN_OUT_TOL = 1e-4                    # err and maps of the train objective, abs
 
 
@@ -1033,6 +1053,7 @@ def phase_grad_kernels(fx, dev, quick: bool, reps: int):
     """Rows 5-7: each gradient kernel against its plain version on the card
     at the flagship train step's shapes, trained weights, seeded random
     cotangents / targets, bf16 and f32 mode."""
+    from nerf_kinematics_tpu_torch.ops import cuda_lib, ngp_fused_cuda
     from nerf_kinematics_tpu_torch.ops.cp_grid_cuda import (
         cp_encode_cuda_bwd, cp_encode_cuda_bwd_ref)
     from nerf_kinematics_tpu_torch.ops.ngp_fused_cuda import (
@@ -1150,8 +1171,10 @@ def phase_grad_kernels(fx, dev, quick: bool, reps: int):
                       for (_, a), (_, b_) in zip(_leaf_list(k), _leaf_list(p)))
         del k, p
     b, by = bound_ms(n * (24 + 16) + 2 * pbytes, flops, "bf16")
+    parts6 = ngp_fused_cuda.grad_bytes(params, cp, n, 0, cuda_lib.sm_count(dev))
     rows.append({
         "name": "ngp_fused_apply_cf_bwd", "route": "cuda",
+        "bytes_a_call": sum(parts6.values()), "bytes_by_part": parts6,
         "source": "nerf_kinematics_tpu_torch/csrc/ngp_fused_bwd.cu",
         "replaces": "nerf_kinematics_tpu/ops/ngp_fused_pallas.py:475",
         "n_points": n, "max_abs_err": abs_err,
@@ -1186,8 +1209,10 @@ def phase_grad_kernels(fx, dev, quick: bool, reps: int):
         raise AssertionError(
             f"ngp_fused_train_cf: err / maps differ by {out_err} > {TRAIN_OUT_TOL}")
     b, by = bound_ms(n * 28 + R * (12 + 20) + 2 * pbytes, flops + n * 120, "bf16")
+    parts7 = ngp_fused_cuda.grad_bytes(params, cp, n, S, cuda_lib.sm_count(dev))
     rows.append({
         "name": "ngp_fused_train_cf", "route": "cuda",
+        "bytes_a_call": sum(parts7.values()), "bytes_by_part": parts7,
         "source": "nerf_kinematics_tpu_torch/csrc/ngp_fused_bwd.cu",
         "replaces": "nerf_kinematics_tpu/ops/ngp_fused_pallas.py:752",
         "n_points": n, "n_rays": R, "max_abs_err": abs_err,
@@ -1207,8 +1232,6 @@ def phase_grad_kernels(fx, dev, quick: bool, reps: int):
     })
     # ---- ragged sizes: the tails of a block, a warp and a tile, and the
     # wrappers' split into several launches -------------------------------
-    from nerf_kinematics_tpu_torch.ops import ngp_fused_cuda
-
     Rr, Sr = 37, 27
     nr = Rr * Sr  # 999 points: no multiple of 32
     eng = engines["bf16"]
@@ -1245,9 +1268,48 @@ def phase_grad_kernels(fx, dev, quick: bool, reps: int):
                            {"lines": p5, "dW": [], "db": [], "cW": [], "cb": []})
         check("cp_encode_bwd, ragged", mode, rep5)
         ragged[f"row_5_{mode}_max_rel"] = worst_of([rep5])
+    # ---- the other shipped encodings: each instance of the tile kernel
+    # (csrc/ngp_fused_bwd.cu::launch_tile_for) at a config's widths and
+    # samples a ray, seeded weights, against the plain versions
+    widths = {}
+    gen_w = torch.Generator(device=dev).manual_seed(61)
+    for label, (L, C, T, Sw) in OTHER_WIDTHS.items():
+        cw = dataclasses.replace(cp, n_levels=L, n_components=C, table_size=T)
+        pw = seeded_fused_params(cw, gen_w, dev)
+        Rw = 512
+        nw = Rw * Sw
+        xw, vw = random_points(nw, gen_w, dev)
+        gw = torch.randn((4, nw), generator=gen_w, device=dev)
+        gw[3] *= 1e-3
+        zw = 2.0 + 4.0 * torch.sort(torch.rand((Rw, Sw), generator=gen_w, device=dev),
+                                    dim=-1).values
+        dw = torch.cat([zw[:, 1:] - zw[:, :-1], torch.full((Rw, 1), 1e10, device=dev)],
+                       dim=-1).reshape(1, nw).contiguous()
+        tw = torch.rand((3, Rw), generator=gen_w, device=dev)
+        iw = 1.0 / (3.0 * Rw)
+        k6 = ngp_fused_apply_cf_bwd(pw, xw, vw, gw, cw)
+        ek, mk, k7 = ngp_fused_train_cf(pw, xw, vw, dw, tw, cw, Sw, True, iw)
+        k7b = ngp_fused_train_cf(pw, xw, vw, dw, tw, cw, Sw, True, iw)[2]
+        p6 = ngp_fused_apply_cf_bwd_ref(pw, xw, vw, gw, cw)
+        ep, mp, p7 = ngp_fused_train_cf_ref(pw, xw, vw, dw, tw, cw, Sw, True, iw)
+        torch.cuda.synchronize()
+        rep6, rep7 = grad_errors(k6, p6), grad_errors(k7, p7)
+        check(f"ngp_fused_apply_cf_bwd, {label}", "bf16", rep6)
+        check(f"ngp_fused_train_cf, {label}", "bf16", rep7)
+        out_w = max((ek - ep).abs().max().item(), (mk - mp).abs().max().item())
+        if not out_w <= TRAIN_OUT_TOL:
+            raise AssertionError(f"ngp_fused_train_cf, {label}: err / maps differ by {out_w}")
+        plan = ngp_fused_cuda.bwd_plan_of(pw, cw, Sw)
+        widths[label] = {
+            "encoding": [L, C], "samples_a_ray": Sw, "n_points": nw,
+            "tile": [plan.points, plan.rays], "row_6_max_rel": worst_of([rep6]),
+            "row_7_max_rel": worst_of([rep7]), "err_maps_max_abs": out_w,
+            "row_7_deterministic": all(torch.equal(u, v) for (_, u), (_, v)
+                                       in zip(_leaf_list(k7), _leaf_list(k7b)))}
+        del k6, k7, k7b, p6, p7
     # ---- determinism: two launches on the same inputs give the same bits
     # (rows 5-7 here, row 8 in full_step_row, row 10 in classic_grad_row)
-    det = {}
+    det = {f"ngp_fused_train_cf_{k}": v["row_7_deterministic"] for k, v in widths.items()}
     for mode, eng in engines.items():
         prm, c = eng._fused_params(detach=True), eng.ngp_config.cp
         lines = prm["lines"]
@@ -1272,7 +1334,7 @@ def phase_grad_kernels(fx, dev, quick: bool, reps: int):
     for r in rows:
         r["nonfinite"] = nonfinite[r["name"]]
     emit({"phase": "grad_kernels", "quick": quick, "kernels": rows,
-          "ragged_999_points": ragged, "deterministic": det})
+          "ragged_999_points": ragged, "other_widths": widths, "deterministic": det})
     if not all(det.values()):
         raise AssertionError(f"grad_kernels: two launches differ: {det}")
     return rows
@@ -1336,7 +1398,7 @@ def full_step_row(fx, engines, dev, quick: bool, reps: int, flush):
     proposal bins on the fixture's 96^3 grid; bf16 and f32 mode, both
     backgrounds; then 37 rays in one launch and split over five."""
     from nerf_kinematics_tpu_torch.io.convert import grid_from_numpy
-    from nerf_kinematics_tpu_torch.ops import ngp_fused_cuda
+    from nerf_kinematics_tpu_torch.ops import cuda_lib, ngp_fused_cuda
     from nerf_kinematics_tpu_torch.ops.ngp_fused_cuda import (
         ngp_fused_train_full_cf, ngp_fused_train_full_cf_ref)
     from nerf_kinematics_tpu_torch.ops.occupancy import pair_projections
@@ -1403,8 +1465,16 @@ def full_step_row(fx, engines, dev, quick: bool, reps: int, flush):
         2 * param_bytes(prm, True)
     b, by = bound_ms(io, flops, "bf16")
     worst = max(v["max_rel"] for rep in reports.values() for v in rep.values())
+    # bytes a call: the fine stage's tile kernel (as row 7), stages (a)-(c):
+    # the rays and draws read, the coarse depths, points and sigma written
+    # and read back, the fine stage's operands written (read in the tile
+    # kernel's count), the pair projections; row 2's staged weights
+    parts8 = ngp_fused_cuda.grad_bytes(prm, c, n_f, S, cuda_lib.sm_count(dev))
+    parts8["stages_a_c"] = R * (4 * 12 + 4 * (S + Sc) + 4) + proj2.numel() * 4 + \
+        2 * n_c * (4 + 12 + 16) + n_f * 28
     row = {
         "name": "ngp_fused_train_full_cf", "route": "cuda",
+        "bytes_a_call": sum(parts8.values()), "bytes_by_part": parts8,
         "source": "nerf_kinematics_tpu_torch/csrc/ngp_fused_full.cu",
         "replaces": "nerf_kinematics_tpu/ops/ngp_fused_pallas.py:1013",
         "n_rays": R, "n_points": n_c + n_f, "max_abs_err": abs_err,
@@ -1829,9 +1899,9 @@ def profile_steps(trainer, state, n_steps: int = 10, groups=None):
         "hull proposal (row 1)": ("nkt_hull",),
         "coarse density (row 2)": ("nkt_fused_sigma", "nkt_mma_sigma"),
         "fused train objective (row 7)": (
-            "nkt_fused_apply_save", "nkt_mma_apply_save", "nkt_train_rays",
-            "nkt_fused_point_bwd", "nkt_mma_point_bwd", "nkt_cp_encode_bwd",
-            "nkt_wgrad", "nkt_reduce_partials"),
+            "nkt_fused_tile", "nkt_fused_apply_save", "nkt_train_rays",
+            "nkt_fused_point_bwd", "nkt_cp_encode_bwd", "nkt_wgrad",
+            "nkt_reduce_partials"),
         "non-finite checks: table scans, row 5's record and fix-up": NONFINITE_KERNELS}
     by_group, kernels = device_ms_by_group(
         prof, groups, other="PyTorch ops (sampling, compositing, gathers, Adam)")
@@ -2001,12 +2071,14 @@ NONFINITE_KERNELS = ("nkt_table_scan_kernel", "nkt_dl_record_kernel",
 
 ROW8_PARTS = {
     "row 8: sigma pass (row 2's body)": ("nkt_mma_sigma", "nkt_fused_sigma"),
-    "row 8: forward with saves": ("nkt_mma_apply_save", "nkt_fused_apply_save"),
-    "row 8: per-point backward": ("nkt_mma_point_bwd", "nkt_fused_point_bwd"),
+    # bf16 mode: the tile kernel (forward, compositing, backward, weight
+    # gradients); f32 mode: the forward with saves and the per-point backward
+    "row 8: fine stage (the tile kernel; f32: forward with saves, per-point backward)": (
+        "nkt_fused_tile", "nkt_fused_apply_save", "nkt_fused_point_bwd"),
     "row 8: line-table gradient (row 5's kernel)": ("nkt_cp_encode_bwd",),
-    # the partial sums: the weight gradients' and the line tables' chunks
-    "row 8: weight gradients, sums of the partials": ("nkt_wgrad",
-                                                      "nkt_reduce_partials"),
+    # the partial sums (f32 mode: and the weight gradients' kernels)
+    "row 8: sums of the partials (f32: weight gradients)": ("nkt_wgrad",
+                                                            "nkt_reduce_partials"),
     "row 8: proposal, fine inputs, ray kernel": ("nkf_", "nkt_train_rays"),
     "non-finite checks: table scans, row 5's record and fix-up": NONFINITE_KERNELS,
 }
@@ -2565,7 +2637,7 @@ def f32_smem_bytes(engines: dict, dev) -> dict:
         cp = dataclasses.replace(eng.ngp_config.cp, use_bf16=False)
         params = eng._fused_params(detach=True)
         out = torch.empty((4, 256), device=dev)
-        a, keep = _fused_args(params, xt, xt, out, cp, True, backward=True)
+        a, keep = _fused_args(params, xt, xt, out, cp, True)
         sizes = (ctypes.c_longlong * 6)()
         lib.nkt_fused_bwd_sizes(ctypes.byref(a), sizes)
         rep[name] = {"cp": cp_label(cp),

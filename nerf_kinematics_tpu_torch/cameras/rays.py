@@ -10,6 +10,17 @@ from __future__ import annotations
 import torch
 
 
+def distort_normalized(x, y, k1, k2, p1, p2):
+    """Forward OpenCV lens model on normalized camera coordinates (x right,
+    y down, OpenCV's convention): undistorted -> distorted. Its inverse is
+    :func:`undistort_normalized`."""
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (k1 + r2 * k2)
+    xd = x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+    yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+    return xd, yd
+
+
 def undistort_normalized(xd, yd, k1, k2, p1, p2, iters: int = 8):
     """Invert the OpenCV lens model by fixed-point iteration:
     x <- (xd - tangential(x)) / radial(x)."""
@@ -52,6 +63,20 @@ def get_rays(H: int, W: int, focal, c2w, cx=None, cy=None, focal_y=None,
 
     i = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
     j = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
+    dirs = pixel_dirs(i, j, focal, fy, cx, cy, dist=dist)
+    rays_d = dirs @ c2w[:3, :3].T
+    rays_o = c2w[:3, 3].expand(rays_d.shape)
+    return rays_o, rays_d
+
+
+def get_ray_batch(pixels_ij, focal, c2w, cx, cy, focal_y=None, dist=None):
+    """Rays for an (N, 2) batch of (row j, column i) pixel coordinates, on
+    ``c2w``'s device. Returns (N, 3) origins and directions (not
+    normalized)."""
+    c2w = torch.as_tensor(c2w, dtype=torch.float32)
+    pixels_ij = torch.as_tensor(pixels_ij, dtype=torch.float32, device=c2w.device)
+    fy = focal if focal_y is None else focal_y
+    j, i = pixels_ij[:, 0], pixels_ij[:, 1]
     dirs = pixel_dirs(i, j, focal, fy, cx, cy, dist=dist)
     rays_d = dirs @ c2w[:3, :3].T
     rays_o = c2w[:3, 3].expand(rays_d.shape)

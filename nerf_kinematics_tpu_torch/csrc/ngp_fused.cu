@@ -29,14 +29,12 @@ __global__ void __launch_bounds__(NKT_THREADS, 1)
 
 __global__ void __launch_bounds__(NKT_MMA_MAX_WARPS * 32, 1)
     nkt_mma_sigma_kernel(FusedArgs a, MmaLayout lay) {
-  const SaveRows none = SaveRows();
-  nkt_mma_body<false, false>(a, lay, none, nullptr, nullptr, 0);
+  nkt_mma_body<false>(a, lay);
 }
 
 __global__ void __launch_bounds__(NKT_MMA_MAX_WARPS * 32, 1)
     nkt_mma_apply_kernel(FusedArgs a, MmaLayout lay) {
-  const SaveRows none = SaveRows();
-  nkt_mma_body<true, false>(a, lay, none, nullptr, nullptr, 0);
+  nkt_mma_body<true>(a, lay);
 }
 
 // Bytes of dynamic shared memory a launch with these arguments asks for.

@@ -38,10 +38,10 @@
 //    sliced, its largest launch (the per-point backward) asks for 206 848 B.
 //    Slicing the flagship too made rows 2 and 3 5-7 % slower (PERF.md).
 //
-// With SAVE the body also writes every layer's (rounded) input into a
-// (rows, ld) scratch array in device memory (bf16 in bf16 mode, f32 in f32
-// mode) and the f32 feature 0 into a (ld,) array: what the gradient kernels
-// read back instead of holding 1.4 KB per point on chip.
+// With SAVE the f32 body also writes every layer's input into a (rows, n)
+// scratch array in device memory and the f32 feature 0 into an (n,) array:
+// what f32 mode's gradient kernels read back. bf16 mode's gradient kernel
+// (ngp_fused_bwd.cu) keeps them on chip.
 #pragma once
 
 #include "nkt_common.cuh"
@@ -70,18 +70,17 @@ struct FusedArgs {
   CPLevels cp;
   // bf16 mode: the layers' weights packed for the tensor cores by the host
   // (ops/ngp_fused_cuda.py::mma_pack), offsets and row strides in bf16
-  // elements, layer li = density layers then color layers. Forward blocks
-  // (rows = output columns) come first, density then color, then the
-  // backward blocks (rows = input rows).
+  // elements, layer li = density layers then color layers: a block a layer
+  // (rows = output columns, the inputs contiguous), density then color. The
+  // gradient's products by W^T read the same blocks transposed.
   const void* wpk;
   int pk_off[2 * NKT_MAX_LAYERS], pk_ld[2 * NKT_MAX_LAYERS];
-  int pk_boff[2 * NKT_MAX_LAYERS], pk_bld[2 * NKT_MAX_LAYERS];
-  int pk_dens;  // elements of the density layers' forward blocks
-  int pk_fwd;   // elements of all forward blocks
-  int pk_all;   // elements of the buffer
-  // bf16 mode: per-warp slots of device scratch, each the encoding of a
-  // warp's 16 points (16 x L*C bf16), read back to sum a layer-0 output
-  // again (nkt_mma_finish). A launch uses at most enc_slots warps.
+  int pk_dens;  // elements of the density layers' blocks
+  int pk_fwd;   // elements of all blocks
+  // bf16 mode: slots of device scratch, each the encoding of 16 points (16
+  // x L*C bf16), read back to sum a layer-0 output again (nkt_mma_finish; a
+  // warp a slot) and for layer 0's weight gradient (the gradient's tile
+  // kernel: P / 16 slots a block). A launch uses at most enc_slots.
   void* enc;
   long long enc_slots;
 };
@@ -92,9 +91,9 @@ struct FusedArgs {
 struct BwdArgs {
   FusedArgs f;         // the forward's arguments; f.out is (4, n) scratch
   const float* g;      // (4, n) cotangent of f.out (the VJP)
-  void* act;           // (act_rows, ld) saved layer inputs, bf16 in bf16 mode
-  float* z0;           // (ld,) the f32 feature 0
-  float* gs;           // (gs_rows, ld) masked f32 cotangent of every layer
+  void* act;           // f32 mode: (act_rows, ld) saved layer inputs
+  float* z0;           // f32 mode: (ld,) the f32 feature 0
+  float* gs;           // f32 mode: (gs_rows, ld) masked cotangent of every layer
   float* partial;      // (n_part, total) per-block sums of the MLP leaves
   float* flat;         // (total,) the MLP leaves' gradients
   float* dlines;       // (L, 3, T, C), written whole by nkt_dlines_launch
@@ -105,13 +104,13 @@ struct BwdArgs {
   const float* tgt;    // (3, R) target pixels (train)
   float* err;          // (1, R) squared error per ray (train)
   float* maps;         // (4, R) rgb map and acc (train)
-  float* gbuf;         // (4, n) cotangent written by the ray kernel (train)
+  float* gbuf;         // f32 mode: (4, n) cotangent of the ray kernel (train)
   int S;               // samples per ray (train)
   int white_bg;
   float inv_denom;     // dL/d(rgb_map) = 2 * inv_denom * diff
   int n_part;          // rows of `partial`
-  long long ld;        // row stride of act and gs: n in f32 mode, n rounded
-                       // up to a multiple of 64 in bf16 mode
+  long long ld;        // row stride of act and gs: n (f32 mode; bf16 mode
+                       // has neither, and the kernel reads no ld)
 };
 
 // Offsets (in floats) into dynamic shared memory.

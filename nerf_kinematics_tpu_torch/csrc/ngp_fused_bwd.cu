@@ -4,14 +4,63 @@
 //   ngp_fused_apply_cf VJP (_bwd_kernel, _fused_bwd_cf) -> nkt_fused_backward
 //   ngp_fused_train_cf (_train_kernel, _fine_stage)     -> nkt_fused_train
 //
-// The TPU kernels keep a block's activations in VMEM and add every block's
-// parameter gradients into one resident accumulator, relying on grid steps
-// running in order. Here blocks run at once and a block has 227 KB. So one
-// call is a sequence of kernels on the caller's stream, with the per-point
-// intermediates in device scratch (rows ld points apart):
+// The TPU kernels recompute the forward, keep a block's activations and
+// cotangents in VMEM and add every block's parameter gradients into one
+// resident accumulator across sequential grid steps.
 //
-//   1. forward with saves: the forward body, which also writes every layer's
-//      rounded input to `act` and the f32 feature 0 to `z0`.
+// bf16 mode (the shipped configs): one persistent kernel a call,
+// nkt_fused_tile_kernel, that keeps a tile's work on chip as the TPU kernel
+// keeps it in VMEM. A block (8 warps, one an SM) walks a static schedule of
+// tiles (block b takes tiles b, b + grid, ...), so every sum runs in a fixed
+// order and two launches give the same bits; no atomics. A tile is P points
+// (the VJP) or whole rays of S samples (the train objective: the compositing
+// needs every sample of a ray), P a multiple of 16 that the plan (make_plan,
+// ops/ngp_fused_cuda.py::bwd_plan) fits into shared memory beside the
+// weights. Per tile, every product on the tensor cores (mma.sync.m16n8k16,
+// bf16 operands, f32 sums; a warp takes one 8-column n-tile of a layer over
+// all the tile's points):
+//   1. forward with nkt_mma.cuh's arithmetic: the encoder gathers a level's
+//      bf16 features into a level tile (and the block's slot of FusedArgs.enc,
+//      from which layer 0's finish sums a value near a bf16 midpoint again),
+//      each layer's rounded input stays in shared memory (bf16-rounded
+//      already, so this is exact), feature 0 of the last density layer is
+//      summed in the plain version's order for every point.
+//   2. (train) compositing of each ray inside the block, in
+//      nkt_train_rays_kernel's order of operations: the sigmoids and alphas
+//      point by point over the block's threads, then one lane a ray (the rays
+//      spread over the warps) for the forward sums, the squared error and the
+//      division-free reverse recurrence. (VJP) the (4, n) cotangent.
+//   3. backward, layer by layer with the cotangent in shared memory: the
+//      masked f32 g feeds db, is rounded to bf16 once for d_inp = W g (W read
+//      transposed from the forward blocks); sigma's cotangent enters feature
+//      row 0 where -15 < z0 < 15; d_enc goes to BwdArgs.denc in f32.
+//   4. weight gradients on chip across the block's tiles: layer 0's dW (the
+//      widest, K0 x 64) in registers, a warp an 8-column n-tile, summed on
+//      the tensor cores over the points with the level's inputs read back
+//      from the slot (by cp.async, a level ahead of the products); every
+//      other layer's dW as f32 fragment sums in shared memory (each tile's
+//      fragment from zero, then an IEEE add); db in shared memory. One
+//      partial row a block at the end. Layer 0's dW on wgmma (the points as
+//      K, G^T from registers, the level tile from shared memory, the sums in
+//      the warpgroups' registers) was slower on the card in every form
+//      tried: scripts/torch_ablate_tile.py keeps them as variants.
+// Then row 5's kernel (csrc/cp_encode.cu) takes denc to the line tables'
+// gradient and nkt_reduce_partials_kernel adds the partial rows in block
+// order.
+//
+// Bound on this card: operations, about 190 kFLOP of products a point
+// (three times the forward's), 75 GFLOP at 8192 x 48 points, 0.08 ms at the
+// bf16 tensor-core rate. The sequence of kernels this replaces moved about
+// 3 GB a call through device memory (every layer's activations and masked
+// cotangents written and read twice); what is left there is the inputs,
+// denc (written once in f32 and read by row 5's kernel), the slots of the
+// encoding (written and read once a tile, L2-resident), the partial rows.
+//
+// f32 mode keeps the FMA kernels (simple and right first), a sequence on the
+// caller's stream with the per-point intermediates in device scratch (rows
+// ld = n points apart):
+//   1. nkt_fused_apply_save_kernel: the forward body of ngp_fused.cuh, which
+//      also writes every layer's input to `act` and the f32 feature 0 to `z0`.
 //   2. (train only) nkt_train_rays_kernel: one thread per ray composites its
 //      S samples (transmittance T * (1 - alpha + 1e-10), optional white
 //      background), takes the squared error against the target and runs the
@@ -19,43 +68,15 @@
 //          d alpha_s = (dw_s - dT) * T_s
 //          dT       <- dw_s * alpha_s + dT * (1 - alpha_s + 1e-10)
 //      to the (4, N) cotangent of (rgb logits, sigma).
-//   3. per-point backward: the layers backwards. The masked cotangent g of
-//      each layer goes to `gs` in f32 (db sums that), is rounded to bf16
-//      once and meets the bf16 weights in d_inp = W g. sigma's cotangent
-//      enters feature row 0 where -15 < z0 < 15. The encoding's f32
-//      cotangent d_enc = W0 g goes to `denc` (n, L*C).
-//   3b. nkt_dlines_launch (csrc/cp_encode.cu, row 5's kernel): d_enc into
-//      the line tables' gradient, chunk by chunk, the chunks added in order.
-//   4. weight gradients dW = inp g^T over the points, db = sum of the f32 g,
-//      as per-block partial sums.
+//   3. nkt_fused_point_bwd_kernel: one thread per point, the layers
+//      backwards; the masked cotangent of each layer to `gs`; for the
+//      encoder the point's d_enc values pass through shared memory one level
+//      at a time to `denc`.
+//   3b. row 5's kernel, as in bf16 mode.
+//   4. nkt_wgrad_kernel once per layer (32 points per tile in shared memory,
+//      each thread owns up to 16 groups of four (in, out) entries in
+//      registers across its tiles), per-block partial sums.
 //   5. nkt_reduce_partials_kernel: adds the partial sums in block order.
-//
-// Every sum runs in a fixed order, so the gradients are deterministic.
-//
-// Two sets of kernels, picked by the mode (nothing falls back):
-//
-//  * bf16 mode, on the tensor cores (mma.sync.m16n8k16, nkt_mma.cuh):
-//    1. nkt_mma_apply_save_kernel (the forward body of nkt_mma.cuh), act in
-//       bf16: every saved value is bf16-rounded already, so this is exact.
-//    3. nkt_mma_point_bwd_kernel: a warp per 16 points, the C fragments of
-//       one layer's d_inp are the A fragments of the next product. The
-//       encoder's d_enc goes through a per-warp f32 tile to `denc`, a
-//       point's 64 channels of a level in one 256-byte row.
-//    4. nkt_wgrad_mma_kernel: all layers in one launch, a grid over (point
-//       chunk, layer job); each block accumulates its job's whole K x J in
-//       registers over 64-point tiles of bf16(act) and bf16(gs) that
-//       cp.async double-buffers into shared memory.
-//    Bound on this card: bytes, the saved activations (act in bf16, gs in
-//    f32: about 0.86 GB read by step 4 at 8192 x 48 points); the products
-//    (about 75 GFLOP a call) take a fraction of that at the bf16 rate.
-//  * f32 mode, on the FMA pipe (simple and right first):
-//    1. nkt_fused_apply_save_kernel, 3. nkt_fused_point_bwd_kernel (one
-//    thread per point; for the encoder the point's 256 d_enc values pass
-//    through shared memory one level at a time, and the warp then writes
-//    its 32 points' rows to `denc` with its lanes on the channels),
-//    4. nkt_wgrad_kernel once per layer (32 points per tile in shared
-//    memory, each thread owns up to 16 groups of four (in, out) entries in
-//    registers across its tiles).
 #include "nkt_mma.cuh"
 
 #define NKT_TP 32      // points per tile of the weight-gradient kernel
@@ -66,12 +87,6 @@ __global__ void __launch_bounds__(NKT_THREADS, 1)
     nkt_fused_apply_save_kernel(FusedArgs a, FusedLayout lay, SaveRows rows,
                                 float* act, float* z0s) {
   nkt_fused_body<true, true>(a, lay, rows, act, z0s);
-}
-
-__global__ void __launch_bounds__(NKT_MMA_MAX_WARPS * 32, 1)
-    nkt_mma_apply_save_kernel(FusedArgs a, MmaLayout lay, SaveRows rows,
-                              __nv_bfloat16* act, float* z0s, long long ld) {
-  nkt_mma_body<true, true>(a, lay, rows, act, z0s, ld);
 }
 
 // One thread per ray. Points are ray-major: sample s of ray r is r * S + s.
@@ -274,163 +289,6 @@ __global__ void __launch_bounds__(NKT_THREADS, 1)
   nkt_cp_wait<0>();  // the last prefetch
 }
 
-// ---------------------------------------------------------------------------
-// bf16 mode: the per-point backward on the tensor cores.
-
-#define NKT_LDF 72  // words per row of the backward's f32 tile (64 + 8)
-
-// Shared memory of nkt_mma_point_bwd_kernel: the backward blocks of the
-// packed weights (rows = a layer's inputs), then one f32 tile per warp.
-static MmaLayout make_mma_layout_bwd(const FusedArgs& a) {
-  MmaLayout lay;
-  lay.w_start = a.pk_fwd;
-  lay.w_elems = a.pk_all - a.pk_fwd;
-  lay.b_off = lay.w_elems * 2;
-  lay.n_bias = 0;
-  lay.tile_off = lay.b_off;
-  lay.lde = NKT_LDF;
-  lay.ldh = 0;
-  lay.tile_bytes = NKT_MT * NKT_LDF * (int)sizeof(float);
-  const int warps = (NKT_SMEM_MAX - lay.tile_off) / lay.tile_bytes;
-  lay.warps = warps > NKT_MMA_MAX_WARPS ? NKT_MMA_MAX_WARPS : (warps < 1 ? 1 : warps);
-  lay.total = lay.tile_off + lay.warps * lay.tile_bytes;
-  return lay;
-}
-
-// The C-fragment cotangent of a layer's J outputs: masked by the ReLU of
-// the next layer's saved input (mask_row < 0: none), stored in f32 to gs
-// for the weight gradients; columns at or past J become 0.
-__device__ __forceinline__ void nkt_mma_mask_store(float (*gc)[4], int J,
-                                                   int mask_row, int gs_row,
-                                                   const BwdArgs& b,
-                                                   long long p0, int g,
-                                                   int t) {
-  const __nv_bfloat16* act = static_cast<const __nv_bfloat16*>(b.act);
-  const long long ld = b.ld;
-#pragma unroll
-  for (int nt = 0; nt < NKT_MAX_NT; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = nt * 8 + 2 * t + (e & 1);
-      const long long p = p0 + g + (e >> 1) * 8;
-      float v = 0.0f;
-      if (col < J) {
-        v = gc[nt][e];
-        if (mask_row >= 0 &&
-            !(__bfloat162float(act[(long long)(mask_row + col) * ld + p]) > 0.0f))
-          v = 0.0f;
-        b.gs[(long long)(gs_row + col) * ld + p] = v;
-      }
-      gc[nt][e] = v;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(NKT_MMA_MAX_WARPS * 32, 1)
-    nkt_mma_point_bwd_kernel(BwdArgs b, MmaLayout lay, SaveRows rows) {
-  extern __shared__ __align__(16) unsigned char smem_mma[];
-  const FusedArgs& a = b.f;
-  nkt_mma_stage(a, lay, smem_mma);
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const uint32_t* sw = reinterpret_cast<const uint32_t*>(smem_mma);
-  float* ft = reinterpret_cast<float*>(smem_mma + lay.tile_off +
-                                       warp * lay.tile_bytes);
-  const int C = a.cp.n_comp;
-  const long long n = a.n;
-  const long long n_tiles = (n + NKT_MT - 1) / NKT_MT;
-  const int Jlast = a.c_out[a.nc - 1];
-
-  const int warps = blockDim.x >> 5;
-  for (long long tt = (long long)blockIdx.x * warps + warp; tt < n_tiles;
-       tt += (long long)gridDim.x * warps) {
-    const long long p0 = tt * NKT_MT;
-    const long long pg = p0 + g, pg8 = p0 + g + 8;
-
-    // ---- the cotangent of the rgb logits, C fragments ------------------
-    float gc[NKT_MAX_NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NKT_MAX_NT; ++nt)
-      gc[nt][0] = gc[nt][1] = gc[nt][2] = gc[nt][3] = 0.0f;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = 2 * t + (e & 1);
-      const long long p = e < 2 ? pg : pg8;
-      if (col < Jlast && p < n) gc[0][e] = b.g[col * n + p];
-    }
-
-    // ---- color MLP, last layer first ------------------------------------
-    uint32_t af[NKT_MAX_NT / 2][4];
-    for (int li = a.nc - 1; li >= 0; --li) {
-      const int L = a.nd + li;
-      const int J = a.c_out[li];
-      nkt_mma_mask_store(gc, J, li < a.nc - 1 ? rows.c_row[li + 1] : -1,
-                         rows.cg_row[li], b, p0, g, t);
-      nkt_c_to_a(gc, (J + 7) / 8, af);
-      // color layer 0: only the features' columns, the SH part is dropped
-      const int NK = li > 0 ? a.c_in[li] / 8 : a.d_out[a.nd - 1] / 8;
-      nkt_mma_dense(af, (J + 15) / 16, sw + (a.pk_boff[L] - a.pk_fwd) / 2,
-                    a.pk_bld[L] / 2, NK, gc, g, t);
-    }
-    // sigma = exp(clip(z0)): its cotangent enters feature 0 where unclipped
-    if (t == 0) {
-      if (pg < n) {
-        const float z0 = b.z0[pg];
-        if (z0 > -15.0f && z0 < 15.0f)
-          gc[0][0] = gc[0][0] + b.g[3 * n + pg] * expf(nkt_clamp(z0, -15.0f, 15.0f));
-      }
-      if (pg8 < n) {
-        const float z0 = b.z0[pg8];
-        if (z0 > -15.0f && z0 < 15.0f)
-          gc[0][2] = gc[0][2] + b.g[3 * n + pg8] * expf(nkt_clamp(z0, -15.0f, 15.0f));
-      }
-    }
-
-    // ---- density MLP down to layer 0's output ----------------------------
-    for (int li = a.nd - 1; li >= 0; --li) {
-      const int J = a.d_out[li];
-      nkt_mma_mask_store(gc, J, li < a.nd - 1 ? rows.d_row[li + 1] : -1,
-                         rows.dg_row[li], b, p0, g, t);
-      nkt_c_to_a(gc, (J + 7) / 8, af);
-      if (li == 0) break;
-      nkt_mma_dense(af, (J + 15) / 16, sw + (a.pk_boff[li] - a.pk_fwd) / 2,
-                    a.pk_bld[li] / 2, a.d_in[li] / 8, gc, g, t);
-    }
-
-    // ---- encoder: d_enc = W0 g a level (64 channels) at a time, through
-    // the warp's f32 tile to denc, one point's channels a row ---------------
-    const int KT0 = (a.d_out[0] + 15) / 16;
-    const uint32_t* W0 = sw + (a.pk_boff[0] - a.pk_fwd) / 2;
-    const int ld0 = a.pk_bld[0] / 2;
-    const int np = n - p0 < NKT_MT ? (int)(n - p0) : NKT_MT;
-    const long long LC = (long long)a.cp.n_levels * C;
-    for (int l = 0; l < a.cp.n_levels; ++l) {
-      for (int cb = 0; cb < C; cb += 64) {
-        const int NTc = (C - cb < 64 ? C - cb : 64) / 8;
-        nkt_mma_dense(af, KT0, W0 + (l * C + cb) * ld0, ld0, NTc, gc, g, t);
-#pragma unroll
-        for (int nt = 0; nt < NKT_MAX_NT; ++nt) {
-          if (nt < NTc) {
-            *reinterpret_cast<float2*>(ft + g * NKT_LDF + nt * 8 + 2 * t) =
-                make_float2(gc[nt][0], gc[nt][1]);
-            *reinterpret_cast<float2*>(ft + (g + 8) * NKT_LDF + nt * 8 + 2 * t) =
-                make_float2(gc[nt][2], gc[nt][3]);
-          }
-        }
-        __syncwarp();
-        if (lane < NTc * 4) {
-          for (int pp = 0; pp < np; ++pp)
-            *reinterpret_cast<float2*>(b.denc + (p0 + pp) * LC + l * C + cb + 2 * lane) =
-                *reinterpret_cast<const float2*>(ft + pp * NKT_LDF + 2 * lane);
-        }
-        __syncwarp();
-      }
-    }
-  }
-}
-
 // partial[w_off + k * J + j] = sum over the block's tiles of bf16(A[k][p]) *
 // bf16(G[j][p]) (no rounding when bf is 0); partial[b_off + j] = sum of
 // G[j][p] (b_off < 0: no bias). A: (K, n) layer input (the NGP kernels save it rounded already,
@@ -534,18 +392,16 @@ __global__ void nkt_reduce_partials_kernel(const float* __restrict__ partial,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 mode: the weight gradients on the tensor cores.
+// The weight gradients of one f32 layer on the tensor cores, for the classic
+// engine's bf16 mode (nkt_wgrad_launch with bf = 1).
 //
-// dW (K x J) = bf16(A) (K x n) . bf16(G)^T (n x J), db = sum of the f32 G,
-// for every layer of a call in one launch. A job is one layer's block of at
-// most 256 input rows and 64 output columns; the grid runs over (point
-// chunk, job). A block owns its job's whole K x J in registers (a warp up to
-// 32 x 64, 64 accumulators a thread), walks its chunk in 64-point tiles and
-// writes its sums to its row of `partial`, which nkt_reduce_partials_kernel
-// adds in block order. With ASYNC the tiles (A in bf16, G in f32, rows ld
-// points apart, ld and the chunks multiples of 64 points) are copied by
-// cp.async into a double buffer; otherwise (the classic engine: f32 A, rows
-// n points apart) they are loaded, rounded and stored by the threads.
+// dW (K x J) = bf16(A) (K x n) . bf16(G)^T (n x J), db = sum of the f32 G.
+// A job is one layer's block of at most 256 input rows and 64 output
+// columns; the grid runs over (point chunk, job). A block owns its job's
+// whole K x J in registers (a warp up to 32 x 64, 64 accumulators a thread),
+// walks its chunk in 64-point tiles (A rounded to bf16 and G in f32, loaded
+// by the threads, rows n points apart) and writes its sums to its row of
+// `partial`, which nkt_reduce_partials_kernel adds in block order.
 #define NKT_WG_TP 64        // points per tile
 #define NKT_WG_LDA 36       // words per row of the bf16 A tile (64 + 8 pad)
 #define NKT_WG_LDG 72       // words per row of the f32 G tile (64 + 8 pad)
@@ -554,7 +410,7 @@ __global__ void nkt_reduce_partials_kernel(const float* __restrict__ partial,
 #define NKT_WG_MAX_JOBS 32
 
 struct WgJob {
-  const void* A;   // the job's first input row: bf16 (ASYNC) or f32
+  const float* A;  // the job's first input row
   const float* G;  // the job's first cotangent row
   int Kc, Jc;      // rows of A and of G in the job
   int w_off;       // flat index of the job's dW[k0][j0]
@@ -566,20 +422,20 @@ struct WgPlan {
   WgJob job[NKT_WG_MAX_JOBS];
   int n_jobs;
   int total;        // floats in a row of partial
-  int a_words;      // 32-bit words of one stage's A tile
-  int g_words;      // 32-bit words of one stage's G tile
-  long long n, ld;  // points; row stride of A and G
+  int a_words;      // 32-bit words of the A tile
+  int g_words;      // 32-bit words of the G tile
+  long long n;      // points, the row stride of A and G
   long long chunk;  // points per block, a multiple of NKT_WG_TP
 };
 
-static bool wg_add_layer(WgPlan& p, const void* A, size_t a_bytes,
-                         const float* G, int K, int J, int w_off, int b_off) {
+static bool wg_add_layer(WgPlan& p, const float* A, const float* G, int K,
+                         int J, int w_off, int b_off) {
   for (int k0 = 0; k0 < K; k0 += NKT_WG_KC) {
     for (int j0 = 0; j0 < J; j0 += NKT_WG_JC) {
       if (p.n_jobs >= NKT_WG_MAX_JOBS) return false;
       WgJob& jb = p.job[p.n_jobs++];
-      jb.A = static_cast<const char*>(A) + (size_t)k0 * p.ld * a_bytes;
-      jb.G = G + (long long)j0 * p.ld;
+      jb.A = A + (long long)k0 * p.n;
+      jb.G = G + (long long)j0 * p.n;
       jb.Kc = K - k0 < NKT_WG_KC ? K - k0 : NKT_WG_KC;
       jb.Jc = J - j0 < NKT_WG_JC ? J - j0 : NKT_WG_JC;
       jb.w_off = w_off + k0 * J + j0;
@@ -594,20 +450,15 @@ static bool wg_add_layer(WgPlan& p, const void* A, size_t a_bytes,
   return true;
 }
 
-template <bool ASYNC>
 __global__ void __launch_bounds__(NKT_THREADS, 2)
     nkt_wgrad_mma_kernel(WgPlan plan, float* __restrict__ partial) {
   extern __shared__ __align__(16) unsigned char smem_mma[];
   const WgJob& jb = plan.job[blockIdx.y];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  uint32_t* As[2];
-  float* Gs[2];
-  As[0] = reinterpret_cast<uint32_t*>(smem_mma);
-  Gs[0] = reinterpret_cast<float*>(As[0] + plan.a_words);
-  As[1] = reinterpret_cast<uint32_t*>(Gs[0] + plan.g_words);
-  Gs[1] = reinterpret_cast<float*>(As[1] + plan.a_words);
-  for (int e = tid; e < 2 * (plan.a_words + plan.g_words); e += NKT_THREADS)
+  uint32_t* As = reinterpret_cast<uint32_t*>(smem_mma);
+  float* Gs = reinterpret_cast<float*>(As + plan.a_words);
+  for (int e = tid; e < plan.a_words + plan.g_words; e += NKT_THREADS)
     reinterpret_cast<uint32_t*>(smem_mma)[e] = 0u;  // padding rows stay 0
   __syncthreads();
 
@@ -631,57 +482,22 @@ __global__ void __launch_bounds__(NKT_THREADS, 2)
       acc[mi][nt][0] = acc[mi][nt][1] = acc[mi][nt][2] = acc[mi][nt][3] = 0.0f;
   float dbacc = 0.0f;
 
-  const long long ld = plan.ld;
+  const long long ld = plan.n;
   const long long pb = (long long)blockIdx.x * plan.chunk;
   const long long pe = pb + plan.chunk < plan.n ? pb + plan.chunk : plan.n;
 
-  auto load = [&](int s, long long p) {
-    if (ASYNC) {
-      const __nv_bfloat16* A = static_cast<const __nv_bfloat16*>(jb.A);
-      for (int e = tid; e < Kc * 8; e += NKT_THREADS) {
-        const int k = e >> 3, c = e & 7;
-        const long long pp = p + c * 8, rem = pe - pp;
-        const int bytes = rem >= 8 ? 16 : (rem > 0 ? (int)rem * 2 : 0);
-        nkt_cp_async16(As[s] + k * NKT_WG_LDA + c * 4,
-                       A + (long long)k * ld + (bytes ? pp : p), bytes);
-      }
-      for (int e = tid; e < Jc * 16; e += NKT_THREADS) {
-        const int j = e >> 4, c = e & 15;
-        const long long pp = p + c * 4, rem = pe - pp;
-        const int bytes = rem >= 4 ? 16 : (rem > 0 ? (int)rem * 4 : 0);
-        nkt_cp_async16(Gs[s] + j * NKT_WG_LDG + c * 4,
-                       jb.G + (long long)j * ld + (bytes ? pp : p), bytes);
-      }
-      nkt_cp_commit();
-    } else {
-      const float* A = static_cast<const float*>(jb.A);
-      __nv_bfloat16* Ab = reinterpret_cast<__nv_bfloat16*>(As[s]);
-      for (int e = tid; e < Kc * NKT_WG_TP; e += NKT_THREADS) {
-        const int k = e / NKT_WG_TP, q = e % NKT_WG_TP;
-        const long long pp = p + q;
-        Ab[k * 2 * NKT_WG_LDA + q] =
-            __float2bfloat16_rn(pp < pe ? A[(long long)k * ld + pp] : 0.0f);
-      }
-      for (int e = tid; e < Jc * NKT_WG_TP; e += NKT_THREADS) {
-        const int j = e / NKT_WG_TP, q = e % NKT_WG_TP;
-        const long long pp = p + q;
-        Gs[s][j * NKT_WG_LDG + q] = pp < pe ? jb.G[(long long)j * ld + pp] : 0.0f;
-      }
-    }
-  };
-
-  int s = 0;
-  if (ASYNC && pb < pe) load(0, pb);
   for (long long p = pb; p < pe; p += NKT_WG_TP) {
-    if (ASYNC) {
-      if (p + NKT_WG_TP < pe) {
-        load(s ^ 1, p + NKT_WG_TP);
-        nkt_cp_wait<1>();
-      } else {
-        nkt_cp_wait<0>();
-      }
-    } else {
-      load(s, p);
+    __nv_bfloat16* Ab = reinterpret_cast<__nv_bfloat16*>(As);
+    for (int e = tid; e < Kc * NKT_WG_TP; e += NKT_THREADS) {
+      const int k = e / NKT_WG_TP, q = e % NKT_WG_TP;
+      const long long pp = p + q;
+      Ab[k * 2 * NKT_WG_LDA + q] =
+          __float2bfloat16_rn(pp < pe ? jb.A[(long long)k * ld + pp] : 0.0f);
+    }
+    for (int e = tid; e < Jc * NKT_WG_TP; e += NKT_THREADS) {
+      const int j = e / NKT_WG_TP, q = e % NKT_WG_TP;
+      const long long pp = p + q;
+      Gs[j * NKT_WG_LDG + q] = pp < pe ? jb.G[(long long)j * ld + pp] : 0.0f;
     }
     __syncthreads();
     if (active) {
@@ -693,7 +509,7 @@ __global__ void __launch_bounds__(NKT_THREADS, 2)
           bfr[nt][0] = bfr[nt][1] = 0u;
           if (nt < ncn && n0 + nt < ntt) {
             const float* gr =
-                Gs[s] + ((n0 + nt) * 8 + g) * NKT_WG_LDG + ks * 16 + 2 * t;
+                Gs + ((n0 + nt) * 8 + g) * NKT_WG_LDG + ks * 16 + 2 * t;
             const float2 f0 = *reinterpret_cast<const float2*>(gr);
             const float2 f1 = *reinterpret_cast<const float2*>(gr + 8);
             bfr[nt][0] = nkt_pack2(f0.x, f0.y);
@@ -704,7 +520,7 @@ __global__ void __launch_bounds__(NKT_THREADS, 2)
         for (int mi = 0; mi < 2; ++mi) {
           if (mi < mc && m0 + mi < mt) {
             const uint32_t* ar =
-                As[s] + ((m0 + mi) * 16 + g) * NKT_WG_LDA + ks * 8 + t;
+                As + ((m0 + mi) * 16 + g) * NKT_WG_LDA + ks * 8 + t;
             uint32_t af[4];
             af[0] = ar[0];
             af[1] = ar[8 * NKT_WG_LDA];
@@ -719,11 +535,10 @@ __global__ void __launch_bounds__(NKT_THREADS, 2)
       }
     }
     if (do_db) {
-      const float* gr = Gs[s] + tid * NKT_WG_LDG;
+      const float* gr = Gs + tid * NKT_WG_LDG;
       for (int q = 0; q < NKT_WG_TP; ++q) dbacc += gr[q];
     }
     __syncthreads();
-    if (ASYNC) s ^= 1;
   }
 
   float* mine = partial + (long long)blockIdx.x * plan.total;
@@ -746,34 +561,767 @@ __global__ void __launch_bounds__(NKT_THREADS, 2)
   if (do_db) mine[jb.b_off + tid] = dbacc;
 }
 
+// ---------------------------------------------------------------------------
+// bf16 mode: the persistent tile kernel (see the note at the top).
+
+#define NKB_WARPS 8
+#define NKB_THREADS (NKB_WARPS * 32)
+#define NKB_MAX_MT 8   // m-tiles of 16 points a tile holds at most (128 points)
+#define NKB_WIDE_MT 4  // the same where layer 0's dW takes more than 16 m-tiles
+#define NKB_GLD 72     // bf16 elements a row of the cotangent tile (64 + 8)
+#define NKB_F32 10     // f32 values a point: 4 outputs, 4 cotangents, z0, T
+
+// The block's plan; ops/ngp_fused_cuda.py::bwd_plan computes the same
+// numbers, and the wrapper compares them with nkt_fused_bwd_plan's at every
+// call. Shared memory: the forward blocks of every layer's packed weights
+// (read as they are by the forward and transposed by the backward), the f32
+// biases, the f32 sums, then the tile: a point's rows of every layer's input
+// (layer 1's last; the two level tiles of the encoder overlay the others),
+// of the bf16 cotangent (the forward's taps overlay it), and of f32 values.
+// Each part of the tile is P rows of its own width, so it starts at P times
+// the bytes a point before it.
+struct BwdPlan {
+  int P;           // points a tile holds, a multiple of 16
+  int rays;        // train: whole rays a tile (P / S); VJP: 0
+  int tile_pts;    // points of a full tile: rays * S, or P
+  int mt0;         // m-tiles of layer 0's dW a warp holds in registers,
+                   // K0 / 16 rounded up
+  int bias_off;    // bytes: f32 biases, NKT_W a layer
+  int acc_off;     // bytes: f32 sums of dW (layers 1..) and of every db
+  int tile_off;    // bytes: the tile
+  int total;       // bytes of shared memory
+  int acc_floats;  // floats of the sums
+  int db_off;      // floats from acc_off: layer L's db at db_off + L * NKT_W
+  int frag_off[2 * NKT_MAX_LAYERS];  // floats from acc_off: layer L's dW
+  int x_at[2 * NKT_MAX_LAYERS];  // bytes a point before layer L's input (L >= 1)
+  int x_ld[2 * NKT_MAX_LAYERS];  // bf16 elements a row of it
+  int e_ld;        // bf16 elements a row of a level tile (at byte 0)
+  int g_at;        // bytes a point before the cotangent tile
+  int f_at;        // bytes a point before the f32 values
+  int per_point;   // bytes of the tile a point
+};
+
+__host__ __device__ __forceinline__ int nkb_K(const FusedArgs& a, int L) {
+  return L < a.nd ? a.d_in[L] : a.c_in[L - a.nd];
+}
+__host__ __device__ __forceinline__ int nkb_J(const FusedArgs& a, int L) {
+  return L < a.nd ? a.d_out[L] : a.c_out[L - a.nd];
+}
+
+// S = 0: the VJP. False where the layers do not fit.
+static bool make_plan(const FusedArgs& a, int S, BwdPlan& p) {
+  const int nl = a.nd + a.nc;
+  const int C = a.cp.n_comp, K0 = a.cp.n_levels * C;
+  if (a.nd < 1 || a.nc < 1 || nl > 2 * NKT_MAX_LAYERS || a.d_in[0] != K0 ||
+      a.d_out[0] % 8 || a.c_out[a.nc - 1] != 3)
+    return false;
+  for (int L = 1; L < nl; ++L)
+    if (nkb_K(a, L) % 16) return false;
+  p.mt0 = (K0 + 15) / 16;
+  if (p.mt0 > 32) return false;
+  p.bias_off = a.pk_fwd * 2;
+  p.acc_off = p.bias_off + nl * NKT_W * 4;
+  int f = 0;
+  p.frag_off[0] = 0;
+  for (int L = 1; L < nl; ++L) {
+    p.frag_off[L] = f;
+    f += nkb_K(a, L) / 16 * ((nkb_J(a, L) + 7) / 8) * 128;
+  }
+  p.db_off = f;
+  f += nl * NKT_W;
+  p.acc_floats = f;
+  p.tile_off = p.acc_off + f * 4;
+  int x = 0;
+  p.x_at[0] = p.x_ld[0] = 0;
+  for (int L = 2; L < nl; ++L) {
+    p.x_at[L] = x;
+    p.x_ld[L] = nkb_K(a, L) + 8;
+    x += 2 * p.x_ld[L];
+  }
+  p.e_ld = C + 8;
+  if (x < 4 * p.e_ld) x = 4 * p.e_ld;
+  p.x_at[1] = x;
+  p.x_ld[1] = nkb_K(a, 1) + 8;
+  x += 2 * p.x_ld[1];
+  p.g_at = x;
+  x += 2 * NKB_GLD;
+  p.f_at = x;
+  x += NKB_F32 * 4;
+  p.per_point = x;
+  int P = (NKT_SMEM_MAX - p.tile_off) / x / 16 * 16;
+  const int max_mt = p.mt0 > 16 ? NKB_WIDE_MT : NKB_MAX_MT;
+  if (P > max_mt * 16) P = max_mt * 16;
+  if (P < 16) return false;
+  p.P = P;
+  p.total = p.tile_off + P * x;
+  if (S > 0) {
+    p.rays = P / S;
+    if (p.rays < 1) return false;
+    p.tile_pts = p.rays * S;
+  } else {
+    p.rays = 0;
+    p.tile_pts = P;
+  }
+  return true;
+}
+
+// MPM (template): m-tiles of 16 points the arrays below hold, at least the
+// tile's MP. acc[mt] += X (rows of 16 points, ldx words a row) times the
+// n-tile nt of the forward block W (a row per output column, ldw words), KT
+// k-steps: each k-step's 16 products from zero, added with IEEE adds
+// (nkt_mma_add).
+template <int MPM>
+__device__ __forceinline__ void nkb_fwd_product(float (*acc)[4], int MP,
+                                                const uint32_t* X, int ldx,
+                                                const uint32_t* W, int ldw,
+                                                int nt, int KT, int lane) {
+  const uint32_t* xr = X + (lane & 15) * ldx + (lane >> 4) * 4;
+  const uint32_t* wr = W + (nt * 8 + (lane & 7)) * ldw + ((lane >> 3) & 1) * 4;
+  for (int ks = 0; ks < KT; ++ks) {
+    uint32_t bq[2];
+    nkt_ldm2(bq, wr + ks * 8);
+#pragma unroll
+    for (int mt = 0; mt < MPM; ++mt) {
+      if (mt < MP) {
+        uint32_t af[4];
+        nkt_ldm4(af, xr + mt * 16 * ldx + ks * 8);
+        nkt_mma_add(acc[mt], af, bq[0], bq[1]);
+      }
+    }
+  }
+}
+
+// acc[mt] = G (the cotangent tile) times W^T on the n-tile nt of the
+// layer's inputs (MPM: as nkb_fwd_product): the forward block W (a row per output, ldw elements) read
+// transposed, k-steps over the J outputs. A block of at most 8 rows (the
+// last layer) has no second half: lanes 8-15 read past it, and that half
+// of the operand is set to zero.
+template <int MPM>
+__device__ __forceinline__ void nkb_bwd_product(float (*acc)[4], int MP,
+                                                const __nv_bfloat16* G,
+                                                const __nv_bfloat16* W,
+                                                int ldw, int nt, int J,
+                                                int lane) {
+#pragma unroll
+  for (int mt = 0; mt < MPM; ++mt)
+    acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.0f;
+  const __nv_bfloat16* gr = G + (lane & 15) * NKB_GLD + (lane >> 4) * 8;
+  const __nv_bfloat16* wr = W + (lane & 15) * ldw + nt * 8;
+  const int KT = (J + 15) / 16;
+  for (int ks = 0; ks < KT; ++ks) {
+    uint32_t bq[2];
+    nkt_ldm2t(bq, wr + ks * 16 * ldw);
+    if (J - ks * 16 <= 8) bq[1] = 0u;
+#pragma unroll
+    for (int mt = 0; mt < MPM; ++mt) {
+      if (mt < MP) {
+        uint32_t af[4];
+        nkt_ldm4(af, reinterpret_cast<const uint32_t*>(gr + mt * 16 * NKB_GLD + ks * 16));
+        nkt_mma_add(acc[mt], af, bq[0], bq[1]);
+      }
+    }
+  }
+}
+
+// c = X^T G on one fragment of a layer's dW: input rows [16 mi, +16) (X:
+// the tile's inputs, ldx elements a row), output columns [8 ni, +8) (G: the
+// cotangent tile), summed on the tensor cores over the MP m-tiles of points.
+template <int MPM>
+__device__ __forceinline__ void nkb_wgrad_frag(float* c, int MP,
+                                               const __nv_bfloat16* X, int ldx,
+                                               int mi, const __nv_bfloat16* G,
+                                               int ni, int lane) {
+  c[0] = c[1] = c[2] = c[3] = 0.0f;
+  const __nv_bfloat16* xr = X + ((lane & 7) + ((lane >> 4) << 3)) * ldx +
+                            mi * 16 + ((lane >> 3) & 1) * 8;
+  const __nv_bfloat16* gr = G + (lane & 15) * NKB_GLD + ni * 8;
+#pragma unroll
+  for (int mt = 0; mt < MPM; ++mt) {
+    if (mt < MP) {
+      uint32_t af[4], bq[2];
+      nkt_ldm4t(af, xr + mt * 16 * ldx);
+      nkt_ldm2t(bq, gr + mt * 16 * NKB_GLD);
+      nkt_mma(c, af, bq[0], bq[1]);
+    }
+  }
+}
+
+// A forward layer's finish on the warp's n-tile nt: z = acc + bias (f32,
+// after the sum), ReLU when relu, rounded to bf16 into the same columns of
+// Y (ldy elements a row); rows past np become 0. A value within NKT_NEAR
+// ulps of a bf16 rounding midpoint is summed again in the plain version's
+// order (nkt_chain over row p of the layer's input X, ldx elements a row, K
+// wide, and row j of Wt, ldw elements a row), so that it rounds as there:
+// the lanes gather their flagged (row, column) pairs into the warp's list
+// (cap entries; past it a lane sums its own) and take one each, as
+// nkt_mma_finish does. Ends with the warp synchronised.
+template <int MPM>
+__device__ __forceinline__ void nkb_finish(float (*acc)[4], int MP, int np,
+                                           int nt, const float* bias, bool relu,
+                                           __nv_bfloat16* Y, int ldy,
+                                           const __nv_bfloat16* X, int ldx,
+                                           int K, const __nv_bfloat16* Wt,
+                                           int ldw, unsigned short* list,
+                                           int cap, int lane, int g, int t) {
+  const int j = nt * 8 + 2 * t;
+  const float b0 = bias[j], b1 = bias[j + 1];
+  unsigned redo = 0u;  // bit mt * 4 + h * 2 + q: row mt * 16 + g + 8 h, column j + q
+#pragma unroll
+  for (int mt = 0; mt < MPM; ++mt) {
+    if (mt < MP) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = mt * 16 + g + h * 8;
+        float z0 = acc[mt][2 * h] + b0, z1 = acc[mt][2 * h + 1] + b1;
+        if (relu) {
+          z0 = nkt_relu(z0);
+          z1 = nkt_relu(z1);
+        }
+        if (p < np) {
+          if (nkt_near_midpoint(z0)) redo |= 1u << (mt * 4 + h * 2);
+          if (nkt_near_midpoint(z1)) redo |= 1u << (mt * 4 + h * 2 + 1);
+        } else {
+          z0 = z1 = 0.0f;
+        }
+        *reinterpret_cast<uint32_t*>(Y + p * ldy + j) = nkt_pack2(z0, z1);
+      }
+    }
+  }
+  // exclusive prefix sum of the lanes' counts: each lane's place in the list
+  const int cnt = __popc(redo);
+  int incl = cnt;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += v;
+  }
+  const int total = __shfl_sync(0xffffffffu, incl, 31);
+  int at = incl - cnt;
+  while (redo) {
+    const int i = __ffs(redo) - 1;
+    redo &= redo - 1u;
+    const int p = (i >> 2) * 16 + g + ((i >> 1) & 1) * 8, col = j + (i & 1);
+    if (at < cap) {
+      list[at] = (unsigned short)(p * NKT_W + col);
+    } else {  // more than the list holds: the lane sums its own
+      float z = nkt_chain<4>(X + p * ldx, Wt + col * ldw, K) + bias[col];
+      if (relu) z = nkt_relu(z);
+      Y[p * ldy + col] = __float2bfloat16_rn(z);
+    }
+    ++at;
+  }
+  __syncwarp();
+  for (int it = lane; it < min(total, cap); it += 32) {
+    const int p = list[it] / NKT_W, col = list[it] % NKT_W;
+    float z = nkt_chain<4>(X + p * ldx, Wt + col * ldw, K) + bias[col];
+    if (relu) z = nkt_relu(z);
+    Y[p * ldy + col] = __float2bfloat16_rn(z);
+  }
+  __syncwarp();
+}
+
+// One ray's compositing, squared error and reverse recurrence, in
+// nkt_train_rays_kernel's order of operations. o: the ray's first point's
+// (sigmoid of the three logits, alpha); G4: its (_, _, _, interval), which
+// the reverse pass overwrites with the cotangent of (rgb logits, sigma); TS:
+// T a point; rg: the ray's index in the launch.
+__device__ __forceinline__ void nkb_ray(const BwdArgs& b, const float* o,
+                                        float* G4, float* TS, long long rg,
+                                        long long n_rays) {
+  const int S = b.S;
+  float T = 1.0f, m0 = 0.0f, m1 = 0.0f, m2 = 0.0f, acc = 0.0f;
+#pragma unroll 4
+  for (int s = 0; s < S; ++s) {
+    const float* q = o + 4 * s;
+    const float alpha = q[3];
+    const float w = alpha * T;
+    m0 = m0 + w * q[0];
+    m1 = m1 + w * q[1];
+    m2 = m2 + w * q[2];
+    acc = acc + w;
+    TS[s] = T;
+    T = T * (1.0f - alpha + 1e-10f);
+  }
+  if (b.white_bg) {
+    m0 = m0 + (1.0f - acc);
+    m1 = m1 + (1.0f - acc);
+    m2 = m2 + (1.0f - acc);
+  }
+  const float d0 = m0 - b.tgt[rg];
+  const float d1 = m1 - b.tgt[n_rays + rg];
+  const float d2 = m2 - b.tgt[2 * n_rays + rg];
+  b.err[rg] = (d0 * d0 + d1 * d1) + d2 * d2;
+  b.maps[rg] = m0;
+  b.maps[n_rays + rg] = m1;
+  b.maps[2 * n_rays + rg] = m2;
+  b.maps[3 * n_rays + rg] = acc;
+  const float k = 2.0f * b.inv_denom;
+  const float g0 = k * d0, g1 = k * d1, g2 = k * d2;
+  const float gsum = (g0 + g1) + g2;
+  float dT = 0.0f;
+#pragma unroll 4
+  for (int s = S - 1; s >= 0; --s) {
+    const float* q = o + 4 * s;
+    float* gp = G4 + 4 * s;
+    const float dist = gp[3];
+    const float alpha = q[3];
+    const float Ts = TS[s];
+    const float w = alpha * Ts;
+    const float s0 = q[0], s1 = q[1], s2 = q[2];
+    float dw = (g0 * s0 + g1 * s1) + g2 * s2;
+    if (b.white_bg) dw = dw - gsum;
+    gp[0] = (g0 * w) * s0 * (1.0f - s0);
+    gp[1] = (g1 * w) * s1 * (1.0f - s1);
+    gp[2] = (g2 * w) * s2 * (1.0f - s2);
+    const float da = (dw - dT) * Ts;
+    dT = dw * alpha + dT * (1.0f - alpha + 1e-10f);
+    gp[3] = da * (1.0f - alpha) * dist;
+  }
+}
+
+// MT0: m-tiles of 16 rows of layer 0's dW a warp holds (its n-tile of
+// every input row of the encoding), at least the plan's mt0; MPM: m-tiles
+// of 16 points of a tile, at least P / 16.
+template <int MT0, int MPM>
+__global__ void __launch_bounds__(NKB_THREADS, 1)
+    nkt_fused_tile_kernel(BwdArgs b, BwdPlan pl, SaveRows rows, int train) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  const FusedArgs& a = b.f;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int nd = a.nd, nl = a.nd + a.nc;
+
+  // ---- the forward blocks, the biases; the sums from zero ----------------
+  {
+    const uint4* src = reinterpret_cast<const uint4*>(a.wpk);
+    uint4* dst = reinterpret_cast<uint4*>(sm);
+    for (int e = tid; e < a.pk_fwd / 8; e += NKB_THREADS) dst[e] = __ldg(src + e);
+    float* sb = reinterpret_cast<float*>(sm + pl.bias_off);
+    for (int e = tid; e < nl * NKT_W; e += NKB_THREADS) {
+      const int L = e / NKT_W, j = e - L * NKT_W;
+      const float* B = L < nd ? a.db[L] : a.cb[L - nd];
+      sb[e] = j < nkb_J(a, L) ? B[j] : 0.0f;
+    }
+    float* s = reinterpret_cast<float*>(sm + pl.acc_off);
+    for (int e = tid; e < pl.acc_floats; e += NKB_THREADS) s[e] = 0.0f;
+  }
+  __syncthreads();
+
+  const __nv_bfloat16* W = reinterpret_cast<const __nv_bfloat16*>(sm);
+  const float* sbias = reinterpret_cast<const float*>(sm + pl.bias_off);
+  float* sacc = reinterpret_cast<float*>(sm + pl.acc_off);
+  unsigned char* tl = sm + pl.tile_off;
+  const int P = pl.P;
+  __nv_bfloat16* G16 = reinterpret_cast<__nv_bfloat16*>(tl + P * pl.g_at);
+  NktTapS* taps = reinterpret_cast<NktTapS*>(G16);  // the forward's, per point
+  float* OUT = reinterpret_cast<float*>(tl + P * pl.f_at);  // [P][4]
+  float* G4 = OUT + 4 * P;                                 // [P][4]
+  float* Z0 = G4 + 4 * P;                                  // [P]
+  float* TS = Z0 + P;                                      // [P]
+  // a warp's list of values to sum again, in the forward (G4 is not used
+  // until the forward ends): P entries a warp
+  unsigned short* list = reinterpret_cast<unsigned short*>(G4) + warp * P;
+
+  const int C = a.cp.n_comp, C2 = C / 2, T = a.cp.table, Lv = a.cp.n_levels;
+  const int LC = Lv * C, CT = C / 16;
+  const int K0 = a.d_in[0], J0 = a.d_out[0], NT0 = J0 / 8;
+  const long long n = a.n;
+  const long long n_rays = train ? n / b.S : 0;
+  const long long n_tiles =
+      train ? (n_rays + pl.rays - 1) / pl.rays : (n + P - 1) / P;
+  // the block's slot of the encoding: P rows of L*C
+  __nv_bfloat16* slot =
+      static_cast<__nv_bfloat16*>(a.enc) + (long long)blockIdx.x * P * LC;
+  const unsigned pois_levels = nkt_poison_levels(a.cp);
+  const __nv_bfloat162* lines16 = reinterpret_cast<const __nv_bfloat162*>(a.lines16);
+
+  float acc0[MT0][4];
+#pragma unroll
+  for (int m = 0; m < MT0; ++m) acc0[m][0] = acc0[m][1] = acc0[m][2] = acc0[m][3] = 0.0f;
+  float acc[MPM][4];
+
+  for (long long tt = blockIdx.x; tt < n_tiles; tt += gridDim.x) {
+    const long long p0 = tt * pl.tile_pts;
+    const int np = n - p0 < pl.tile_pts ? (int)(n - p0) : pl.tile_pts;
+    const int MP = (np + 15) / 16;
+    const int npad = MP * 16;
+    const int ppw = 2 * MP;        // points a warp gathers
+    const int pw0 = warp * ppw;    // the first of them
+
+    // ======== forward: layer 0, fed by the encoder a level at a time ========
+#pragma unroll
+    for (int mt = 0; mt < MPM; ++mt)
+      acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.0f;
+    float px = 0.0f, py = 0.0f, pz = 0.0f;
+    if (lane < ppw && pw0 + lane < np) {
+      const long long i = p0 + pw0 + lane;
+      px = a.xt[i];
+      py = a.xt[n + i];
+      pz = a.xt[2 * n + i];
+    }
+    for (int l = 0; l < Lv; ++l) {
+      __nv_bfloat16* E = reinterpret_cast<__nv_bfloat16*>(tl) + (l & 1) * P * pl.e_ld;
+      uint32_t* Ew = reinterpret_cast<uint32_t*>(E);
+      const int elw = pl.e_ld / 2;
+      if (lane < ppw) {
+        NktTapS* q = taps + (pw0 + lane) * 3;
+        q[0] = nkt_tap_s(nkt_taps(px, a.cp, l, 0));
+        q[1] = nkt_tap_s(nkt_taps(py, a.cp, l, 1));
+        q[2] = nkt_tap_s(nkt_taps(pz, a.cp, l, 2));
+      }
+      __syncwarp();
+      const __nv_bfloat162* tx = lines16 + (long long)(l * 3 + 0) * T * C2;
+      const __nv_bfloat162* ty = lines16 + (long long)(l * 3 + 1) * T * C2;
+      const __nv_bfloat162* tz = lines16 + (long long)(l * 3 + 2) * T * C2;
+      // the gathers of two points first, then their products
+      for (int q0 = 0; q0 < ppw; q0 += 2) {
+        for (int c2 = lane; c2 < C2; c2 += 32) {
+          __nv_bfloat162 v[2][6];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const NktTapS* q = taps + (pw0 + q0 + u) * 3;
+            v[u][0] = __ldg(tx + q[0].r0 * C2 + c2);
+            v[u][1] = __ldg(tx + q[0].r1 * C2 + c2);
+            v[u][2] = __ldg(ty + q[1].r0 * C2 + c2);
+            v[u][3] = __ldg(ty + q[1].r1 * C2 + c2);
+            v[u][4] = __ldg(tz + q[2].r0 * C2 + c2);
+            v[u][5] = __ldg(tz + q[2].r1 * C2 + c2);
+          }
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int p = pw0 + q0 + u;
+            const NktTapS* q = taps + p * 3;
+            const float2 x0 = __bfloat1622float2(v[u][0]);
+            const float2 x1 = __bfloat1622float2(v[u][1]);
+            const float2 y0 = __bfloat1622float2(v[u][2]);
+            const float2 y1 = __bfloat1622float2(v[u][3]);
+            const float2 z0 = __bfloat1622float2(v[u][4]);
+            const float2 z1 = __bfloat1622float2(v[u][5]);
+            const float ux0 = q[0].w0 * x0.x + q[0].w1 * x1.x;
+            const float ux1 = q[0].w0 * x0.y + q[0].w1 * x1.y;
+            const float uy0 = q[1].w0 * y0.x + q[1].w1 * y1.x;
+            const float uy1 = q[1].w0 * y0.y + q[1].w1 * y1.y;
+            const float uz0 = q[2].w0 * z0.x + q[2].w1 * z1.x;
+            const float uz1 = q[2].w0 * z0.y + q[2].w1 * z1.y;
+            Ew[p * elw + c2] =
+                p < np ? nkt_pack2((ux0 * uy0) * uz0, (ux1 * uy1) * uz1) : 0u;
+          }
+        }
+      }
+      __syncwarp();
+      // a non-finite table entry (nkt_poison), rarely
+      if ((pois_levels >> l) & 1u) {
+        nkt_poison_tile(E + pw0 * pl.e_ld, pl.e_ld, taps + pw0 * 3,
+                        nkt_poison_descs(a.cp, l), C, nkt_dup_row(a.cp, l, true),
+                        np - pw0 < ppw ? np - pw0 : ppw, lane);
+        __syncwarp();
+      }
+      // the level's columns of the slot, read back by layer 0's finish and
+      // by its weight gradient
+      for (int e = lane; e < ppw * (C / 8); e += 32) {
+        const int p = pw0 + e / (C / 8), c8 = e % (C / 8);
+        if (p < np)
+          *reinterpret_cast<uint4*>(slot + p * LC + l * C + c8 * 8) =
+              *reinterpret_cast<const uint4*>(E + p * pl.e_ld + c8 * 8);
+      }
+      __syncthreads();
+      if (warp < NT0)
+        nkb_fwd_product<MPM>(acc, MP, Ew, elw,
+                        reinterpret_cast<const uint32_t*>(W + a.pk_off[0] + l * C),
+                        a.pk_ld[0] / 2, warp, CT, lane);
+    }
+
+    // ======== forward: every layer's finish, then the next product ========
+    for (int L = 0; L < nl; ++L) {
+      const int K = nkb_K(a, L), J = nkb_J(a, L), NT = (J + 7) / 8;
+      if (L > 0) {
+        __syncthreads();  // the layer's input is whole
+        if (warp < NT) {
+#pragma unroll
+          for (int mt = 0; mt < MPM; ++mt)
+            acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.0f;
+          nkb_fwd_product<MPM>(acc, MP,
+                          reinterpret_cast<const uint32_t*>(tl + P * pl.x_at[L]),
+                          pl.x_ld[L] / 2,
+                          reinterpret_cast<const uint32_t*>(W + a.pk_off[L]),
+                          a.pk_ld[L] / 2, warp, K / 16, lane);
+        }
+      }
+      if (L == nl - 1) {
+        // the rgb logits, f32: columns 0-1 at t = 0, column 2 at t = 1
+        if (warp == 0 && t < 2) {
+#pragma unroll
+          for (int mt = 0; mt < MPM; ++mt) {
+            if (mt < MP) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int p = mt * 16 + g + 8 * h;
+                OUT[p * 4 + 2 * t] = acc[mt][2 * h] + sbias[L * NKT_W + 2 * t];
+                if (t == 0) OUT[p * 4 + 1] = acc[mt][2 * h + 1] + sbias[L * NKT_W + 1];
+              }
+            }
+          }
+        }
+        break;
+      }
+      const bool last_d = L == nd - 1;
+      const __nv_bfloat16* X =
+          L == 0 ? slot : reinterpret_cast<const __nv_bfloat16*>(tl + P * pl.x_at[L]);
+      const int ldx = L == 0 ? LC : pl.x_ld[L];
+      const __nv_bfloat16* Wt = W + a.pk_off[L];
+      if (last_d && warp == 0) {
+        // sigma comes from the f32 feature 0, and the whole step's inverse
+        // CDFs turn its last bits into moved samples: feature 0 is summed in
+        // the plain version's order for every point and replaces the tensor
+        // cores' sum
+        for (int p = lane; p < np; p += 32) Z0[p] = nkt_chain<4>(X + p * ldx, Wt, K);
+        __syncwarp();
+        if (t == 0) {
+#pragma unroll
+          for (int mt = 0; mt < MPM; ++mt) {
+            if (mt < MP) {
+              const int p = mt * 16 + g;
+              acc[mt][0] = p < np ? Z0[p] : 0.0f;
+              acc[mt][2] = p + 8 < np ? Z0[p + 8] : 0.0f;
+            }
+          }
+        }
+        __syncwarp();
+        for (int p = lane; p < np; p += 32) {
+          const float z = Z0[p] + sbias[L * NKT_W];
+          Z0[p] = z;
+          OUT[p * 4 + 3] = expf(nkt_clamp(z, -15.0f, 15.0f));
+        }
+      }
+      if (warp < NT)
+        nkb_finish<MPM>(acc, MP, np, warp, sbias + L * NKT_W, !last_d,
+                   reinterpret_cast<__nv_bfloat16*>(tl + P * pl.x_at[L + 1]),
+                   pl.x_ld[L + 1], X, ldx, K, Wt, a.pk_ld[L], list, P, lane, g, t);
+      if (last_d) {
+        // the color MLP's input: the features, then SH4 of the view
+        // directions, rounded
+        __nv_bfloat16* Y = reinterpret_cast<__nv_bfloat16*>(tl + P * pl.x_at[L + 1]);
+        const int ly = pl.x_ld[L + 1];
+        for (int p = tid; p < npad; p += NKB_THREADS) {
+          float sh[16];
+          const long long i = p0 + (p < np ? p : 0);
+          nkt_sh4(a.vdt[i], a.vdt[n + i], a.vdt[2 * n + i], sh);
+#pragma unroll
+          for (int s = 0; s < 16; ++s)
+            Y[p * ly + J + s] = __float2bfloat16_rn(p < np ? sh[s] : 0.0f);
+        }
+      }
+    }
+    __syncthreads();
+
+    // ======== the cotangent of (rgb logits, sigma) ========
+    if (train) {
+      for (int p = tid; p < npad; p += NKB_THREADS) {
+        float* o = OUT + 4 * p;
+        if (p < np) {
+          const float dist = b.dists[p0 + p];
+          const float alpha = 1.0f - expf(-o[3] * dist);
+          o[0] = 1.0f / (1.0f + expf(-o[0]));
+          o[1] = 1.0f / (1.0f + expf(-o[1]));
+          o[2] = 1.0f / (1.0f + expf(-o[2]));
+          o[3] = alpha;
+          G4[4 * p + 3] = dist;  // read by the reverse pass, then overwritten
+        } else {
+          G4[4 * p] = G4[4 * p + 1] = G4[4 * p + 2] = G4[4 * p + 3] = 0.0f;
+        }
+      }
+      __syncthreads();
+      const int S = b.S;
+      const int r = warp + NKB_WARPS * lane;  // the rays over the warps
+      if (r < np / S)
+        nkb_ray(b, OUT + 4 * r * S, G4 + 4 * r * S, TS + r * S, p0 / S + r, n_rays);
+    } else {
+      for (int e = tid; e < npad * 4; e += NKB_THREADS) {
+        const int p = e >> 2, c = e & 3;
+        G4[e] = p < np ? b.g[c * n + p0 + p] : 0.0f;
+      }
+    }
+    __syncthreads();
+
+    // ======== backward ========
+    {
+      // the last layer's cotangent (columns past it 0, to 16) and its db
+      const int Ll = nl - 1, Jl = nkb_J(a, Ll);
+      for (int e = tid; e < npad * 16; e += NKB_THREADS) {
+        const int p = e >> 4, j = e & 15;
+        G16[p * NKB_GLD + j] = __float2bfloat16_rn(j < Jl && p < np ? G4[p * 4 + j] : 0.0f);
+      }
+      if (tid < Jl) {
+        float s = 0.0f;
+        for (int p = 0; p < np; ++p) s = s + G4[p * 4 + tid];
+        sacc[pl.db_off + Ll * NKT_W + tid] += s;
+      }
+    }
+    __syncthreads();
+    for (int L = nl - 1; L >= 1; --L) {
+      const int K = nkb_K(a, L), J = nkb_J(a, L);
+      const __nv_bfloat16* XL = reinterpret_cast<const __nv_bfloat16*>(tl + P * pl.x_at[L]);
+      const int ldx = pl.x_ld[L];
+      // (a) dW_L += X_L^T G, the fragments over the warps
+      {
+        const int FN = (J + 7) / 8, F = K / 16 * FN;
+        float* fr = sacc + pl.frag_off[L];
+        for (int f = warp; f < F; f += NKB_WARPS) {
+          float c[4];
+          nkb_wgrad_frag<MPM>(c, MP, XL, ldx, f / FN, G16, f % FN, lane);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) fr[f * 128 + e * 32 + lane] += c[e];
+        }
+      }
+      // (b) the cotangent of the layer's input, the warp's n-tile of its
+      // columns (at the color MLP's first layer only the features')
+      const int NTo = (L == nd ? a.d_out[nd - 1] : K) / 8;
+      if (warp < NTo)
+        nkb_bwd_product<MPM>(acc, MP, G16, W + a.pk_off[L], a.pk_ld[L], warp, J, lane);
+      __syncthreads();  // every read of G is done
+      // (c) layer L-1's output cotangent: sigma's share at feature 0, masked
+      // by its ReLU (the layer's input > 0), summed into db, rounded into G
+      if (warp < NTo) {
+        const bool relu = L - 1 != nd - 1;
+        const int j0 = warp * 8 + 2 * t;
+        float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+        for (int mt = 0; mt < MPM; ++mt) {
+          if (mt < MP) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int p = mt * 16 + g + 8 * h;
+              float v0 = acc[mt][2 * h], v1 = acc[mt][2 * h + 1];
+              if (L == nd && j0 == 0 && p < np) {
+                const float z0 = Z0[p];
+                if (z0 > -15.0f && z0 < 15.0f)
+                  v0 = v0 + G4[p * 4 + 3] * expf(nkt_clamp(z0, -15.0f, 15.0f));
+              }
+              if (relu) {
+                const __nv_bfloat162 m =
+                    *reinterpret_cast<const __nv_bfloat162*>(XL + p * ldx + j0);
+                if (!(__low2float(m) > 0.0f)) v0 = 0.0f;
+                if (!(__high2float(m) > 0.0f)) v1 = 0.0f;
+              }
+              if (p >= np) v0 = v1 = 0.0f;
+              s0 = s0 + v0;
+              s1 = s1 + v1;
+              *reinterpret_cast<uint32_t*>(G16 + p * NKB_GLD + j0) = nkt_pack2(v0, v1);
+            }
+          }
+        }
+        // the column sums over the eight lanes of each t
+#pragma unroll
+        for (int d = 4; d < 32; d <<= 1) {
+          s0 = s0 + __shfl_xor_sync(0xffffffffu, s0, d);
+          s1 = s1 + __shfl_xor_sync(0xffffffffu, s1, d);
+        }
+        if (g == 0) {
+          sacc[pl.db_off + (L - 1) * NKT_W + j0] += s0;
+          sacc[pl.db_off + (L - 1) * NKT_W + j0 + 1] += s1;
+        }
+      }
+      __syncthreads();
+    }
+
+    // ======== layer 0: dW (registers) and d_enc (to denc), a level at a time
+    uint32_t gb[MPM][2];  // g's B fragments on the warp's n-tile
+    if (warp < NT0) {
+#pragma unroll
+      for (int mt = 0; mt < MPM; ++mt)
+        if (mt < MP) nkt_ldm2t(gb[mt], G16 + (mt * 16 + (lane & 15)) * NKB_GLD + warp * 8);
+    }
+    // a level's rows of the slot into its level tile (a warp its points;
+    // rows past np zero-filled), by cp.async: level l + 1's copies are in
+    // flight while the block computes level l
+    auto fetch_level = [&](int l) {
+      __nv_bfloat16* E = reinterpret_cast<__nv_bfloat16*>(tl) + (l & 1) * P * pl.e_ld;
+      for (int e = lane; e < ppw * (C / 8); e += 32) {
+        const int p = pw0 + e / (C / 8), c8 = e % (C / 8);
+        nkt_cp_async16(E + p * pl.e_ld + c8 * 8,
+                       p < np ? slot + p * LC + l * C + c8 * 8 : slot, p < np ? 16 : 0);
+      }
+      nkt_cp_commit();
+    };
+    fetch_level(0);
+    for (int l = 0; l < Lv; ++l) {
+      __nv_bfloat16* E = reinterpret_cast<__nv_bfloat16*>(tl) + (l & 1) * P * pl.e_ld;
+      nkt_cp_wait<0>();
+      __syncthreads();
+      // the other level tile was last read at level l - 1, before this barrier
+      if (l + 1 < Lv) fetch_level(l + 1);
+      if (warp < NT0) {
+#pragma unroll
+        for (int m = 0; m < MT0; ++m) {
+          const int mi = m - l * CT;
+          if (mi >= 0 && mi < CT) {
+            const __nv_bfloat16* xr = E + ((lane & 7) + ((lane >> 4) << 3)) * pl.e_ld +
+                                      mi * 16 + ((lane >> 3) & 1) * 8;
+#pragma unroll
+            for (int mt = 0; mt < MPM; ++mt) {
+              if (mt < MP) {
+                uint32_t af[4];
+                nkt_ldm4t(af, xr + mt * 16 * pl.e_ld);
+                nkt_mma(acc0[m], af, gb[mt][0], gb[mt][1]);
+              }
+            }
+          }
+        }
+      }
+      for (int nt = warp; nt < C / 8; nt += NKB_WARPS) {
+        nkb_bwd_product<MPM>(acc, MP, G16, W + a.pk_off[0] + l * C, a.pk_ld[0], nt, J0, lane);
+#pragma unroll
+        for (int mt = 0; mt < MPM; ++mt) {
+          if (mt < MP) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int p = mt * 16 + g + 8 * h;
+              if (p < np)
+                *reinterpret_cast<float2*>(b.denc + (p0 + p) * LC + l * C + nt * 8 + 2 * t) =
+                    make_float2(acc[mt][2 * h], acc[mt][2 * h + 1]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // the tile's buffers and the slot serve the next tile
+  }
+
+  // ---- the block's partial sums: its row of `partial` --------------------
+  float* mine = b.partial + (long long)blockIdx.x * rows.total;
+  if (warp < NT0) {
+#pragma unroll
+    for (int m = 0; m < MT0; ++m) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = m * 16 + g + (e >> 1) * 8, j = warp * 8 + 2 * t + (e & 1);
+        if (k < K0) mine[rows.dw_off[0] + k * J0 + j] = acc0[m][e];
+      }
+    }
+  }
+  for (int L = 1; L < nl; ++L) {
+    const int K = nkb_K(a, L), J = nkb_J(a, L), FN = (J + 7) / 8;
+    const float* fr = sacc + pl.frag_off[L];
+    const int wo = L < nd ? rows.dw_off[L] : rows.cw_off[L - nd];
+    for (int e = tid; e < K / 16 * FN * 128; e += NKB_THREADS) {
+      const int f = e >> 7, ee = (e >> 5) & 3, ln = e & 31;
+      const int k = (f / FN) * 16 + (ln >> 2) + (ee >> 1) * 8;
+      const int j = (f % FN) * 8 + 2 * (ln & 3) + (ee & 1);
+      if (j < J) mine[wo + k * J + j] = fr[e];
+    }
+  }
+  for (int e = tid; e < nl * NKT_W; e += NKB_THREADS) {
+    const int L = e / NKT_W, j = e - L * NKT_W;
+    if (j < nkb_J(a, L))
+      mine[(L < nd ? rows.db_off[L] : rows.cb_off[L - nd]) + j] = sacc[pl.db_off + e];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side.
+
 static size_t wg_smem(const WgPlan& p) {
-  return (size_t)2 * (p.a_words + p.g_words) * sizeof(uint32_t);
-}
-
-// One launch over every job of the plan, `chunks` rows of partial sums.
-template <bool ASYNC>
-static int wg_launch(WgPlan& p, float* partial, int chunks, cudaStream_t st) {
-  const long long tiles = (p.n + NKT_WG_TP - 1) / NKT_WG_TP;
-  p.chunk = ((tiles + chunks - 1) / chunks) * NKT_WG_TP;
-  const size_t bytes = wg_smem(p);
-  cudaError_t err = cudaFuncSetAttribute(
-      nkt_wgrad_mma_kernel<ASYNC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  nkt_wgrad_mma_kernel<ASYNC><<<dim3((unsigned)chunks, (unsigned)p.n_jobs),
-                                NKT_THREADS, bytes, st>>>(p, partial);
-  return (int)cudaGetLastError();
-}
-
-static WgPlan wg_plan(long long n, long long ld, int total) {
-  WgPlan p;
-  p.n_jobs = 0;
-  p.total = total;
-  p.a_words = p.g_words = 0;
-  p.n = n;
-  p.ld = ld;
-  p.chunk = 0;
-  return p;
+  return (size_t)(p.a_words + p.g_words) * sizeof(uint32_t);
 }
 
 static size_t wgrad_smem(int K, int J) {
@@ -791,16 +1339,29 @@ static bool dims_ok(const FusedArgs& a) { return a.cp.n_comp % 4 == 0; }
 
 // One layer's weight gradient, dW = A G^T and db = sum of G over n points,
 // as per-block partial sums into partial (blocks rows of `total` floats).
-// Also called by the classic engine's gradient (csrc/classic_fused.cu).
+// Called by the classic engine's gradient (csrc/classic_fused.cu).
 extern "C" int nkt_wgrad_launch(const float* A, const float* G, long long n,
                                 int K, int J, int bf, float* partial,
                                 int total, int w_off, int b_off, int blocks,
                                 void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
   if (bf) {  // the tensor cores, one job per 256 x 64 block of the layer
-    WgPlan p = wg_plan(n, n, total);
-    if (blocks < 1 || !wg_add_layer(p, A, sizeof(float), G, K, J, w_off, b_off))
+    WgPlan p;
+    p.n_jobs = 0;
+    p.total = total;
+    p.a_words = p.g_words = 0;
+    p.n = n;
+    if (blocks < 1 || !wg_add_layer(p, A, G, K, J, w_off, b_off))
       return (int)cudaErrorInvalidValue;
-    return wg_launch<false>(p, partial, blocks, (cudaStream_t)stream);
+    const long long tiles = (n + NKT_WG_TP - 1) / NKT_WG_TP;
+    p.chunk = ((tiles + blocks - 1) / blocks) * NKT_WG_TP;
+    const size_t bytes = wg_smem(p);
+    NKT_CHECK(cudaFuncSetAttribute(nkt_wgrad_mma_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes));
+    nkt_wgrad_mma_kernel<<<dim3((unsigned)blocks, (unsigned)p.n_jobs),
+                           NKT_THREADS, bytes, st>>>(p, partial);
+    return (int)cudaGetLastError();
   }
   // A thread owns at most NKT_MAX_Q groups: a wider layer (fox_ngp.yml's
   // first, 480 x 64) goes in launches of at most kc input rows, the bias
@@ -808,7 +1369,6 @@ extern "C" int nkt_wgrad_launch(const float* A, const float* G, long long n,
   const int J4 = (J + 3) / 4;
   const int kc = NKT_MAX_Q * NKT_THREADS / J4;
   if (kc < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
   const bool uniform = NKT_THREADS % J4 == 0;
   for (int k0 = 0; k0 < K; k0 += kc) {
     const int Kc = K - k0 < kc ? K - k0 : kc;
@@ -865,72 +1425,53 @@ static int launch_wgrad(const float* A, const float* G, int K, int J,
                           rows.total, w_off, b_off, blocks, st);
 }
 
-// Steps 1-5 in bf16 mode.
-static int run_backward_mma(const BwdArgs& b, bool train, int n_sm,
-                            cudaStream_t st) {
+template <int MT0, int MPM>
+static int launch_tile(const BwdArgs& b, const BwdPlan& pl,
+                       const SaveRows& rows, bool train, long long grid,
+                       cudaStream_t st) {
+  NKT_CHECK(cudaFuncSetAttribute(nkt_fused_tile_kernel<MT0, MPM>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 pl.total));
+  nkt_fused_tile_kernel<MT0, MPM><<<(unsigned)grid, NKB_THREADS, pl.total, st>>>(
+      b, pl, rows, train ? 1 : 0);
+  return (int)cudaGetLastError();
+}
+
+// The instance for the plan: one for an encoding of up to 256 (16 m-tiles
+// of layer 0's dW a warp, tiles of up to 128 points), one for up to 512 (32
+// m-tiles; make_plan keeps its tiles to 64 points, so that the registers of
+// layer 0's dW leave room for the rest); and, with arrays of just their
+// size, machina_ngp.yml's tile (16 m-tiles, 96 points) and fox_ngp.yml's
+// (30, 64), which are 8 % and 5 % faster so on the card (PERF.md section 6).
+static int launch_tile_for(const BwdArgs& b, const BwdPlan& pl,
+                           const SaveRows& rows, bool train, long long grid,
+                           cudaStream_t st) {
+  const int mp = pl.P / 16;
+  if (pl.mt0 == 16 && mp == 6) return launch_tile<16, 6>(b, pl, rows, train, grid, st);
+  if (pl.mt0 == 30 && mp == 4) return launch_tile<30, 4>(b, pl, rows, train, grid, st);
+  if (pl.mt0 <= 16) return launch_tile<16, NKB_MAX_MT>(b, pl, rows, train, grid, st);
+  return launch_tile<32, NKB_WIDE_MT>(b, pl, rows, train, grid, st);
+}
+
+// bf16 mode: the tile kernel, row 5's kernel on denc, the sum of the
+// blocks' partial rows.
+static int run_backward_tile(const BwdArgs& b, bool train, int n_sm,
+                             cudaStream_t st) {
   const FusedArgs& a = b.f;
-  if (!mma_dims_ok(a, true) || b.ld % NKT_WG_TP || b.ld < a.n)
+  BwdPlan pl;
+  if (!mma_dims_ok(a, true) || !make_plan(a, train ? b.S : 0, pl))
     return (int)cudaErrorInvalidValue;
   const SaveRows rows = make_rows(a);
-  const long long tiles = (a.n + NKT_MT - 1) / NKT_MT;
-
-  // 1. forward, saving the layers' inputs in bf16
-  const MmaLayout lf = make_mma_layout_fwd(a, true);
-  NKT_CHECK(cudaFuncSetAttribute(nkt_mma_apply_save_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 lf.total));
-  long long want = (tiles + lf.warps - 1) / lf.warps;
-  if (want > a.enc_slots / lf.warps) want = a.enc_slots / lf.warps;
-  if (want < 1) return (int)cudaErrorInvalidValue;
-  long long blocks = persistent_blocks(nkt_mma_apply_save_kernel, lf.warps * 32,
-                                       lf.total, want, n_sm);
-  nkt_mma_apply_save_kernel<<<(unsigned)blocks, lf.warps * 32, lf.total, st>>>(
-      a, lf, rows, static_cast<__nv_bfloat16*>(b.act), b.z0, b.ld);
-  NKT_CHECK(cudaGetLastError());
-
-  // 2. per-ray compositing, loss and the cotangent of (rgb logits, sigma)
-  BwdArgs bb = b;
-  if (train) {
-    const long long n_rays = a.n / b.S;
-    nkt_train_rays_kernel<<<(unsigned)((n_rays + 127) / 128), 128, 0, st>>>(
-        b, n_rays);
-    NKT_CHECK(cudaGetLastError());
-    bb.g = b.gbuf;
-  }
-
-  // 3. per-point backward through the MLPs and the encoder
-  const MmaLayout lb = make_mma_layout_bwd(a);
-  NKT_CHECK(cudaFuncSetAttribute(nkt_mma_point_bwd_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 lb.total));
-  blocks = persistent_blocks(nkt_mma_point_bwd_kernel, lb.warps * 32, lb.total,
-                             (tiles + lb.warps - 1) / lb.warps, n_sm);
-  nkt_mma_point_bwd_kernel<<<(unsigned)blocks, lb.warps * 32, lb.total, st>>>(
-      bb, lb, rows);
-  NKT_CHECK(cudaGetLastError());
-  int rc = launch_dlines(b, st);
+  const long long tiles =
+      train ? (a.n / b.S + pl.rays - 1) / pl.rays : (a.n + pl.P - 1) / pl.P;
+  long long grid = tiles < n_sm ? tiles : n_sm;
+  if (grid > b.n_part) grid = b.n_part;
+  if (grid < 1 || grid * (pl.P / 16) > a.enc_slots) return (int)cudaErrorInvalidValue;
+  int rc = launch_tile_for(b, pl, rows, train, grid, st);
   if (rc) return rc;
-
-  // 4. weight gradients of every layer in one launch
-  WgPlan p = wg_plan(a.n, b.ld, rows.total);
-  const __nv_bfloat16* act = static_cast<const __nv_bfloat16*>(b.act);
-  for (int li = 0; li < a.nd; ++li)
-    if (!wg_add_layer(p, act + (long long)rows.d_row[li] * b.ld, 2,
-                      b.gs + (long long)rows.dg_row[li] * b.ld, a.d_in[li],
-                      a.d_out[li], rows.dw_off[li], rows.db_off[li]))
-      return (int)cudaErrorInvalidValue;
-  for (int li = 0; li < a.nc; ++li)
-    if (!wg_add_layer(p, act + (long long)rows.c_row[li] * b.ld, 2,
-                      b.gs + (long long)rows.cg_row[li] * b.ld, a.c_in[li],
-                      a.c_out[li], rows.cw_off[li], rows.cb_off[li]))
-      return (int)cudaErrorInvalidValue;
-  const long long wt = (a.n + NKT_WG_TP - 1) / NKT_WG_TP;
-  const int chunks = (int)(wt < b.n_part ? wt : b.n_part);
-  rc = wg_launch<true>(p, b.partial, chunks, st);
+  rc = launch_dlines(b, st);
   if (rc) return rc;
-
-  // 5. the sum over blocks
-  return nkt_reduce_partials_launch(b.partial, b.flat, rows.total, chunks, st);
+  return nkt_reduce_partials_launch(b.partial, b.flat, rows.total, (int)grid, st);
 }
 
 static int run_backward(const BwdArgs& b, bool train, int n_sm,
@@ -942,7 +1483,7 @@ static int run_backward(const BwdArgs& b, bool train, int n_sm,
   // its flags and writes its record in the same a.cp.nonfinite
   const cudaError_t scan = nkt_table_scan(a.lines, a.cp, true, st);
   if (scan != cudaSuccess) return (int)scan;
-  if (a.cp.use_bf16) return run_backward_mma(b, train, n_sm, st);
+  if (a.cp.use_bf16) return run_backward_tile(b, train, n_sm, st);
   if (!dims_ok(a) || b.ld != a.n) return (int)cudaErrorInvalidValue;
   const SaveRows rows = make_rows(a);
   long long blocks = (a.n + NKT_THREADS - 1) / NKT_THREADS;
@@ -1006,32 +1547,49 @@ static int run_backward(const BwdArgs& b, bool train, int n_sm,
 // The scratch of a call over args->n points: out[0] = rows of act, out[1] =
 // rows of gs, out[2] = floats of the flat MLP gradient, out[3] = bytes of
 // shared memory of the largest kernel, out[4] = ld, the row stride of act
-// and gs in points (n in f32 mode; n rounded up to a multiple of 64 in bf16
-// mode, so that every 64-point tile of a row starts 128-byte aligned),
-// out[5] = bytes of an act entry (2: bf16 mode, 4: f32 mode). z0 has ld
-// floats.
+// and gs in points, out[5] = bytes of an act entry; z0 has ld floats. f32
+// mode: ld = n, 4-byte entries. bf16 mode keeps every layer's input and
+// cotangent on chip: no act, gs or z0 (ld 0); out[3] is the tile kernel's
+// (1 << 30 where its plan does not fit).
 extern "C" void nkt_fused_bwd_sizes(const FusedArgs* args, long long* out) {
   const SaveRows rows = make_rows(*args);
-  out[0] = rows.act_rows;
-  out[1] = rows.gs_rows;
   out[2] = rows.total;
-  const bool bf = args->cp.use_bf16 != 0;
-  if (bf) {
-    const long long f = make_mma_layout_fwd(*args, true).total;
-    const long long bw = make_mma_layout_bwd(*args).total;
-    const long long wg = (long long)2 * (NKT_WG_KC * NKT_WG_LDA + NKT_WG_JC * NKT_WG_LDG) *
-                         (long long)sizeof(uint32_t);
-    long long m = f > bw ? f : bw;
-    out[3] = m > wg ? m : wg;
-    out[4] = (args->n + NKT_WG_TP - 1) / NKT_WG_TP * NKT_WG_TP;
+  if (args->cp.use_bf16) {
+    BwdPlan pl;
+    out[0] = out[1] = 0;
+    out[3] = make_plan(*args, 0, pl) ? pl.total : (1LL << 30);
+    out[4] = 0;
     out[5] = 2;
   } else {
+    out[0] = rows.act_rows;
+    out[1] = rows.gs_rows;
     const long long f = make_layout(*args, true).total;
     const long long bw = make_layout(*args, true, NKT_W * NKT_HS).total;
     out[3] = (f > bw ? f : bw) * (long long)sizeof(float);
     out[4] = args->n;
     out[5] = 4;
   }
+}
+
+// The tile kernel's plan for S samples a ray (0: the VJP): out[0] = points
+// a tile, out[1] = rays a tile, out[2] = points of a full tile, out[3] =
+// bytes of shared memory, out[4] = of them the weights' and biases', out[5]
+// = the sums', out[6] = the tile's bytes a point, out[7] = of them the
+// layers' inputs', out[8] = accumulator registers a thread (layer 0's dW).
+// Returns 0, or 1 where the layers do not fit.
+extern "C" int nkt_fused_bwd_plan(const FusedArgs* args, int S, long long* out) {
+  BwdPlan pl;
+  if (!mma_dims_ok(*args, true) || !make_plan(*args, S, pl)) return 1;
+  out[0] = pl.P;
+  out[1] = pl.rays;
+  out[2] = pl.tile_pts;
+  out[3] = pl.total;
+  out[4] = pl.acc_off;
+  out[5] = (long long)pl.acc_floats * 4;
+  out[6] = pl.per_point;
+  out[7] = pl.g_at;
+  out[8] = pl.mt0 * 4;
+  return 0;
 }
 
 // The VJP of the fused forward: b->g is the (4, n) cotangent.

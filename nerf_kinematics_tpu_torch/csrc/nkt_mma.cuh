@@ -81,6 +81,20 @@ __device__ __forceinline__ void nkt_ldm4t(uint32_t* r, const void* p) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
 }
 
+// Two 8x8 matrices (the B fragment of one n-tile), rows addressed by lanes
+// 0-15; plain and transposed.
+__device__ __forceinline__ void nkt_ldm2(uint32_t* r, const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(s));
+}
+
+__device__ __forceinline__ void nkt_ldm2t(uint32_t* r, const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(s));
+}
+
 // f32 products in 3xTF32 on mma.sync.m16n8k8 (TF32 operands, f32
 // accumulation). Fragments (g = lane / 4, t = lane % 4):
 //   A (16 x 8, row major): a0 = (g, t), a1 = (g + 8, t), a2 = (g, t + 4),
@@ -204,20 +218,37 @@ __device__ __forceinline__ void nkt_c_to_a(float (*v)[4], int NT,
 
 // The plain version's own sum of one output: an f32 fused multiply-add
 // chain over k in order, from 0 (what a sequential matmul computes). x and
-// w are 16-byte aligned rows of bf16, K a multiple of 8.
+// w are 16-byte aligned rows of bf16, K a multiple of 8. Q 16-byte loads of
+// each row are in flight at a time: 1 in rows 2 and 3's forward, which sums
+// feature 0 this way for every point (4 there made row 2 14 % slower on an
+// H100); 4 in the gradients' tile kernel, where x may lie in device memory
+// (layer 0's input in a block's slot) and one load at a time would wait out
+// its latency K / 8 times.
+template <int Q>
 static __device__ __noinline__ float nkt_chain(const __nv_bfloat16* x,
                                                const __nv_bfloat16* w, int K) {
   float acc = 0.0f;
-  for (int k = 0; k < K; k += 8) {
-    const uint4 xv = *reinterpret_cast<const uint4*>(x + k);
-    const uint4 wv = *reinterpret_cast<const uint4*>(w + k);
-    const uint32_t xs[4] = {xv.x, xv.y, xv.z, xv.w};
-    const uint32_t ws[4] = {wv.x, wv.y, wv.z, wv.w};
+  for (int k0 = 0; k0 < K; k0 += 8 * Q) {
+    uint4 xv[Q], wv[Q];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      acc = __fmaf_rn(__uint_as_float(xs[i] << 16), __uint_as_float(ws[i] << 16), acc);
-      acc = __fmaf_rn(__uint_as_float(xs[i] & 0xFFFF0000u),
-                      __uint_as_float(ws[i] & 0xFFFF0000u), acc);
+    for (int q = 0; q < Q; ++q) {
+      if (k0 + 8 * q < K) {
+        xv[q] = *reinterpret_cast<const uint4*>(x + k0 + 8 * q);
+        wv[q] = *reinterpret_cast<const uint4*>(w + k0 + 8 * q);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      if (k0 + 8 * q < K) {
+        const uint32_t xs[4] = {xv[q].x, xv[q].y, xv[q].z, xv[q].w};
+        const uint32_t ws[4] = {wv[q].x, wv[q].y, wv[q].z, wv[q].w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc = __fmaf_rn(__uint_as_float(xs[i] << 16), __uint_as_float(ws[i] << 16), acc);
+          acc = __fmaf_rn(__uint_as_float(xs[i] & 0xFFFF0000u),
+                          __uint_as_float(ws[i] & 0xFFFF0000u), acc);
+        }
+      }
     }
   }
   return acc;
@@ -311,7 +342,7 @@ __device__ __forceinline__ void nkt_mma_finish(float (*acc)[4], int NT,
     if (at < NKT_LIST_CAP) {
       list[at] = (unsigned short)(row * NKT_W + col);
     } else {  // more than the list holds: the lane sums its own
-      float z = nkt_chain(xb + row * 2 * ldx, Wt + col * ldw, K) + bias[col];
+      float z = nkt_chain<1>(xb + row * 2 * ldx, Wt + col * ldw, K) + bias[col];
       if (relu) z = nkt_relu(z);
       yb[row * 2 * ldy + col] = __float2bfloat16_rn(z);
     }
@@ -320,31 +351,11 @@ __device__ __forceinline__ void nkt_mma_finish(float (*acc)[4], int NT,
   __syncwarp();
   for (int it = lane; it < min(total, NKT_LIST_CAP); it += 32) {
     const int row = list[it] / NKT_W, col = list[it] % NKT_W;
-    float z = nkt_chain(xb + row * 2 * ldx, Wt + col * ldw, K) + bias[col];
+    float z = nkt_chain<1>(xb + row * 2 * ldx, Wt + col * ldw, K) + bias[col];
     if (relu) z = nkt_relu(z);
     yb[row * 2 * ldy + col] = __float2bfloat16_rn(z);
   }
   __syncwarp();
-}
-
-// act rows [row0, row0 + W) of the warp's 16 points at p0 (rows ld points
-// apart) from columns [col0, col0 + W) of its bf16 buffer: 32-bit stores of
-// two points, eight lanes to a row, so each store fills whole 32-byte
-// sectors.
-__device__ __forceinline__ void nkt_save_tile(const uint32_t* tile, int lde,
-                                              int col0, int W,
-                                              __nv_bfloat16* act, long long ld,
-                                              int row0, long long p0,
-                                              int lane) {
-  const __nv_bfloat16* tb = reinterpret_cast<const __nv_bfloat16*>(tile) + col0;
-  for (int e = lane; e < W * 8; e += 32) {
-    const int ch = e >> 3, q = e & 7;
-    __nv_bfloat162 v;
-    v.x = tb[(2 * q) * (2 * lde) + ch];
-    v.y = tb[(2 * q + 1) * (2 * lde) + ch];
-    *reinterpret_cast<__nv_bfloat162*>(act + (long long)(row0 + ch) * ld + p0 +
-                                       2 * q) = v;
-  }
 }
 
 // 16-byte asynchronous copy global -> shared; bytes < 16 zero-fills the
@@ -407,16 +418,16 @@ __device__ __forceinline__ void nkt_mma_stage(const FusedArgs& a,
   }
 }
 
-// The warp's 16 points of a level in E (bf16, lde elements a row; their tap
-// pairs in taps, three a point): NaN in each channel that nkt_poison makes
-// NaN for one of its axes, with the fused kernels' operand rows. desc: the
-// level's descriptors (nkt_poison_descs). Scalar arguments only: a
+// The warp's npts points of a level in E (bf16, lde elements a row; their
+// tap pairs in taps, three a point): NaN in each channel that nkt_poison
+// makes NaN for one of its axes, with the fused kernels' operand rows. desc:
+// the level's descriptors (nkt_poison_descs). Scalar arguments only: a
 // reference to the kernel's argument struct would copy it to the stack.
 static __device__ __noinline__ void nkt_poison_tile(__nv_bfloat16* E, int lde,
                                                     const NktTapS* taps,
                                                     const unsigned* desc, int C,
-                                                    int Fd, int lane) {
-  for (int e = lane; e < NKT_MT * C; e += 32) {
+                                                    int Fd, int npts, int lane) {
+  for (int e = lane; e < npts * C; e += 32) {
     const int pp = e / C, c = e - pp * C;
     bool nan = false;
     for (int a = 0; a < 3; ++a) {
@@ -436,14 +447,10 @@ static __device__ __noinline__ void nkt_poison_tile(__nv_bfloat16* E, int lde,
 // takes that level's k-tiles from E. Each later layer reads its input from the buffer
 // the previous layer wrote (H, E, H, ...); nkt_mma_finish keeps every
 // rounding as the plain version's, reading layer 0's whole input from E or
-// the slot. With SAVE it also writes every layer's (rounded) input to
-// act (bf16, rows ld points apart) and the f32 feature 0 to z0s.
-template <bool COLOR, bool SAVE>
+// the slot.
+template <bool COLOR>
 __device__ __forceinline__ void nkt_mma_body(const FusedArgs& a,
-                                             const MmaLayout& lay,
-                                             const SaveRows& rows,
-                                             __nv_bfloat16* act, float* z0s,
-                                             long long ld) {
+                                             const MmaLayout& lay) {
   extern __shared__ __align__(16) unsigned char smem_mma[];
   nkt_mma_stage(a, lay, smem_mma);
   __syncthreads();
@@ -548,7 +555,7 @@ __device__ __forceinline__ void nkt_mma_body(const FusedArgs& a,
       if ((pois_levels >> l) & 1u) {
         nkt_poison_tile(reinterpret_cast<__nv_bfloat16*>(El), 2 * lde, taps,
                         nkt_poison_descs(a.cp, l), C, nkt_dup_row(a.cp, l, true),
-                        lane);
+                        NKT_MT, lane);
         __syncwarp();
       }
       // the level's columns of the warp's slot: 16-byte copies
@@ -559,7 +566,6 @@ __device__ __forceinline__ void nkt_mma_body(const FusedArgs& a,
               *reinterpret_cast<const uint4*>(E + p * lde + c8 * 4);
         }
       }
-      if (SAVE) nkt_save_tile(El, lde, 0, C, act, ld, rows.d_row[0] + l * C, p0, lane);
       const int ar = (lane & 15) * lde + (lane >> 4) * 4;
       const int br = ((lane & 7) + ((lane >> 4) << 3)) * ld0 + ((lane >> 3) & 1) * 4 + (l * C) / 2;
       for (int ks = 0; ks < C / 16; ++ks) {
@@ -605,7 +611,7 @@ __device__ __forceinline__ void nkt_mma_body(const FusedArgs& a,
         // each) and replaces the tensor cores' sum.
         float zc = 0.0f;
         if (lane < NKT_MT)
-          zc = nkt_chain(reinterpret_cast<const __nv_bfloat16*>(X) + lane * 2 * ldx,
+          zc = nkt_chain<1>(reinterpret_cast<const __nv_bfloat16*>(X) + lane * 2 * ldx,
                          swb + a.pk_off[L], K);
         const float zg = __shfl_sync(0xffffffffu, zc, g);
         const float zg8 = __shfl_sync(0xffffffffu, zc, g + 8);
@@ -615,10 +621,6 @@ __device__ __forceinline__ void nkt_mma_body(const FusedArgs& a,
           acc[0][2] = zg8;
           const float z0g = acc[0][0] + sbias[L * NKT_W];
           const float z0g8 = acc[0][2] + sbias[L * NKT_W];
-          if (SAVE) {
-            z0s[pg] = z0g;
-            z0s[pg8] = z0g8;
-          }
           if (pg < n) a.out[3 * n + pg] = expf(nkt_clamp(z0g, -15.0f, 15.0f));
           if (pg8 < n) a.out[3 * n + pg8] = expf(nkt_clamp(z0g8, -15.0f, 15.0f));
         }
@@ -663,11 +665,6 @@ __device__ __forceinline__ void nkt_mma_body(const FusedArgs& a,
         Y[(g + 8) * ly + c0 + t] = nkt_pack2(s2, s3);
         Y[g * ly + c0 + 4 + t] = nkt_pack2(s4, s5);
         Y[(g + 8) * ly + c0 + 4 + t] = nkt_pack2(s6, s7);
-        __syncwarp();
-        if (SAVE) nkt_save_tile(Y, ly, 0, J + 16, act, ld, rows.c_row[0], p0, lane);
-      } else if (SAVE) {
-        nkt_save_tile(buf[o], ldb[o], 0, J, act, ld,
-                      dens ? rows.d_row[li + 1] : rows.c_row[li + 1], p0, lane);
       }
       __syncwarp();
       cur = o;

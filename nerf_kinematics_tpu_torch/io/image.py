@@ -5,7 +5,8 @@ The machine the port trains on need not have Pillow, so the loaders and the
 scene generator read and write PNGs here:
 
   * :func:`write_png` / :func:`read_png`: 8-bit, non-interlaced PNG of gray,
-    gray + alpha, RGB, RGBA (and palette of 1 to 8 bits, read only). The
+    gray + alpha, RGB, RGBA (and palette of 1 to 8 bits, read only); the
+    writer also takes 16-bit samples (:func:`save_depth16`'s depth maps). The
     writer filters no row; the reader undoes all five row filters, since
     Pillow's writer picks a filter per row.
   * :func:`resize_lanczos`: Pillow's ``Image.resize(size, LANCZOS)`` of an
@@ -20,7 +21,7 @@ scene generator read and write PNGs here:
     :func:`encode_gif`.
 
 Replaces ``nerf_kinematics_tpu/io/image.py::save_image`` / ``load_image`` /
-``write_video`` and the Pillow calls of the reference's loaders and scene
+``save_depth16`` / ``write_video`` and the Pillow calls of the reference's loaders and scene
 writer.
 """
 
@@ -49,20 +50,23 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
 
 
 def encode_png(img: np.ndarray) -> bytes:
-    """(H, W) or (H, W, C) uint8, C in 1..4 (gray, gray + alpha, RGB, RGBA)
-    -> PNG bytes. Every row is stored with filter 0, deflated at zlib's
+    """(H, W) or (H, W, C) uint8 or uint16, C in 1..4 (gray, gray + alpha,
+    RGB, RGBA) -> PNG bytes of 8 or 16 bits a sample (big-endian, as PNG
+    stores them). Every row is stored with filter 0, deflated at zlib's
     level 6 (Pillow's default)."""
     img = np.asarray(img)
-    if img.dtype != np.uint8:
-        raise ValueError(f"encode_png takes uint8, got {img.dtype}")
+    if img.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"encode_png takes uint8 or uint16, got {img.dtype}")
     if img.ndim == 2:
         img = img[:, :, None]
     if img.ndim != 3 or img.shape[2] not in _COLOR_TYPE:
         raise ValueError(f"encode_png takes (H, W[, 1..4]), got {img.shape}")
     H, W, C = img.shape
-    raw = np.zeros((H, 1 + W * C), np.uint8)
-    raw[:, 1:] = img.reshape(H, W * C)
-    ihdr = struct.pack(">IIBBBBB", W, H, 8, _COLOR_TYPE[C], 0, 0, 0)
+    depth = 8 * img.dtype.itemsize
+    data = img.astype(">u2").view(np.uint8) if depth == 16 else img
+    raw = np.zeros((H, 1 + W * C * depth // 8), np.uint8)
+    raw[:, 1:] = data.reshape(H, -1)
+    ihdr = struct.pack(">IIBBBBB", W, H, depth, _COLOR_TYPE[C], 0, 0, 0)
     return (_SIGNATURE + _chunk(b"IHDR", ihdr)
             + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
             + _chunk(b"IEND", b""))
@@ -159,6 +163,18 @@ def decode_png(data: bytes) -> np.ndarray:
         alpha[: len(trns)] = trns
         return np.concatenate([rgb, alpha[idx][..., None]], axis=-1)
     return img
+
+
+def save_depth16(path: str, depth: np.ndarray, near: float | None = None,
+                 far: float | None = None) -> None:
+    """A depth map as a 16-bit grayscale PNG: ``depth`` normalized to
+    [near, far] (its own min and max where not given), clipped to [0, 1]
+    and scaled to 0..65535, truncated."""
+    d = np.asarray(depth, np.float64)
+    lo = d.min() if near is None else near
+    hi = d.max() if far is None else far
+    norm = np.clip((d - lo) / max(hi - lo, 1e-12), 0, 1)
+    write_png(path, (norm * 65535).astype(np.uint16))
 
 
 def write_png(path: str, img: np.ndarray) -> None:

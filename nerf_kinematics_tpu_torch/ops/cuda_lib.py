@@ -113,11 +113,8 @@ class FusedArgs(ctypes.Structure):
         ("wpk", ctypes.c_void_p),
         ("pk_off", ctypes.c_int * (2 * MAX_LAYERS)),
         ("pk_ld", ctypes.c_int * (2 * MAX_LAYERS)),
-        ("pk_boff", ctypes.c_int * (2 * MAX_LAYERS)),
-        ("pk_bld", ctypes.c_int * (2 * MAX_LAYERS)),
         ("pk_dens", ctypes.c_int),
         ("pk_fwd", ctypes.c_int),
-        ("pk_all", ctypes.c_int),
         ("enc", ctypes.c_void_p),
         ("enc_slots", ctypes.c_longlong),
     ]
@@ -380,6 +377,8 @@ def load_library(verbose: bool = False):
     lib.nkt_fused_bwd_sizes.argtypes = [
         ctypes.POINTER(FusedArgs), ctypes.POINTER(ll)]
     lib.nkt_fused_bwd_sizes.restype = None
+    lib.nkt_fused_bwd_plan.argtypes = [ctypes.POINTER(FusedArgs), ci, ctypes.POINTER(ll)]
+    lib.nkt_fused_bwd_plan.restype = ci
     for fn in (lib.nkt_fused_backward, lib.nkt_fused_train):
         fn.argtypes = [ctypes.POINTER(BwdArgs), ci, vp]
         fn.restype = ci

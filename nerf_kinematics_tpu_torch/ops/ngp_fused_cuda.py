@@ -110,29 +110,25 @@ def _ceil(x: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class MmaPackLayout:
     """Where :func:`mma_pack` puts each layer (bf16 elements). Layers are the
-    density layers then the color layers. A forward block holds W^T (a row
+    density layers then the color layers. A layer's block holds W^T (a row
     per output column, ``ceil(out, 8)`` rows, the inputs zero-padded to a
-    multiple of 16); a backward block holds W (a row per input, ``ceil(in,
-    8)`` rows, the outputs padded to 16). Each row is ``ld`` elements with
-    ``ld = 8 (mod 16)``: 4 (mod 8) 32-bit words, so the eight rows one
-    fragment load touches fall in distinct shared-memory banks, and every
-    row starts 16-byte aligned. The forward blocks come first, density then
-    color (``dens``: where the color blocks start; ``fwd``: where the
-    backward blocks start)."""
+    multiple of 16); the forward products read it as B = W, the gradient's
+    products by W^T read it transposed (``ldmatrix .trans``). Each row is
+    ``ld`` elements with ``ld = 8 (mod 16)``: 4 (mod 8) 32-bit words, so the
+    eight rows one fragment load touches fall in distinct shared-memory
+    banks, and every row starts 16-byte aligned. ``dens``: where the color
+    blocks start."""
 
     f_off: tuple
     f_ld: tuple
-    b_off: tuple
-    b_ld: tuple
     dens: int
-    fwd: int
     total: int
 
 
-def mma_layout(shapes, nd: int, backward: bool = True) -> MmaPackLayout:
+def mma_layout(shapes, nd: int) -> MmaPackLayout:
     """The packing of layers of ``shapes`` ((in, out) each, ``nd`` density
-    layers first); backward blocks only when ``backward``."""
-    f_off, f_ld, b_off, b_ld = [], [], [], []
+    layers first)."""
+    f_off, f_ld = [], []
     off, dens = 0, None
     for i, (k, j) in enumerate(shapes):
         if i == nd:
@@ -141,32 +137,22 @@ def mma_layout(shapes, nd: int, backward: bool = True) -> MmaPackLayout:
         f_off.append(off)
         f_ld.append(ld)
         off += _ceil(j, 8) * ld
-    fwd = off
-    if backward:
-        for k, j in shapes:
-            ld = _ceil(j, 16) + 8
-            b_off.append(off)
-            b_ld.append(ld)
-            off += _ceil(k, 8) * ld
-    return MmaPackLayout(tuple(f_off), tuple(f_ld), tuple(b_off), tuple(b_ld),
-                         fwd if dens is None else dens, fwd, off)
+    return MmaPackLayout(tuple(f_off), tuple(f_ld), off if dens is None else dens, off)
 
 
 def _block(buf, off: int, rows: int, ld: int):
     return buf[off : off + rows * ld].view(rows, ld)
 
 
-def mma_pack(Ws, nd: int, backward: bool = True):
+def mma_pack(Ws, nd: int):
     """Pack the layers' weights ``Ws`` ((in, out) each, f32, density then
     color) into one bf16 buffer laid out as :func:`mma_layout` says:
     rounded to nearest even, zero-padded. Returns ``(buffer, layout)``."""
-    lay = mma_layout([tuple(w.shape) for w in Ws], nd, backward)
+    lay = mma_layout([tuple(w.shape) for w in Ws], nd)
     buf = torch.zeros(lay.total, dtype=torch.bfloat16, device=Ws[0].device)
     for i, w in enumerate(Ws):
         k, j = w.shape
         _block(buf, lay.f_off[i], _ceil(j, 8), lay.f_ld[i])[:j, :k].copy_(w.T)
-        if backward:
-            _block(buf, lay.b_off[i], _ceil(k, 8), lay.b_ld[i])[:k, :j].copy_(w)
     return buf, lay
 
 
@@ -193,8 +179,7 @@ def mma_dims_ok(shapes, nd: int, n_comp: int, color: bool) -> bool:
     return True
 
 
-def mma_operands(params: dict, cfg: CPGridConfig, color: bool,
-                 backward: bool = False):
+def mma_operands(params: dict, cfg: CPGridConfig, color: bool):
     """What the kernels' bf16 mode reads besides the f32 parameters: the bf16
     copy of the line tables (exact: the kernels round every table entry to
     bf16 before use) and the packed weights. ``None`` in f32 mode, whose FMA
@@ -211,12 +196,11 @@ def mma_operands(params: dict, cfg: CPGridConfig, color: bool,
             f"of 16 and layer widths of at most {cuda_lib.MAX_WIDTH}, multiples "
             f"of 16 where they feed another layer; got n_components="
             f"{cfg.n_components}, layers {shapes}")
-    wpk, lay = mma_pack([w.detach() for w in Ws], nd, backward)
+    wpk, lay = mma_pack([w.detach() for w in Ws], nd)
     return params["lines"].detach().to(torch.bfloat16), wpk, lay
 
 
-def _fused_args(params: dict, xt, vdt, out, cfg: CPGridConfig, color: bool,
-                backward: bool = False):
+def _fused_args(params: dict, xt, vdt, out, cfg: CPGridConfig, color: bool):
     """Check everything the kernel assumes and fill its argument struct.
     Returns ``(args, keep)``: every pointer in ``args`` belongs to a tensor
     the caller holds or to ``keep`` (the launch's non-finite scratch, bf16
@@ -272,7 +256,7 @@ def _fused_args(params: dict, xt, vdt, out, cfg: CPGridConfig, color: bool,
                     args.cW, args.cb, args.c_in, args.c_out)
         if last != 3:
             raise ValueError(f"the color MLP must end in 3 channels, got {last}")
-    ops = mma_operands(params, cfg, color, backward)
+    ops = mma_operands(params, cfg, color)
     keep = (scratch,)
     if ops is not None:
         lines16, wpk, lay = ops
@@ -280,9 +264,7 @@ def _fused_args(params: dict, xt, vdt, out, cfg: CPGridConfig, color: bool,
         args.lines16, args.wpk = lines16.data_ptr(), wpk.data_ptr()
         for i in range(len(lay.f_off)):
             args.pk_off[i], args.pk_ld[i] = lay.f_off[i], lay.f_ld[i]
-        for i in range(len(lay.b_off)):
-            args.pk_boff[i], args.pk_bld[i] = lay.b_off[i], lay.b_ld[i]
-        args.pk_dens, args.pk_fwd, args.pk_all = lay.dens, lay.fwd, lay.total
+        args.pk_dens, args.pk_fwd = lay.dens, lay.total
         if color:
             # one slot per warp the card can hold at once: a warp's 16
             # points' encodings, read back where a layer-0 output is summed
@@ -669,12 +651,11 @@ def _grad_layout(params: dict):
 @dataclasses.dataclass(frozen=True)
 class GradScratch:
     """Device scratch of one call of the gradient kernels over ``n`` points
-    (``csrc/ngp_fused_bwd.cu::nkt_fused_bwd_sizes`` says the same): ``act``
-    (act_rows, ld) saved layer inputs, bf16 in bf16 mode (each saved value
-    is bf16-rounded already) and f32 in f32 mode; ``z0`` (ld,) f32; ``gs``
-    (gs_rows, ld) f32; the flat MLP gradient of ``total`` floats. ``ld`` is
-    n in f32 mode and n rounded up to 64 in bf16 mode (the weight-gradient
-    kernel's 64-point tiles start 128-byte aligned)."""
+    (``csrc/ngp_fused_bwd.cu::nkt_fused_bwd_sizes`` says the same). f32 mode:
+    ``act`` (act_rows, ld) saved layer inputs, ``z0`` (ld,), ``gs``
+    (gs_rows, ld) masked cotangents, all f32, ``ld`` = n. bf16 mode keeps
+    every layer's input and cotangent on chip (the tile kernel): no act, gs
+    or z0 (0 rows, ld 0). Both: the flat MLP gradient of ``total`` floats."""
 
     act_rows: int
     gs_rows: int
@@ -685,12 +666,144 @@ class GradScratch:
 
 def grad_scratch(params: dict, cfg: CPGridConfig, n: int) -> GradScratch:
     shapes = [tuple(w.shape) for w in (*params["dW"], *params["cW"])]
-    act_rows = sum(k for k, _ in shapes)
-    gs_rows = sum(j for _, j in shapes)
     total = sum(k * j + j for k, j in shapes)
     if cfg.use_bf16:
-        return GradScratch(act_rows, gs_rows, total, _ceil(n, 64), torch.bfloat16)
+        return GradScratch(0, 0, total, 0, torch.bfloat16)
+    act_rows = sum(k for k, _ in shapes)
+    gs_rows = sum(j for _, j in shapes)
     return GradScratch(act_rows, gs_rows, total, n, torch.float32)
+
+
+# ------------------------------------ bf16 mode: the tile kernel's block plan
+
+BWD_WARPS = 8          # NKB_WARPS of csrc/ngp_fused_bwd.cu: one block an SM
+BWD_MAX_POINTS = 128   # NKB_MAX_MT m-tiles of 16 points
+BWD_WIDE_POINTS = 64   # NKB_WIDE_MT: the same where layer 0's dW takes > 16 m-tiles
+BWD_GLD = 72           # NKB_GLD: bf16 elements a row of the cotangent tile
+BWD_F32 = 10           # NKB_F32: f32 values a point (outputs, cotangents, z0, T)
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """The block plan of bf16 mode's gradient kernel
+    (``csrc/ngp_fused_bwd.cu::make_plan``; the wrapper compares it with the
+    library's ``nkt_fused_bwd_plan`` at every call). A block holds the
+    forward blocks of the packed weights, the f32 biases and the f32 sums of
+    every layer's dW but layer 0's (fragments of 16 x 8) and of every db,
+    then a tile of ``points`` points: each layer's bf16 input but layer 0's
+    (rows ``x_ld`` elements, layer 1's last; two level tiles of the encoder
+    overlay the others), the bf16 cotangent (``BWD_GLD`` a row; the
+    forward's taps overlay it) and ``BWD_F32`` f32 values a point. The train
+    objective's tile holds ``rays`` whole rays of S samples."""
+
+    points: int          # P, a multiple of 16
+    rays: int            # train: whole rays a tile; the VJP: 0
+    tile_points: int     # points of a full tile
+    smem: int            # bytes of shared memory
+    weight_bytes: int    # the forward blocks and the biases
+    acc_bytes: int       # the f32 sums
+    point_bytes: int     # the tile's bytes a point
+    input_bytes: int     # of them the layers' inputs (and the level tiles)
+    acc0_regs: int       # registers a thread of layer 0's dW (its mt0 x 4)
+    x_ld: tuple          # per layer (0 for layer 0): elements a row of its input
+    level_ld: int        # elements a row of a level tile
+
+    def as_tuple(self):
+        """What ``nkt_fused_bwd_plan`` writes, in its order."""
+        return (self.points, self.rays, self.tile_points, self.smem,
+                self.weight_bytes, self.acc_bytes, self.point_bytes,
+                self.input_bytes, self.acc0_regs)
+
+
+def bwd_plan(shapes, nd: int, n_comp: int, n_levels: int, S: int = 0) -> BwdPlan:
+    """The plan for layers ``shapes`` ((in, out) each, ``nd`` density layers
+    first), the encoder's ``n_levels`` x ``n_comp`` and ``S`` samples a ray
+    (0: the VJP). Raises ValueError where the layers do not fit one block
+    or a ray does not fit one tile."""
+    plan = _plan_or_why(shapes, nd, n_comp, n_levels, S)
+    if isinstance(plan, str):
+        raise ValueError(f"bf16 gradient kernel: {plan}")
+    return plan
+
+
+def _plan_or_why(shapes, nd: int, n_comp: int, n_levels: int, S: int):
+    """``bwd_plan``'s plan, or why there is none."""
+    nl = len(shapes)
+    K0 = n_levels * n_comp
+    if (nd < 1 or nl - nd < 1 or shapes[0][0] != K0 or shapes[0][1] % 8
+            or shapes[-1][1] != 3 or any(k % 16 for k, _ in shapes[1:])
+            or not mma_dims_ok(shapes, nd, n_comp, True)):
+        return f"layers {shapes} not taken"
+    mt0 = -(-K0 // 16)  # m-tiles of layer 0's dW a warp holds in registers
+    if mt0 > 32:
+        return f"an encoding of {K0} is above 512"
+    weight = 2 * mma_layout(shapes, nd).total + nl * cuda_lib.MAX_WIDTH * 4
+    acc = sum(k // 16 * _ceil(j, 8) // 8 * 128 for k, j in shapes[1:])
+    acc = 4 * (acc + nl * cuda_lib.MAX_WIDTH)
+    x_ld = (0,) + tuple(k + 8 for k, _ in shapes[1:])
+    level_ld = n_comp + 8
+    x = max(sum(2 * ld for ld in x_ld[2:]), 4 * level_ld) + 2 * x_ld[1]
+    point = x + 2 * BWD_GLD + 4 * BWD_F32
+    most = BWD_WIDE_POINTS if mt0 > 16 else BWD_MAX_POINTS
+    P = min(most, (cuda_lib.SMEM_LIMIT - weight - acc) // point // 16 * 16)
+    if P < 16:
+        return (f"the layers {shapes} leave no room for 16 points in "
+                f"{cuda_lib.SMEM_LIMIT} B of shared memory")
+    rays, tile = 0, P
+    if S > 0:
+        rays = P // S
+        if rays < 1:
+            return (f"a tile holds {P} points at these widths, fewer than a "
+                    f"ray's {S} samples")
+        tile = rays * S
+    return BwdPlan(P, rays, tile, weight + acc + P * point, weight, acc, point, x,
+                   4 * mt0, x_ld, level_ld)
+
+
+def bwd_plan_of(params: dict, cfg: CPGridConfig, S: int = 0) -> BwdPlan:
+    shapes = [tuple(w.shape) for w in (*params["dW"], *params["cW"])]
+    return bwd_plan(shapes, len(params["dW"]), cfg.n_components, cfg.n_levels, S)
+
+
+def fine_rays_fit(params: dict, cfg: CPGridConfig, S: int) -> bool:
+    """Whether the fused train objective takes rays of ``S`` samples: in
+    bf16 mode a ray is one tile's at most (the VJP's tile of points at these
+    widths); f32 mode takes any. Layers that the tile kernel does not take
+    at all are the call's to refuse (on the card; the plain versions on the
+    CPU take them)."""
+    if not cfg.use_bf16:
+        return True
+    shapes = [tuple(w.shape) for w in (*params["dW"], *params["cW"])]
+    plan = _plan_or_why(shapes, len(params["dW"]), cfg.n_components, cfg.n_levels, 0)
+    return isinstance(plan, str) or plan.points >= S
+
+
+def grad_bytes(params: dict, cfg: CPGridConfig, n: int, S: int = 0,
+               n_sm: int = 132) -> dict:
+    """Bytes a call of the gradient kernels moves through device memory in
+    bf16 mode, by the tile kernel's own count, by part: its inputs (points,
+    directions, and the VJP's cotangent or the train objective's intervals
+    and targets), its outputs (err and maps), the weights and biases each
+    block stages, the encoding's slots (written and read back once a tile:
+    L2-resident, bounded by the grid), denc (written once in f32, read once
+    by row 5's kernel), the partial rows (written, then read by the sum) and
+    the flat gradient. Row 5's own reads of the line tables and its chunk
+    sums are in row 5's count, not here."""
+    plan = bwd_plan_of(params, cfg, S)
+    LC = cfg.out_dim
+    tiles = -(-n // plan.tile_points)
+    grid = min(tiles, n_sm)
+    total = grad_scratch(params, cfg, n).total
+    rays = n // S if S else 0
+    return {
+        "inputs": n * 24 + (n * 4 + rays * 12 if S else n * 16),
+        "line_tables": cfg.n_levels * 3 * cfg.table_size * cfg.n_components * 2,
+        "outputs": rays * 16 + rays * 4,
+        "weights": grid * plan.weight_bytes,
+        "encoding_slots": 2 * n * LC * 2,
+        "denc": 2 * n * LC * 4,
+        "partials": 2 * grid * total * 4 + total * 4,
+    }
 
 
 def _launch_grad(params, xt, vdt, cfg: CPGridConfig, g=None, train=None,
@@ -704,8 +817,11 @@ def _launch_grad(params, xt, vdt, cfg: CPGridConfig, g=None, train=None,
     n = xt.shape[1]
     f32 = dict(dtype=torch.float32, device=dev)
     out4 = torch.empty((4, n), **f32)
+    S = train[2] if train is not None else 0
+    if cfg.use_bf16:  # raises where the layers or a ray do not fit a block
+        plan = bwd_plan_of(params, cfg, S)
     b = cuda_lib.BwdArgs()
-    b.f, keep = _fused_args(params, xt, vdt, out4, cfg, True, backward=True)
+    b.f, keep = _fused_args(params, xt, vdt, out4, cfg, True)
     lib = cuda_lib.load_library()
     sizes = (ctypes.c_longlong * 6)()
     lib.nkt_fused_bwd_sizes(ctypes.byref(b.f), sizes)
@@ -716,6 +832,12 @@ def _launch_grad(params, xt, vdt, cfg: CPGridConfig, g=None, train=None,
             scratch.act_dtype.itemsize):
         raise RuntimeError(
             f"scratch layout: the library says {tuple(sizes)}, the host {scratch}")
+    if cfg.use_bf16:
+        got = (ctypes.c_longlong * 9)()
+        if lib.nkt_fused_bwd_plan(ctypes.byref(b.f), S, got) or \
+                tuple(int(v) for v in got) != plan.as_tuple():
+            raise RuntimeError(
+                f"block plan: the library says {tuple(got)}, the host {plan.as_tuple()}")
     if smem > cuda_lib.SMEM_LIMIT:
         raise ValueError(
             f"the layers need {smem} B of shared memory, above the "
@@ -748,7 +870,7 @@ def _launch_grad(params, xt, vdt, cfg: CPGridConfig, g=None, train=None,
         cuda_lib.check_tensor(tgt, "tgt_cf", (3, R), dev)
         err = torch.empty((1, R), **f32)
         maps = torch.empty((4, R), **f32)
-        gbuf = torch.empty((4, n), **f32)
+        gbuf = torch.empty((0 if cfg.use_bf16 else 4, n), **f32)  # f32 mode's
         b.dists, b.tgt = dists.data_ptr(), tgt.data_ptr()
         b.err, b.maps, b.gbuf = err.data_ptr(), maps.data_ptr(), gbuf.data_ptr()
         b.S, b.white_bg, b.inv_denom = S, int(white_bg), float(inv_denom)

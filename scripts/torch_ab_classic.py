@@ -150,6 +150,14 @@ def _kernel_rows(cs, dev) -> dict:
     dists = dists.reshape(1, R * S).contiguous()
     tgt = torch.rand((3, R), generator=gen, device=dev)
     inv = 1.0 / (3.0 * R)
+    # row 6 at fox_ngp.yml's shape: its encoder (L 5, C 96, T 256) and MLPs
+    # with seeded weights, 16384 rays x 64 samples (two launches)
+    cfox = dataclasses.replace(c8, n_levels=5, n_components=96, table_size=256,
+                               base_resolution=16, max_resolution=2048)
+    pfox = cs.seeded_fused_params(cfox, torch.Generator(device=dev).manual_seed(61), dev)
+    xfox, vfox = cs.random_points(16384 * 64, gen, dev)
+    gfox = torch.randn((4, 16384 * 64), generator=gen, device=dev)
+    gfox[3] *= 1e-3
     return {
         "row9_ms": lambda: cfc.classic_fused_apply_cf(prm, xt, vd, mcfg),
         "row10_ms": lambda: cfc.classic_fused_apply_cf_bwd(prm, xt, vd, g4, mcfg),
@@ -165,6 +173,7 @@ def _kernel_rows(cs, dev) -> dict:
         "row2_ms": lambda: ngp_fused_sigma_cf(p8, xf2, c8),
         "row6_ms": lambda: ngp_fused_apply_cf_bwd(p8, x6, v6, g6, c8),
         "row7_ms": lambda: ngp_fused_train_cf(p8, x6, v6, dists, tgt, c8, S, True, inv),
+        "row6_fox_ms": lambda: ngp_fused_apply_cf_bwd(pfox, xfox, vfox, gfox, cfox),
         # f32 mode: the FMA bodies (W0 staged level by level), row 3 at 10.24 M
         "row2_f32_ms": lambda: ngp_fused_sigma_cf(p8, xf2, c32),
         "row3_f32_ms": lambda: ngp_fused_apply_cf(p8, xf2, vf2, c32),
@@ -208,10 +217,11 @@ def _tree_rows(tree: str, build: str, cs, dev) -> dict:
         sys.path.remove(tree)
 
 
-def _interleaved(parent: str, rounds: int) -> dict:
+def _interleaved(parent: str, rounds: int, only: str = "") -> dict:
     """Rows 1-10 in one process: the parent's and this tree's rows (each
     tree's own wrappers over its own kernel library) in turns (each round
-    in the other order), ``rounds`` rounds of 7 timed launches a row."""
+    in the other order), ``rounds`` rounds of 7 timed launches a row;
+    ``only``: the rows' keys to time, comma-separated (all where empty)."""
     sys.path.append(ROOT)
     import torch
 
@@ -224,6 +234,9 @@ def _interleaved(parent: str, rounds: int) -> dict:
              "change": _tree_rows(ROOT, os.path.join(ROOT, "build", "ab_turns_change"),
                                   cs, dev)}
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    keep = [k for k in only.split(",") if k] or list(trees["change"])
+    trees = {label: {k: fn for k, fn in rows.items() if k in keep}
+             for label, rows in trees.items()}
     times = {k: {"parent": [], "change": []} for k in trees["change"]}
     with torch.no_grad():
         for i in range(rounds):
@@ -323,6 +336,9 @@ def main(argv=None) -> int:
     ap.add_argument("--turns", type=int, default=20,
                     help="rounds of rows 1-10 in one process, the two trees' kernels "
                          "in turns (0: none)")
+    ap.add_argument("--rows", default="",
+                    help="the rows timed in turns, comma-separated keys such as "
+                         "row6_ms,row6_fox_ms (default: all)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--worker-turns", help=argparse.SUPPRESS)
     ap.add_argument("--build", help=argparse.SUPPRESS)
@@ -331,8 +347,8 @@ def main(argv=None) -> int:
         print(json.dumps(_worker(args.worker, args.build)), flush=True)
         return 0
     if args.worker_turns:
-        print(json.dumps(_interleaved(os.path.abspath(args.worker_turns), args.turns)),
-              flush=True)
+        print(json.dumps(_interleaved(os.path.abspath(args.worker_turns), args.turns,
+                                      args.rows)), flush=True)
         return 0
     import torch
 
@@ -373,7 +389,7 @@ def main(argv=None) -> int:
             "row8_ms": lambda r: r["row8_ms"],
             **{k: (lambda r, k=k: r[k]) for k in (
                 "row1_ms", "row1_clean_ms", "row1_step_ms", "row1_step_clean_ms",
-                "row2_ms", "row3_ms", "row6_ms", "row7_ms")},
+                "row2_ms", "row3_ms", "row6_ms", "row7_ms", "row6_fox_ms")},
             "full_step_ms": lambda r: r["full_step"]["ms_per_step"],
             "full_step_device_ms": lambda r: r["full_step"]["device_ms_per_step"],
             "two_call_step_ms": lambda r: r["two_call_step"]["ms_per_step"],
@@ -383,7 +399,8 @@ def main(argv=None) -> int:
     result = {"nvidia_smi": smi, "medians": summary}
     if args.turns:
         done = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker-turns",
-                               trees["parent"], "--turns", str(args.turns)],
+                               trees["parent"], "--turns", str(args.turns),
+                               "--rows", args.rows],
                               stdout=subprocess.PIPE, text=True)
         if done.returncode != 0:
             print("torch_ab_classic: the run in turns failed", file=sys.stderr)

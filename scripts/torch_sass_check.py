@@ -32,9 +32,14 @@ from nerf_kinematics_tpu_torch.ops import cuda_lib  # noqa: E402
 # mangled (ILb1E: <true>) or not.
 DL_BF16 = ("nkt_cp_encode_bwd_kernelILb1E", "nkt_cp_encode_bwd_kernel<true>")
 DL_F32 = ("nkt_cp_encode_bwd_kernelILb0E", "nkt_cp_encode_bwd_kernel<false>")
-TENSOR_CORE = ("nkt_mma_sigma_kernel", "nkt_mma_apply_kernel",
-               "nkt_mma_apply_save_kernel", "nkt_mma_point_bwd_kernel",
-               "nkt_wgrad_mma_kernel", DL_BF16)
+# The gradient's tile kernel has instances by register share of layer 0's
+# weight gradient (16, 30 and 32 m-tiles: machina's, fox's and encodings up
+# to 256 and 512) and tile (machina's, fox's and the largest).
+TILE16 = ("nkt_fused_tile_kernelILi16E", "nkt_fused_tile_kernel<16,")
+TILE30 = ("nkt_fused_tile_kernelILi30E", "nkt_fused_tile_kernel<30,")
+TILE32 = ("nkt_fused_tile_kernelILi32E", "nkt_fused_tile_kernel<32,")
+TENSOR_CORE = ("nkt_mma_sigma_kernel", "nkt_mma_apply_kernel", TILE16, TILE30,
+               TILE32, "nkt_wgrad_mma_kernel", DL_BF16)
 TF32 = ("nkc_tc_forward_kernel", "nkc_tc_bwd_tile_kernel", "nkc_tc_wgrad_kernel",
         DL_F32)
 FMA_ONLY = ("nkt_fused_sigma_kernel", "nkt_fused_apply_kernel",

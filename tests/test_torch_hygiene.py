@@ -170,6 +170,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     ("nkt_fused_apply_save_kernel", "ngp_fused_bwd.cu"),
     ("nkt_train_rays_kernel", "ngp_fused_bwd.cu"),
     ("nkt_fused_point_bwd_kernel", "ngp_fused_bwd.cu"),
+    ("nkt_fused_tile_kernel", "ngp_fused_bwd.cu"),
     ("nkt_wgrad_kernel", "ngp_fused_bwd.cu"),
     ("nkt_reduce_partials_kernel", "ngp_fused_bwd.cu"),
     ("nkc_pack_kernel", "classic_fused.cu"),

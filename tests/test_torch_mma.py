@@ -35,11 +35,9 @@ def _weights(name, seed=0):
             for s in dens + col], len(dens)
 
 
-def _unpack(buf, lay, shape, i, backward=False):
+def _unpack(buf, lay, shape, i):
     """Layer ``i``'s (in, out) weights read back from a packed buffer."""
     k, j = shape
-    if backward:
-        return nf._block(buf, lay.b_off[i], nf._ceil(k, 8), lay.b_ld[i])[:k, :j]
     return nf._block(buf, lay.f_off[i], nf._ceil(j, 8), lay.f_ld[i])[:j, :k].T
 
 
@@ -77,6 +75,28 @@ def _b_from_fragments(buf, off, ld, K, N):
     return _bf16_of(out)
 
 
+def _bt_from_fragments(buf, off, ld, J, K):
+    """B' = W^T (J x K: k' the J outputs, n' the K inputs) of mma.m16n8k16
+    as ``ldmatrix.x2.trans`` gives it from a packed block (a row per output
+    j, the inputs contiguous): lane l addresses row ``kt*16 + (l & 15)`` at
+    column ``nt*8``; lane (g, t) gets rows 2t, 2t+1 of column g of matrix 0
+    (b0, k' = 2t..2t+1) and of matrix 1 (b1, k' = 2t+8..2t+9). A block of at
+    most 8 rows (J <= 8) has no second matrix: the kernel zeroes b1."""
+    h = buf.view(torch.int16).numpy().view(np.uint16)
+    out = np.zeros((J, K), dtype=np.uint32)
+    for nt in range((K + 7) // 8):
+        for kt in range((J + 15) // 16):
+            rows = [off + (kt * 16 + (l & 15)) * ld + nt * 8 for l in range(16)]
+            for g in range(8):
+                for t in range(4):
+                    for m in ((0, 1) if J - kt * 16 > 8 else (0,)):
+                        for e in range(2):
+                            jj, kk = kt * 16 + m * 8 + 2 * t + e, nt * 8 + g
+                            if jj < J and kk < K:
+                                out[jj, kk] = h[rows[8 * m + 2 * t + e] + g]
+    return _bf16_of(out)
+
+
 @pytest.mark.parametrize("name", sorted(SHAPES))
 def test_packed_weights_round_trip(name):
     Ws, nd = _weights(name)
@@ -85,45 +105,41 @@ def test_packed_weights_round_trip(name):
     for i, w in enumerate(Ws):
         want = w.to(torch.bfloat16)
         assert torch.equal(_unpack(buf, lay, w.shape, i), want)
-        assert torch.equal(_unpack(buf, lay, w.shape, i, backward=True), want)
     # everything outside the weights is zero padding
     mask = torch.zeros(lay.total, dtype=torch.bool)
     for i, (k, j) in enumerate(tuple(w.shape) for w in Ws):
         nf._block(mask, lay.f_off[i], nf._ceil(j, 8), lay.f_ld[i])[:j, :k] = True
-        nf._block(mask, lay.b_off[i], nf._ceil(k, 8), lay.b_ld[i])[:k, :j] = True
     assert (buf[~mask] == 0).all()
 
 
 @pytest.mark.parametrize("name", sorted(SHAPES))
 def test_fragment_addressing_reads_the_weights(name):
     """The forward products take B = W (k: the layer's inputs), the
-    backward's d_inp = g W^T takes B = W^T (k: the outputs), both through
-    the same fragment addressing over their packed blocks."""
+    gradient's d_inp = g W^T takes B = W^T (k: the outputs) from the same
+    packed block, read transposed."""
     Ws, nd = _weights(name, seed=1)
     buf, lay = nf.mma_pack(Ws, nd)
     for i, w in enumerate(Ws):
         k, j = w.shape
         want = w.to(torch.bfloat16).to(torch.float32)
         assert torch.equal(_b_from_fragments(buf, lay.f_off[i], lay.f_ld[i], k, j), want)
-        assert torch.equal(_b_from_fragments(buf, lay.b_off[i], lay.b_ld[i], j, k), want.T)
+        assert torch.equal(_bt_from_fragments(buf, lay.f_off[i], lay.f_ld[i], j, k), want.T)
 
 
 @pytest.mark.parametrize("name", sorted(SHAPES))
-@pytest.mark.parametrize("backward", [False, True])
-def test_packed_layout_rows_and_order(name, backward):
+@pytest.mark.parametrize("color", [False, True])
+def test_packed_layout_rows_and_order(name, color):
+    """The density layers alone (row 2's kernel) or with the color layers."""
     Ws, nd = _weights(name)
-    lay = nf.mma_layout([tuple(w.shape) for w in Ws], nd, backward)
-    lds = lay.f_ld + lay.b_ld
-    offs = lay.f_off + lay.b_off
+    Ws = Ws if color else Ws[:nd]
+    lay = nf.mma_layout([tuple(w.shape) for w in Ws], nd)
     # 4 (mod 8) words a row: the eight rows of a fragment load hit distinct
     # banks; offsets on 16 bytes: the kernels stage the buffer in uint4
-    assert all(ld % 16 == 8 for ld in lds)
-    assert all(o % 8 == 0 for o in offs) and lay.total % 8 == 0
-    assert lay.f_off[0] == 0 and lay.dens == lay.f_off[nd] and lay.fwd <= lay.total
-    assert list(offs) == sorted(offs)
-    assert (len(lay.b_off) == len(Ws)) == backward
-    if not backward:
-        assert lay.fwd == lay.total
+    assert all(ld % 16 == 8 for ld in lay.f_ld)
+    assert all(o % 8 == 0 for o in lay.f_off) and lay.total % 8 == 0
+    assert lay.f_off[0] == 0 and list(lay.f_off) == sorted(lay.f_off)
+    assert len(lay.f_off) == len(Ws)
+    assert lay.dens == (lay.f_off[nd] if color else lay.total)
 
 
 def _cfg(use_bf16, n_components=16):
@@ -147,7 +163,7 @@ def test_mode_picks_the_body(mode, color):
     parameters); bf16 mode hands them the exact bf16 line tables and the
     packed weights of the layers the kernel runs."""
     params = _params()
-    got = nf.mma_operands(params, _cfg(mode == "bf16"), color, backward=color)
+    got = nf.mma_operands(params, _cfg(mode == "bf16"), color)
     if mode == "f32":
         assert got is None
         return
@@ -170,18 +186,22 @@ def test_body_dispatch_in_the_sources():
     f32 = entry[entry.index("mma_forward("):]
     assert "nkt_fused_apply_kernel<<<" in f32 and "nkt_fused_sigma_kernel<<<" in f32
     for k, body in (("nkt_fused_sigma_kernel", "nkt_fused_body<false, false>"),
-                    ("nkt_fused_apply_kernel", "nkt_fused_body<true, false>"),
-                    ("nkt_mma_sigma_kernel", "nkt_mma_body<false, false>"),
-                    ("nkt_mma_apply_kernel", "nkt_mma_body<true, false>")):
+                    ("nkt_fused_apply_kernel", "nkt_fused_body<true, false>")):
         assert re.search(k + r"\([^)]*\) \{\s+const SaveRows none = SaveRows\(\);\s+"
                          + re.escape(body), fwd), k
+    for k, body in (("nkt_mma_sigma_kernel", "nkt_mma_body<false>(a, lay)"),
+                    ("nkt_mma_apply_kernel", "nkt_mma_body<true>(a, lay)")):
+        assert re.search(k + r"\([^)]*\) \{\s+" + re.escape(body), fwd), k
     bwd = (CSRC / "ngp_fused_bwd.cu").read_text()
     run = bwd[bwd.index("static int run_backward(const BwdArgs& b"):]
-    assert re.search(r"if \(a\.cp\.use_bf16\) return run_backward_mma\(", run)
+    # bf16 mode: the tile kernel, and nothing of f32 mode's sequence
+    assert re.search(r"if \(a\.cp\.use_bf16\) return run_backward_tile\(", run)
+    tile = bwd[bwd.index("static int run_backward_tile("):bwd.index("static int run_backward(")]
+    assert "launch_tile_for(" in tile and "apply_save" not in tile and "wgrad" not in tile
     launch = bwd[bwd.index('extern "C" int nkt_wgrad_launch('):]
     launch = launch[:launch.index("\n}\n")]
     assert launch.index("if (bf) {") < launch.index("nkt_wgrad_kernel<true><<<")
-    assert "wg_launch<false>" in launch
+    assert launch.index("nkt_wgrad_mma_kernel<<<") < launch.index("nkt_wgrad_kernel<true><<<")
     mma = (CSRC / "nkt_mma.cuh").read_text()
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in mma
 
@@ -218,25 +238,24 @@ def test_widths_the_tensor_cores_take(case, ok):
 @pytest.mark.parametrize("n", [1, 999, 1024, 393216])
 def test_gradient_scratch_layout(mode, n):
     """``grad_scratch`` (host) and ``nkt_fused_bwd_sizes`` (device side) agree
-    on the scratch: act in bf16 in bf16 mode (every saved input is rounded
-    already), rows ``ld`` points apart, ld a multiple of the weight-gradient
-    kernel's 64-point tile; f32 mode as before, ld = n. The wrapper checks
-    the two against each other at every call on the card."""
+    on the scratch: f32 mode saves every layer's input (``act``) and masked
+    cotangent (``gs``) in f32, rows ``ld`` = n points apart; bf16 mode keeps
+    them on chip in the tile kernel and allocates no act, gs or z0. The
+    wrapper checks the two against each other at every call on the card."""
     params = _params()
     s = nf.grad_scratch(params, _cfg(mode == "bf16"), n)
     shapes = [tuple(w.shape) for w in params["dW"] + params["cW"]]
-    assert s.act_rows == sum(k for k, _ in shapes)
-    assert s.gs_rows == sum(j for _, j in shapes)
     assert s.total == sum(int(np.prod(sh)) for _, _, sh in nf._grad_layout(params))
     if mode == "bf16":
-        assert s.act_dtype == torch.bfloat16 and s.ld % 64 == 0 and n <= s.ld < n + 64
+        assert (s.act_rows, s.gs_rows, s.ld) == (0, 0, 0) and s.act_dtype == torch.bfloat16
     else:
+        assert s.act_rows == sum(k for k, _ in shapes)
+        assert s.gs_rows == sum(j for _, j in shapes)
         assert s.act_dtype == torch.float32 and s.ld == n
     text = (CSRC / "ngp_fused_bwd.cu").read_text()
     sizes = text[text.index('extern "C" void nkt_fused_bwd_sizes('):]
     sizes = sizes[:sizes.index("\n}\n")]
-    assert "#define NKT_WG_TP 64" in text
-    assert "out[4] = (args->n + NKT_WG_TP - 1) / NKT_WG_TP * NKT_WG_TP;" in sizes
+    assert "out[0] = out[1] = 0;" in sizes and "out[4] = 0;" in sizes
     assert "out[5] = 2;" in sizes and "out[4] = args->n;" in sizes and "out[5] = 4;" in sizes
     # the saved feature 0 left act for its own f32 array
     assert "z0_row" not in (CSRC / "ngp_fused.cuh").read_text()

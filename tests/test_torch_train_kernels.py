@@ -208,15 +208,11 @@ def _bsm(a, S, RB=128):
     return a.reshape(C, -1, RB, S).transpose(0, 1, 3, 2).reshape(C, -1)
 
 
-@pytest.mark.parametrize("use_bf16", [True, False], ids=["bf16", "f32"])
-@pytest.mark.parametrize("white_bg", [True, False], ids=["white", "black"])
-@pytest.mark.parametrize("fold", ["periodic", "fold_cap"])
-def test_fused_train_matches_pallas_interpret(fold, white_bg, use_bf16):
+def _train_case(fold, white_bg, use_bf16, S, R=128):
     cp = dict(CPS[fold], use_bf16=use_bf16)
     rng = np.random.default_rng(35)
     params = _params(rng, cp)
     params["db"][-1][0] += 1.5  # a denser field: transmittance really decays
-    R, S = 128, 6
     xt, vd = _points(rng, R * S)
     vd = np.repeat(vd[:, :R], S, axis=1)  # one direction per ray
     z = np.sort(rng.uniform(2.0, 6.0, (R, S)), axis=1).astype(np.float32)
@@ -242,6 +238,23 @@ def test_fused_train_matches_pallas_interpret(fold, white_bg, use_bf16):
     np.testing.assert_allclose(err_t.numpy(), np.asarray(err_j), rtol=1e-4, atol=tol)
     assert 0.05 < maps_t[3].mean() <= 1.0 + 1e-5
     _check_grads(_to(d_t, lambda t: t.numpy()), d_j, use_bf16)
+
+
+@pytest.mark.parametrize("use_bf16", [True, False], ids=["bf16", "f32"])
+@pytest.mark.parametrize("white_bg", [True, False], ids=["white", "black"])
+@pytest.mark.parametrize("fold", ["periodic", "fold_cap"])
+def test_fused_train_matches_pallas_interpret(fold, white_bg, use_bf16):
+    _train_case(fold, white_bg, use_bf16, S=6)
+
+
+@pytest.mark.parametrize("use_bf16", [True, False], ids=["bf16", "f32"])
+@pytest.mark.parametrize("white_bg", [True, False], ids=["white", "black"])
+@pytest.mark.parametrize("S", [16, 27])
+def test_fused_train_matches_pallas_interpret_longer_rays(S, white_bg, use_bf16):
+    """A ray of the tensor cores' 16 rows, and a ragged 27 (the card's
+    999-point check): the ray kernel's order of operations over longer
+    rays; R = 128, the reference kernel's ray block."""
+    _train_case("periodic", white_bg, use_bf16, S=S)
 
 
 def test_fused_train_is_the_gradient_of_its_own_loss():
