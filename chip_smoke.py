@@ -642,7 +642,8 @@ def phase_kernels(fx, dev, quick: bool, reps: int):
         b, by = bound_ms(io, flops, "bf16")
         rows.append({
             "name": name, "route": "cuda",
-            "source": "nerf_kinematics_tpu_torch/csrc/ngp_fused.cu",
+            "source": "nerf_kinematics_tpu_torch/csrc/"
+                      + ("ngp_apply.cu" if color else "ngp_fused.cu"),
             "replaces": f"nerf_kinematics_tpu/ops/ngp_fused_pallas.py:{line}",
             "n_points": n, "max_abs_err": worst["max"],
             "mean_abs_err": worst["mean"], "max_rel_err": worst["rel"],
@@ -661,12 +662,78 @@ def phase_kernels(fx, dev, quick: bool, reps: int):
             "bound_ms": b, "bound_by": by, "library_ms": None,
         })
         del xt, vd
+    rows[-1].update(apply_kernel_checks(trained, dev))
     rows.append(classic_forward_row(dev, quick, reps, flush))
     nonfinite = nonfinite_forwards({"bf16": trained, "f32": f32_eng}, dev)
     for r in rows:
         r["nonfinite"] = nonfinite.get(r["name"], r.get("nonfinite"))
     emit({"phase": "kernels", "quick": quick, "kernels": rows})
     return rows
+
+
+RAGGED_POINTS = (1, 15, 17, 31, 33, 65, 4099)  # around row 3's tiles of 16
+
+
+def apply_kernel_checks(trained, dev) -> dict:
+    """Row 3's bf16 kernel (csrc/ngp_apply.cu) beyond the main shape: at the
+    encodings of OTHER_WIDTHS with seeded weights, at ragged sizes around its
+    tiles, two launches bit-identical, and its shared-memory layout as the
+    library computes it against the host's mirror
+    (ops/ngp_fused_cuda.py::apply_layout) and nkt_fused_smem_bytes."""
+    import ctypes
+
+    from nerf_kinematics_tpu_torch.ops import cuda_lib, ngp_fused_cuda as nf
+
+    gen = torch.Generator(device=dev).manual_seed(3030)
+    params, cp = trained._fused_params(detach=True), trained.ngp_config.cp
+    cases = {"machina_ngp": (params, cp)}
+    gen_w = torch.Generator(device=dev).manual_seed(62)
+    for label, (L, C, T, _) in OTHER_WIDTHS.items():
+        cw = dataclasses.replace(cp, n_levels=L, n_components=C, table_size=T)
+        cases[label] = (seeded_fused_params(cw, gen_w, dev), cw)
+    widths, layouts = {}, {}
+    lib = cuda_lib.load_library()
+    for label, (prm, c) in cases.items():
+        xt, vd = random_points(65536, gen, dev)
+        k, p = nf.ngp_fused_apply_cf(prm, xt, vd, c), nf.ngp_fused_apply_cf_ref(prm, xt, vd, c)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(k).all() and torch.isfinite(p).all()):
+            raise AssertionError(f"ngp_fused_apply_cf, {label}: non-finite output")
+        mx, mean, _ = fused_errors(k, p, True)
+        if not (mean <= FUSED_MEAN_TOL and mx <= FUSED_MAX_TOL):
+            raise AssertionError(f"ngp_fused_apply_cf, {label}: max {mx}, mean {mean}")
+        widths[label] = {"max_abs_err": mx, "mean_abs_err": mean}
+        out = torch.empty((4, xt.shape[1]), device=dev)
+        args, keep = nf._fused_args(prm, xt, vd, out, c, True)
+        got = (ctypes.c_longlong * 6)()
+        lib.nkt_apply_layout(ctypes.byref(args), got)
+        want = nf.apply_layout_of(prm, c)
+        smem = int(lib.nkt_fused_smem_bytes(ctypes.byref(args), 1))
+        if tuple(int(v) for v in got) != want.as_tuple() or smem != want.total:
+            raise AssertionError(f"row 3's layout, {label}: the library says "
+                                 f"{tuple(got)} ({smem} B), the host {want}")
+        layouts[label] = dataclasses.asdict(want)
+        del keep
+    ragged = {}
+    xr, vr = random_points(max(RAGGED_POINTS), gen, dev)
+    for label, (prm, c) in cases.items():
+        for m in RAGGED_POINTS:
+            xs, vs = xr[:, :m].contiguous(), vr[:, :m].contiguous()
+            k, p = nf.ngp_fused_apply_cf(prm, xs, vs, c), nf.ngp_fused_apply_cf_ref(prm, xs, vs, c)
+            torch.cuda.synchronize()
+            mx, mean, _ = fused_errors(k, p, True)
+            if not (torch.isfinite(k).all() and mean <= FUSED_MEAN_TOL and mx <= FUSED_MAX_TOL):
+                raise AssertionError(
+                    f"ngp_fused_apply_cf, {label}, {m} points: max {mx}, mean {mean}")
+            ragged[f"{label} {m}"] = {"max_abs_err": mx, "mean_abs_err": mean}
+    xt, vd = random_points(1 << 20, gen, dev)
+    a, b = nf.ngp_fused_apply_cf(params, xt, vd, cp), nf.ngp_fused_apply_cf(params, xt, vd, cp)
+    torch.cuda.synchronize()
+    same = torch.equal(a, b)
+    if not same:
+        raise AssertionError("ngp_fused_apply_cf: two launches differ")
+    return {"other_widths": widths, "ragged": ragged, "twice_bit_identical": same,
+            "smem_layout": layouts}
 
 
 # machina_classic at full width (configs/machina_classic.yml; the card has no

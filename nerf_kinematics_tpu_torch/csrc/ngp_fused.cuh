@@ -15,12 +15,14 @@
 //
 // Two bodies compute this, and the mode picks one (nothing falls back):
 //
-//  * bf16 mode (use_bf16 = 1): nkt_mma_body of nkt_mma.cuh. Every product
+//  * bf16 mode (use_bf16 = 1): nkt_mma_body of nkt_mma.cuh (density only)
+//    and nkt_apply_tile_kernel of ngp_apply.cu (with color). Every product
 //    runs on the tensor cores (mma.sync.m16n8k16, bf16 in, f32 accumulate);
-//    a warp owns a tile of 16 points and chains the layers in registers. The
-//    weights come packed in bf16 from the host (about 45 KB density only,
-//    70 KB with color), so two or three blocks share an SM, and the encoder
-//    gathers a bf16 copy of the line tables with its lanes on channel pairs.
+//    a warp owns a tile of 16 points and chains the layers in shared
+//    memory (row 2 keeps the tile's whole encoding there, row 3 one level
+//    and the whole in a slot of device memory). The weights come packed in
+//    bf16 from the host (about 45 KB density only, 70 KB with color), and
+//    the encoders gather a bf16 copy of the line tables.
 //    On this card the old f32 body ran at about 14 TFLOP/s, 1.4 % of the
 //    bf16 tensor-core peak; the products no longer bound the kernels, the
 //    table gathers and (with SAVE) the saved activations do.
@@ -78,7 +80,7 @@ struct FusedArgs {
   int pk_dens;  // elements of the density layers' blocks
   int pk_fwd;   // elements of all blocks
   // bf16 mode: slots of device scratch, each the encoding of 16 points (16
-  // x L*C bf16), read back to sum a layer-0 output again (nkt_mma_finish; a
+  // x L*C bf16), read back to sum a layer-0 output again (row 3's kernel: a
   // warp a slot) and for layer 0's weight gradient (the gradient's tile
   // kernel: P / 16 slots a block). A launch uses at most enc_slots.
   void* enc;

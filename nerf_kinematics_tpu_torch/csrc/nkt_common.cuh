@@ -71,12 +71,28 @@ __device__ __forceinline__ float nkt_clamp(float z, float lo, float hi) {
   return nkt_min_nan(nkt_max_nan(z, lo), hi);
 }
 
+// fmodf(p, F) for 0 <= p < 2^24 and an integer F > 0, exactly as fmodf
+// gives it, in a few instructions: q = floor(p / F) from an approximate
+// quotient is at most one off, p - q F is exact (q F is an integer at most
+// p + F), and one add or subtract of F (exact too) puts the remainder in
+// [0, F).
+__device__ __forceinline__ float nkt_fmod_exact(float p, float F) {
+  const float q = floorf(__fdividef(p, F));
+  float r = __fmaf_rn(-q, F, p);
+  if (r < 0.0f) r += F;
+  if (r >= F) r -= F;
+  return r;
+}
+
 // x: one unit coordinate. Rows and tent weights of its two taps at level l.
 // A NaN coordinate taps the rows of cell 0 with NaN weights: the reference's
 // tent of a NaN is NaN on every row, and no index is made from a NaN. On a
 // hash-folded level the reference makes an integer of the NaN (0) for both
 // cells instead: both taps are that cell's hashed row, the only row where
-// its tent is NaN.
+// its tent is NaN. EXACT_MOD: the periodic fold by nkt_fmod_exact (the same
+// rows and weights) in place of fmodf; row 3's kernel takes it, the other
+// kernels keep fmodf.
+template <bool EXACT_MOD = false>
 __device__ __forceinline__ NktTaps nkt_taps(float x, const CPLevels& cp, int l,
                                             int axis) {
   NktTaps t;
@@ -98,7 +114,8 @@ __device__ __forceinline__ NktTaps nkt_taps(float x, const CPLevels& cp, int l,
       t.w1 = w;
     }
   } else {
-    const float pm = (F > 0) ? fmodf(p, (float)F) : p;
+    const float pm = F <= 0 ? p : EXACT_MOD ? nkt_fmod_exact(p, (float)F)
+                                            : fmodf(p, (float)F);
     const float t0 = floorf(pm);
     t.w0 = 1.0f - (pm - t0);
     t.w1 = 1.0f - ((t0 + 1.0f) - pm);

@@ -1,7 +1,7 @@
 // Tensor-core building blocks of the fused NGP kernels in bf16 mode
 // (use_bf16 = 1): the warp-level product mma.sync.m16n8k16 (bf16 operands,
-// f32 accumulation), its fragment layouts, and the forward body that runs
-// every MLP layer on it.
+// f32 accumulation), its fragment layouts, and row 2's forward body that
+// runs every MLP layer on it (row 3's kernel, ngp_apply.cu, builds on them).
 //
 // Fragments of mma.m16n8k16 (g = lane / 4, t = lane % 4; two bf16 per
 // 32-bit register, the lower index in the low half):
@@ -219,11 +219,11 @@ __device__ __forceinline__ void nkt_c_to_a(float (*v)[4], int NT,
 // The plain version's own sum of one output: an f32 fused multiply-add
 // chain over k in order, from 0 (what a sequential matmul computes). x and
 // w are 16-byte aligned rows of bf16, K a multiple of 8. Q 16-byte loads of
-// each row are in flight at a time: 1 in rows 2 and 3's forward, which sums
+// each row are in flight at a time: 1 in row 2's forward, which sums
 // feature 0 this way for every point (4 there made row 2 14 % slower on an
 // H100); 4 in the gradients' tile kernel, where x may lie in device memory
 // (layer 0's input in a block's slot) and one load at a time would wait out
-// its latency K / 8 times.
+// its latency K / 8 times. Row 3 sums inline (ngp_apply.cu::apply_chain).
 template <int Q>
 static __device__ __noinline__ float nkt_chain(const __nv_bfloat16* x,
                                                const __nv_bfloat16* w, int K) {
@@ -439,16 +439,16 @@ static __device__ __noinline__ void nkt_poison_tile(__nv_bfloat16* E, int lde,
   }
 }
 
-// The forward body of bf16 mode: one warp per tile of 16 points, every
-// product on the tensor cores. Each warp has two bf16 buffers of 16 rows, E
-// and H. Per level the lanes gather the line tables' bf16 copy with the
-// lanes on channel pairs (coalesced 128-byte rows) into E (with color: and
-// copy it to the level's columns of the warp's slot of a.enc), and layer 0
-// takes that level's k-tiles from E. Each later layer reads its input from the buffer
-// the previous layer wrote (H, E, H, ...); nkt_mma_finish keeps every
-// rounding as the plain version's, reading layer 0's whole input from E or
-// the slot.
-template <bool COLOR>
+// Row 2's body in bf16 mode (the density-only forward, nkt_mma_sigma_kernel,
+// which replaces ngp_fused_pallas.py:231): one warp per tile of 16 points,
+// every product on the tensor cores. Each warp has two bf16 buffers of 16
+// rows, E and H; E holds the tile's whole encoding. Per level the lanes
+// gather the line tables' bf16 copy with the lanes on channel pairs
+// (coalesced 128-byte rows) into the level's columns of E, and layer 0
+// takes that level's k-tiles from E. Each later layer reads its input from
+// the buffer the previous layer wrote (H, E, H, ...); nkt_mma_finish keeps
+// every rounding as the plain version's, reading layer 0's whole input from
+// E. Row 3 (with color) has a kernel of its own, ngp_apply.cu.
 __device__ __forceinline__ void nkt_mma_body(const FusedArgs& a,
                                              const MmaLayout& lay) {
   extern __shared__ __align__(16) unsigned char smem_mma[];
@@ -466,15 +466,7 @@ __device__ __forceinline__ void nkt_mma_body(const FusedArgs& a,
                                        warp * lay.tile_bytes);
   buf[1] = buf[0] + NKT_MT * lay.lde;
   const int ldb[2] = {lay.lde, lay.ldh};
-  // WIDE (the density-only kernel, whose weights leave room): E holds the
-  // whole encoding. Otherwise E holds the current level and the warp's slot
-  // of a.enc the whole encoding. E then serves as a hidden buffer.
-  constexpr bool WIDE = !COLOR;
   uint32_t* E = buf[0];
-  const int LC = a.cp.n_levels * a.cp.n_comp;
-  __nv_bfloat16* slot = WIDE ? nullptr
-                             : static_cast<__nv_bfloat16*>(a.enc) +
-                                   ((long long)blockIdx.x * warps + warp) * NKT_MT * LC;
   NktTapS* taps = reinterpret_cast<NktTapS*>(buf[1] + NKT_MT * lay.ldh);
   unsigned short* list = reinterpret_cast<unsigned short*>(taps + NKT_MT * 3);
   const int lde = lay.lde;
@@ -514,7 +506,7 @@ __device__ __forceinline__ void nkt_mma_body(const FusedArgs& a,
       const __nv_bfloat162* tx = lines16 + (long long)(l * 3 + 0) * T * C2;
       const __nv_bfloat162* ty = lines16 + (long long)(l * 3 + 1) * T * C2;
       const __nv_bfloat162* tz = lines16 + (long long)(l * 3 + 2) * T * C2;
-      uint32_t* El = WIDE ? E + l * C2 : E;
+      uint32_t* El = E + l * C2;
       // the gathers of NKT_ENC_BATCH points first, then their products
       for (int pp0 = 0; pp0 < NKT_MT; pp0 += NKT_ENC_BATCH) {
         for (int c2 = lane; c2 < C2; c2 += 32) {
@@ -558,14 +550,6 @@ __device__ __forceinline__ void nkt_mma_body(const FusedArgs& a,
                         NKT_MT, lane);
         __syncwarp();
       }
-      // the level's columns of the warp's slot: 16-byte copies
-      if (!WIDE) {
-        for (int e = lane; e < NKT_MT * C / 8; e += 32) {
-          const int p = e / (C / 8), c8 = e % (C / 8);
-          *reinterpret_cast<uint4*>(slot + p * LC + l * C + c8 * 8) =
-              *reinterpret_cast<const uint4*>(E + p * lde + c8 * 4);
-        }
-      }
       const int ar = (lane & 15) * lde + (lane >> 4) * 4;
       const int br = ((lane & 7) + ((lane >> 4) << 3)) * ld0 + ((lane >> 3) & 1) * 4 + (l * C) / 2;
       for (int ks = 0; ks < C / 16; ++ks) {
@@ -587,7 +571,7 @@ __device__ __forceinline__ void nkt_mma_body(const FusedArgs& a,
     // ---- every layer: finish (bias, ReLU, rounding into the other buffer),
     // then the next product from there -------------------------------------
     int cur = 0;  // the buffer that holds the current layer's input
-    const int nl = COLOR ? a.nd + a.nc : a.nd;
+    const int nl = a.nd;
     const long long pg = p0 + g, pg8 = p0 + g + 8;
     for (int L = 0; L < nl; ++L) {
       const bool dens = L < a.nd;
@@ -598,10 +582,9 @@ __device__ __forceinline__ void nkt_mma_body(const FusedArgs& a,
       if (L > 0)
         nkt_mma_dense_s(buf[cur], ldb[cur], (K + 15) / 16, sw + a.pk_off[L] / 2,
                         a.pk_ld[L] / 2, NT, acc, g, t);
-      // the layer's input, whole: layer 0's is in the warp's slot
-      const uint32_t* X =
-          L > 0 || WIDE ? buf[cur] : reinterpret_cast<const uint32_t*>(slot);
-      const int ldx = L > 0 || WIDE ? ldb[cur] : LC / 2;
+      // the layer's input, whole
+      const uint32_t* X = buf[cur];
+      const int ldx = ldb[cur];
       const bool last = L == nl - 1;
       const bool relu = dens ? li < a.nd - 1 : li < a.nc - 1;
       if (dens && li == a.nd - 1) {
@@ -636,54 +619,12 @@ __device__ __forceinline__ void nkt_mma_body(const FusedArgs& a,
       const int o = cur ^ 1;
       nkt_mma_finish(acc, NT, sbias + L * NKT_W, relu, buf[o], ldb[o], X, ldx,
                      K, swb + a.pk_off[L], a.pk_ld[L], list, lane, g, t);
-      if (dens && li == a.nd - 1) {
-        // color layer 0's input: the features, then SH4 of the view
-        // directions of points g and g+8, rounded
-        float sh[16];
-        float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
-        float s4 = 0.0f, s5 = 0.0f, s6 = 0.0f, s7 = 0.0f;
-        const long long qg = pg < n ? pg : 0, qg8 = pg8 < n ? pg8 : 0;
-        nkt_sh4(a.vdt[qg], a.vdt[n + qg], a.vdt[2 * n + qg], sh);
-#pragma unroll
-        for (int s = 0; s < 16; ++s) {
-          if (s == 2 * t) s0 = sh[s];
-          if (s == 2 * t + 1) s1 = sh[s];
-          if (s == 2 * t + 8) s4 = sh[s];
-          if (s == 2 * t + 9) s5 = sh[s];
-        }
-        nkt_sh4(a.vdt[qg8], a.vdt[n + qg8], a.vdt[2 * n + qg8], sh);
-#pragma unroll
-        for (int s = 0; s < 16; ++s) {
-          if (s == 2 * t) s2 = sh[s];
-          if (s == 2 * t + 1) s3 = sh[s];
-          if (s == 2 * t + 8) s6 = sh[s];
-          if (s == 2 * t + 9) s7 = sh[s];
-        }
-        uint32_t* Y = buf[o];
-        const int ly = ldb[o], c0 = J / 2;
-        Y[g * ly + c0 + t] = nkt_pack2(s0, s1);
-        Y[(g + 8) * ly + c0 + t] = nkt_pack2(s2, s3);
-        Y[g * ly + c0 + 4 + t] = nkt_pack2(s4, s5);
-        Y[(g + 8) * ly + c0 + 4 + t] = nkt_pack2(s6, s7);
-      }
       __syncwarp();
       cur = o;
     }
 
-    if (COLOR) {
-      // rgb logits: columns 0-1 at t = 0, column 2 at t = 1
-      if (t < 2) {
-        const int j = 2 * t;
-        if (pg < n) {
-          a.out[j * n + pg] = acc[0][0];
-          if (j + 1 < 3) a.out[(j + 1) * n + pg] = acc[0][1];
-        }
-        if (pg8 < n) {
-          a.out[j * n + pg8] = acc[0][2];
-          if (j + 1 < 3) a.out[(j + 1) * n + pg8] = acc[0][3];
-        }
-      }
-    } else if (t < 2) {
+    // rows 0-2 (rgb) are zero
+    if (t < 2) {
       const int j = 2 * t;
       if (pg < n) {
         a.out[j * n + pg] = 0.0f;
@@ -716,24 +657,21 @@ static bool mma_dims_ok(const FusedArgs& a, bool color) {
   return true;
 }
 
-// Shared memory of the forward kernels in bf16 mode: the staged weights
-// and biases, then per warp E (16 x L*C) and H (16 x the widest layer) in
-// bf16; as many warps (at most 16) as fit one block.
-static MmaLayout make_mma_layout_fwd(const FusedArgs& a, bool color) {
+// Shared memory of row 2's kernel in bf16 mode: the staged weights and
+// biases, then per warp E (16 x L*C) and H (16 x the widest layer) in bf16;
+// as many warps (at most 16) as fit one block.
+static MmaLayout make_mma_layout_fwd(const FusedArgs& a) {
   MmaLayout lay;
-  const int nl = color ? a.nd + a.nc : a.nd;
+  const int nl = a.nd;
   lay.w_start = 0;
-  lay.w_elems = color ? a.pk_fwd : a.pk_dens;
+  lay.w_elems = a.pk_dens;
   lay.b_off = lay.w_elems * 2;
   lay.n_bias = nl;
   lay.tile_off = lay.b_off + nl * NKT_W * (int)sizeof(float);
   int w = 16;
   for (int li = 0; li < a.nd; ++li) w = a.d_out[li] > w ? a.d_out[li] : w;
-  for (int li = 0; li < a.nc; ++li) w = a.c_out[li] > w ? a.c_out[li] : w;
-  if (color && a.d_out[a.nd - 1] + 16 > w) w = a.d_out[a.nd - 1] + 16;
   w = (w + 15) & ~15;
-  // E: one level (color kernels) or the whole encoding (density only)
-  const int ew = color ? a.cp.n_comp : a.cp.n_levels * a.cp.n_comp;
+  const int ew = a.cp.n_levels * a.cp.n_comp;  // E: the whole encoding
   const int e = ((ew > w ? ew : w) + 15) & ~15;
   lay.lde = e / 2 + 4;  // = 4 (mod 8): conflict-free fragment loads
   lay.ldh = w / 2 + 4;

@@ -369,6 +369,8 @@ def load_library(verbose: bool = False):
     lib.nkt_fused_forward.restype = ci
     lib.nkt_fused_smem_bytes.argtypes = [ctypes.POINTER(FusedArgs), ci]
     lib.nkt_fused_smem_bytes.restype = ll
+    lib.nkt_apply_layout.argtypes = [ctypes.POINTER(FusedArgs), ctypes.POINTER(ll)]
+    lib.nkt_apply_layout.restype = None
     lib.nkt_cp_encode_bwd.argtypes = [
         vp, vp, vp, vp, vp, ll, ctypes.POINTER(CPLevels), ci, vp]
     lib.nkt_cp_encode_bwd.restype = ci

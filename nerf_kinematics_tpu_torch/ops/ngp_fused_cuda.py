@@ -45,7 +45,6 @@ from .sh import sh_encode
 
 REF_CHUNK = 1 << 19  # points per chunk of the plain versions
 BWD_CHUNK = 1 << 19  # points per launch of the gradient kernels (scratch size)
-ENC_SLOTS_PER_SM = 32  # warps of the tensor-core forward one SM holds at most
 
 
 def _mlp_ref(h, weights, biases, use_bf16: bool):
@@ -200,6 +199,57 @@ def mma_operands(params: dict, cfg: CPGridConfig, color: bool):
     return params["lines"].detach().to(torch.bfloat16), wpk, lay
 
 
+# Row 3's bf16 kernel (csrc/ngp_apply.cu): warps a block at most, and the
+# per-warp sizes of its re-sum list and of one tap pair (NktTapS); 16
+# points a warp. The wrapper gives each streaming multiprocessor
+# APPLY_SLOTS_PER_SM slots of encodings (a warp's 16 points each; the
+# kernel takes a grid of at most enc_slots / warps blocks).
+APPLY_WARPS, APPLY_SLOTS_PER_SM = 16, 32
+_LIST_BYTES, _TAP_BYTES, _TILE = 128, 12, 16
+
+
+@dataclasses.dataclass(frozen=True)
+class ApplyLayout:
+    """Shared memory of row 3's bf16 kernel (``csrc/ngp_apply.cu::
+    make_apply_layout``; ``chip_smoke.py`` holds the two to each other): the
+    packed weights and the f32 biases, then a region a warp of 16 points:
+    ``E`` (one level of the bf16 encoding, ``lde`` 32-bit words a row; the
+    whole encoding goes to the warp's slot of device memory), ``H`` (a
+    hidden buffer, ``ldh`` words a row; the taps of every level overlay it,
+    ``h_bytes`` the larger of the two) and the re-sum list."""
+
+    warps: int
+    lde: int
+    ldh: int
+    h_bytes: int
+    tile_bytes: int
+    total: int
+
+    def as_tuple(self):
+        """What ``nkt_apply_layout`` writes, in its order."""
+        return (self.warps, self.lde, self.ldh, self.h_bytes, self.tile_bytes,
+                self.total)
+
+
+def apply_layout(shapes, nd: int, n_levels: int, n_comp: int) -> ApplyLayout:
+    """Row 3's layout for layers of ``shapes`` ((in, out) each, ``nd``
+    density layers first) on an encoding of ``n_levels`` x ``n_comp``.
+    ``total`` above ``cuda_lib.SMEM_LIMIT``: the widths do not fit."""
+    tile_off = mma_layout(shapes, nd).total * 2 + len(shapes) * cuda_lib.MAX_WIDTH * 4
+    w = _ceil(max([16] + [j for _, j in shapes] + [shapes[nd - 1][1] + 16]), 16)
+    lde, ldh = _ceil(max(n_comp, w), 16) // 2 + 4, w // 2 + 4
+    h_bytes = _ceil(max(_TILE * ldh * 4, n_levels * 3 * _TILE * _TAP_BYTES), 16)
+    tile_bytes = _TILE * lde * 4 + h_bytes + _LIST_BYTES
+    warps = min(max((cuda_lib.SMEM_LIMIT - tile_off) // tile_bytes, 1), APPLY_WARPS)
+    return ApplyLayout(warps, lde, ldh, h_bytes, tile_bytes, tile_off + warps * tile_bytes)
+
+
+def apply_layout_of(params: dict, cfg: CPGridConfig) -> ApplyLayout:
+    """:func:`apply_layout` of a parameter dict and its encoder."""
+    shapes = [tuple(w.shape) for w in list(params["dW"]) + list(params["cW"])]
+    return apply_layout(shapes, len(params["dW"]), cfg.n_levels, cfg.n_components)
+
+
 def _fused_args(params: dict, xt, vdt, out, cfg: CPGridConfig, color: bool):
     """Check everything the kernel assumes and fill its argument struct.
     Returns ``(args, keep)``: every pointer in ``args`` belongs to a tensor
@@ -266,12 +316,10 @@ def _fused_args(params: dict, xt, vdt, out, cfg: CPGridConfig, color: bool):
             args.pk_off[i], args.pk_ld[i] = lay.f_off[i], lay.f_ld[i]
         args.pk_dens, args.pk_fwd = lay.dens, lay.total
         if color:
-            # one slot per warp the card can hold at once: a warp's 16
-            # points' encodings, read back where a layer-0 output is summed
-            # again (the density-only kernel keeps them on chip)
-            slots = ENC_SLOTS_PER_SM * cuda_lib.sm_count(dev)
-            enc = torch.empty(slots * 16 * cfg.out_dim, dtype=torch.bfloat16,
-                              device=dev)
+            # row 3's slots: one a warp the card holds at once, 16 points'
+            # encodings, read back by layer 0's re-sums
+            slots = APPLY_SLOTS_PER_SM * cuda_lib.sm_count(dev)
+            enc = torch.empty(slots * 16 * cfg.out_dim, dtype=torch.bfloat16, device=dev)
             args.enc, args.enc_slots = enc.data_ptr(), slots
             keep = (*keep, enc)
     return args, keep
@@ -822,6 +870,13 @@ def _launch_grad(params, xt, vdt, cfg: CPGridConfig, g=None, train=None,
         plan = bwd_plan_of(params, cfg, S)
     b = cuda_lib.BwdArgs()
     b.f, keep = _fused_args(params, xt, vdt, out4, cfg, True)
+    if cfg.use_bf16:
+        # the tile kernel's slots: a block's tile of encodings (P / 16 slots
+        # of 16 points) for each block of a grid of at most one block an SM
+        slots = cuda_lib.sm_count(dev) * (plan.points // 16)
+        enc = torch.empty(slots * 16 * cfg.out_dim, dtype=torch.bfloat16, device=dev)
+        b.f.enc, b.f.enc_slots = enc.data_ptr(), slots
+        keep = (*keep, enc)
     lib = cuda_lib.load_library()
     sizes = (ctypes.c_longlong * 6)()
     lib.nkt_fused_bwd_sizes(ctypes.byref(b.f), sizes)

@@ -5,7 +5,8 @@ classic engine's fused kernels, f32), the classic train step, rows 4 and 5
 line-table gradient at the flagship step's 393 216 points; bf16, and in
 turns f32 too), row 1 (the hull lookup at 2.56 M points and at the two-call
 step's 524 288), rows 2 and 3 (the fused forwards at a 400^2 frame's
-10.24 M and 20.48 M points), rows 6 and 7 (the fused gradients at the step's
+10.24 M and 20.48 M points; row 3 also at fox_ngp.yml's encoder, 1.05 M
+points), rows 6 and 7 (the fused gradients at the step's
 393 216 points; rows 2, 3, 6 and 7 in f32 mode too, the FMA bodies),
 row 8 (the fast engine's whole-step kernel), the
 ``fused_train: full`` train step and the two-call train step (rows 7 and 2).
@@ -150,8 +151,8 @@ def _kernel_rows(cs, dev) -> dict:
     dists = dists.reshape(1, R * S).contiguous()
     tgt = torch.rand((3, R), generator=gen, device=dev)
     inv = 1.0 / (3.0 * R)
-    # row 6 at fox_ngp.yml's shape: its encoder (L 5, C 96, T 256) and MLPs
-    # with seeded weights, 16384 rays x 64 samples (two launches)
+    # rows 6 and 3 at fox_ngp.yml's shape: its encoder (L 5, C 96, T 256) and
+    # MLPs with seeded weights, 16384 rays x 64 samples (row 6: two launches)
     cfox = dataclasses.replace(c8, n_levels=5, n_components=96, table_size=256,
                                base_resolution=16, max_resolution=2048)
     pfox = cs.seeded_fused_params(cfox, torch.Generator(device=dev).manual_seed(61), dev)
@@ -174,6 +175,8 @@ def _kernel_rows(cs, dev) -> dict:
         "row6_ms": lambda: ngp_fused_apply_cf_bwd(p8, x6, v6, g6, c8),
         "row7_ms": lambda: ngp_fused_train_cf(p8, x6, v6, dists, tgt, c8, S, True, inv),
         "row6_fox_ms": lambda: ngp_fused_apply_cf_bwd(pfox, xfox, vfox, gfox, cfox),
+        # row 3 at fox's encoder, the same seeded weights and 1.05 M points
+        "row3_fox_ms": lambda: ngp_fused_apply_cf(pfox, xfox, vfox, cfox),
         # f32 mode: the FMA bodies (W0 staged level by level), row 3 at 10.24 M
         "row2_f32_ms": lambda: ngp_fused_sigma_cf(p8, xf2, c32),
         "row3_f32_ms": lambda: ngp_fused_apply_cf(p8, xf2, vf2, c32),
@@ -389,7 +392,8 @@ def main(argv=None) -> int:
             "row8_ms": lambda r: r["row8_ms"],
             **{k: (lambda r, k=k: r[k]) for k in (
                 "row1_ms", "row1_clean_ms", "row1_step_ms", "row1_step_clean_ms",
-                "row2_ms", "row3_ms", "row6_ms", "row7_ms", "row6_fox_ms")},
+                "row2_ms", "row3_ms", "row3_fox_ms", "row6_ms", "row7_ms",
+                "row6_fox_ms")},
             "full_step_ms": lambda r: r["full_step"]["ms_per_step"],
             "full_step_device_ms": lambda r: r["full_step"]["device_ms_per_step"],
             "two_call_step_ms": lambda r: r["two_call_step"]["ms_per_step"],

@@ -38,7 +38,7 @@ DL_F32 = ("nkt_cp_encode_bwd_kernelILb0E", "nkt_cp_encode_bwd_kernel<false>")
 TILE16 = ("nkt_fused_tile_kernelILi16E", "nkt_fused_tile_kernel<16,")
 TILE30 = ("nkt_fused_tile_kernelILi30E", "nkt_fused_tile_kernel<30,")
 TILE32 = ("nkt_fused_tile_kernelILi32E", "nkt_fused_tile_kernel<32,")
-TENSOR_CORE = ("nkt_mma_sigma_kernel", "nkt_mma_apply_kernel", TILE16, TILE30,
+TENSOR_CORE = ("nkt_mma_sigma_kernel", "nkt_apply_tile_kernel", TILE16, TILE30,
                TILE32, "nkt_wgrad_mma_kernel", DL_BF16)
 TF32 = ("nkc_tc_forward_kernel", "nkc_tc_bwd_tile_kernel", "nkc_tc_wgrad_kernel",
         DL_F32)

@@ -189,9 +189,16 @@ def test_body_dispatch_in_the_sources():
                     ("nkt_fused_apply_kernel", "nkt_fused_body<true, false>")):
         assert re.search(k + r"\([^)]*\) \{\s+const SaveRows none = SaveRows\(\);\s+"
                          + re.escape(body), fwd), k
-    for k, body in (("nkt_mma_sigma_kernel", "nkt_mma_body<false>(a, lay)"),
-                    ("nkt_mma_apply_kernel", "nkt_mma_body<true>(a, lay)")):
-        assert re.search(k + r"\([^)]*\) \{\s+" + re.escape(body), fwd), k
+    assert re.search(r"nkt_mma_sigma_kernel\([^)]*\) \{\s+nkt_mma_body\(a, lay\)", fwd)
+    # bf16 mode with color: row 3's tile kernel (ngp_apply.cu), on the
+    # tensor cores, its re-sums of layer 0 from the wrapper's slots
+    bf = fwd[fwd.index("static int mma_forward("):fwd.index('extern "C" int nkt_fused_forward(')]
+    assert re.search(r"if \(color\) return nkt_apply_forward\(a, n_sm, st\);", bf)
+    assert "nkt_mma_sigma_kernel<<<" in bf and "nkt_mma_apply_kernel" not in fwd
+    app = (CSRC / "ngp_apply.cu").read_text()
+    launch = app[app.index("int nkt_apply_forward("):]
+    assert "nkt_apply_tile_kernel<<<" in launch and "nkt_mma_add(" in app
+    assert "!a.enc" in launch
     bwd = (CSRC / "ngp_fused_bwd.cu").read_text()
     run = bwd[bwd.index("static int run_backward(const BwdArgs& b"):]
     # bf16 mode: the tile kernel, and nothing of f32 mode's sequence
@@ -259,3 +266,53 @@ def test_gradient_scratch_layout(mode, n):
     assert "out[5] = 2;" in sizes and "out[4] = args->n;" in sizes and "out[5] = 4;" in sizes
     # the saved feature 0 left act for its own f32 array
     assert "z0_row" not in (CSRC / "ngp_fused.cuh").read_text()
+
+
+def _defines(text):
+    return {m.group(1): int(m.group(2))
+            for m in re.finditer(r"#define (\w+) (\d+)", text)}
+
+
+def test_apply_layout_mirrors_the_source():
+    """Row 3's kernel and its host mirror (``apply_layout``) share their
+    constants; at the shipped widths 16 warps of 16 points fit a block
+    (PERF.md). ``chip_smoke.py`` holds the mirror to the library's own
+    numbers on the card."""
+    d = _defines((CSRC / "ngp_apply.cu").read_text())
+    m = _defines((CSRC / "nkt_mma.cuh").read_text())
+    assert d["NKT_APPLY_WARPS"] == nf.APPLY_WARPS
+    assert m["NKT_LIST_CAP"] * 2 == nf._LIST_BYTES and m["NKT_MT"] == nf._TILE
+    dens, col = SHAPES["machina"]
+    lay = nf.apply_layout(dens + col, len(dens), 4, 64)
+    assert (lay.warps, lay.lde, lay.tile_bytes, lay.total) == (16, 36, 4736, 147584)
+    fox = [(480, 64)] + dens[1:]
+    lay = nf.apply_layout(fox + col, len(dens), 5, 96)
+    assert (lay.warps, lay.lde, lay.total) == (16, 52, 201856)
+
+
+def _cp_bf16_configs():
+    out = []
+    for path in sorted((ROOT / "configs").glob("*.yml")):
+        text = path.read_text()
+        if re.search(r"^engine: ngp", text, re.M) and "encoder: cp" in text \
+                and "compute_dtype: bfloat16" in text:
+            out.append(path.name)
+    return out
+
+
+@pytest.mark.parametrize("name", _cp_bf16_configs())
+def test_shipped_cp_configs_fit_row_3(name):
+    """Every shipped config with the CP encoder in bf16 fits row 3's kernel:
+    its layers in the widths the tensor cores take, its layout in the
+    232 448 B of shared memory a block may use at 16 warps."""
+    from nerf_kinematics_tpu_torch.train import config as tcfg
+    from nerf_kinematics_tpu_torch.train.ngp_engine import NGPEngine
+
+    cfg = tcfg.load_config(ROOT / "configs" / name)
+    eng = NGPEngine(cfg, 1.0, device="cpu")
+    params, cp = eng._fused_params(detach=True), eng.ngp_config.cp
+    assert cp.use_bf16
+    shapes = [tuple(w.shape) for w in params["dW"] + params["cW"]]
+    assert nf.mma_dims_ok(shapes, len(params["dW"]), cp.n_components, True)
+    lay = nf.apply_layout_of(params, cp)
+    assert lay.total <= 232448 and lay.warps == nf.APPLY_WARPS
