@@ -26,8 +26,11 @@ width through the entry points a user calls:
     full``): the port generates machina400, ``Trainer(cfg)`` loads it and
     fits 2048 steps from the JAX package's seed-42 initial weights, one
     whole-step kernel launch a step; ground-truth PSNR of the held-out views
-    beside the canonical run's; one step of the whole-step and of the
-    two-call route from one state and one set of draws;
+    beside the canonical run's; one step of the whole-step route, of the
+    two-call route and of row 8's plain version from one state and one set
+    of draws; from the trained state, one step through the kernels against
+    the same step through rows 7 and 8's plain versions as Adam takes it,
+    beside one-ulp controls;
   * ``configs/fox_ngp.yml`` at full width on the halo scene (the stand-in
     for fox49, whose images are not in the repository: 49 views of 128x128
     generated on the card, aabb_scale 32, so the scene is contracted):
@@ -1393,6 +1396,7 @@ def phase_grad_kernels(fx, dev, quick: bool, reps: int):
             det[f"{name}_{mode}"] = all(
                 torch.equal(u, v) for (_, u), (_, v) in zip(_leaf_list(a), _leaf_list(b_)))
             del a, b_
+    long_rays = long_ray_checks(fx, engines, dev, quick, reps, flush)
     rows.append(full_step_row(fx, engines, dev, quick, reps, flush))
     rows.append(classic_grad_row(dev, quick, reps, flush))
     det["ngp_fused_train_full_cf"] = rows[-2]["deterministic"]
@@ -1401,10 +1405,159 @@ def phase_grad_kernels(fx, dev, quick: bool, reps: int):
     for r in rows:
         r["nonfinite"] = nonfinite[r["name"]]
     emit({"phase": "grad_kernels", "quick": quick, "kernels": rows,
-          "ragged_999_points": ragged, "other_widths": widths, "deterministic": det})
+          "ragged_999_points": ragged, "other_widths": widths, "long_rays": long_rays,
+          "deterministic": det})
     if not all(det.values()):
         raise AssertionError(f"grad_kernels: two launches differ: {det}")
     return rows
+
+
+# Rows 7 and 8 at samples a ray against the tile: (label, encoding (L, C, T)
+# or None for the fixture's, S). A ray longer than a tile (machina's 96
+# points, fox's 64) takes the long-ray path; machina_ngp_fast.yml's 24 puts
+# four rays in a tile.
+LONG_RAY_CASES = (("machina_ngp, S 128", None, 128), ("fox_ngp, S 65", (5, 96, 256), 65),
+                  ("machina_ngp_fast, S 24", None, 24))
+LONG_RAY_RAYS = 512        # rays of each check
+LONG_RAY_TIMED_RAYS = 3072  # 3072 x 128 = the flagship's 393 216 fine points
+
+
+def long_ray_checks(fx, engines, dev, quick: bool, reps: int, flush) -> dict:
+    """Rows 7 and 8 in bf16 mode at LONG_RAY_CASES against their plain
+    versions on the same inputs (err and maps, the gradients per leaf, one
+    launch a call, the plan's path), on finite inputs and on the non-finite
+    cases of :func:`nonfinite_grads`; then both at machina's widths and S =
+    128 timed at the flagship's fine points."""
+    from nerf_kinematics_tpu_torch.io.convert import grid_from_numpy
+    from nerf_kinematics_tpu_torch.ops import cuda_lib, ngp_fused_cuda
+    from nerf_kinematics_tpu_torch.ops.ngp_fused_cuda import (
+        ngp_fused_train_cf, ngp_fused_train_cf_ref, ngp_fused_train_full_cf,
+        ngp_fused_train_full_cf_ref)
+    from nerf_kinematics_tpu_torch.ops.occupancy import pair_projections
+
+    gen = torch.Generator(device=dev).manual_seed(1280)
+    ngp, t = fx.config.ngp, fx.config.nerf.train
+    Sc, NB = t.num_coarse, ngp.occ_bins
+    near, far = fx.config.dataset.near, fx.config.dataset.far
+    proj2 = pair_projections(grid_from_numpy(fx.grid_density, fx.grid_bound,
+                                             device=dev)).contiguous()
+    # not cut by --quick: with fewer rays a leaf's largest entry sums fewer
+    # samples, and one sample that row 8's inverse CDF moves by the coarse
+    # pass's last bits weighs more (row 8 at fox's widths in bf16: 7.6 % of
+    # a leaf at 128 rays, 0.03 % at 512)
+    R = LONG_RAY_RAYS
+    inv = 1.0 / (3.0 * R)
+    leaves = lambda k, p: [(n_, a, b) for (n_, a), (_, b) in zip(_leaf_list(k), _leaf_list(p))]
+
+    def rays_of(S):
+        xt, vd = random_points(R * S, gen, dev)
+        vd = vd.reshape(3, R, S)[:, :, :1].expand(3, R, S).reshape(3, -1).contiguous()
+        z = 2.0 + 4.0 * torch.sort(torch.rand((R, S), generator=gen, device=dev),
+                                   dim=-1).values
+        dists = torch.cat([z[:, 1:] - z[:, :-1], torch.full((R, 1), 1e10, device=dev)],
+                          dim=-1).reshape(1, R * S).contiguous()
+        return xt, vd, dists, torch.rand((3, R), generator=gen, device=dev)
+
+    def counted(name, fn):
+        cuda_lib.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, cuda_lib.LAUNCHES[name]
+
+    report, fail = {}, []
+    for label, enc, S in LONG_RAY_CASES:
+        c = engines["bf16"].ngp_config.cp
+        if enc is None:
+            prm = engines["bf16"]._fused_params(detach=True)
+        else:
+            c = dataclasses.replace(c, n_levels=enc[0], n_components=enc[1],
+                                    table_size=enc[2])
+            prm = seeded_fused_params(c, gen, dev)
+        plan = ngp_fused_cuda.bwd_plan_of(prm, c, S)
+        xt, vd, dists, tgt = rays_of(S)
+        (ek, mk, k), n7 = counted("ngp_fused_train_cf", lambda: ngp_fused_train_cf(
+            prm, xt, vd, dists, tgt, c, S, True, inv))
+        ep, mp, p = ngp_fused_train_cf_ref(prm, xt, vd, dists, tgt, c, S, True, inv)
+        rep7 = grad_errors(k, p)
+        out7 = max((ek - ep).abs().max().item(), (mk - mp).abs().max().item())
+        del k, p
+        o, d, vr, tg, uc, uf = full_step_inputs(R, S, Sc, gen, dev)
+        args = (o, d, vr, tg, uc, uf, proj2, c, S, Sc, NB, True, inv, near, far, 1.0,
+                ngp.occ_floor)
+        k8, n8 = counted("ngp_fused_train_full_cf",
+                         lambda: ngp_fused_train_full_cf(prm, *args))
+        p8 = ngp_fused_train_full_cf_ref(prm, *args)
+        rep8 = grad_errors(k8[3], p8[3])
+        out8 = max((a - b).abs().max().item() for a, b in zip(k8[:3], p8[:3]))
+        del k8, p8
+        # the non-finite cases: row 7 on its rays, row 8 with a ray's origin
+        nonfinite = {}
+        for case in POINT_CASES + PARAM_CASES:
+            xs, pr_, _ = spoil(case, xt if case in POINT_CASES else None,
+                               prm if case in PARAM_CASES else None)
+            xs = xt if xs is None else xs
+            pr_ = prm if pr_ is None else pr_
+            k = ngp_fused_train_cf(pr_, xs, vd, dists, tgt, c, S, True, inv)
+            p = ngp_fused_train_cf_ref(pr_, xs, vd, dists, tgt, c, S, True, inv)
+            nonfinite[f"row 7 {case}"] = same_masks(
+                f"ngp_fused_train_cf {label} {case}",
+                [("err", k[0], p[0]), ("maps", k[1], p[1])] + leaves(k[2], p[2]))
+            oo = spoil(case, o)[0] if case in POINT_CASES else o
+            a8 = (oo,) + args[1:]
+            k = ngp_fused_train_full_cf(pr_, *a8)
+            p = ngp_fused_train_full_cf_ref(pr_, *a8)
+            nonfinite[f"row 8 {case}"] = same_masks(
+                f"ngp_fused_train_full_cf {label} {case}",
+                [("err", k[0], p[0]), ("maps", k[1], p[1]), ("err_c", k[2], p[2])]
+                + leaves(k[3], p[3]))
+        torch.cuda.synchronize()
+        report[label] = {
+            "encoding": [c.n_levels, c.n_components], "samples_a_ray": S, "rays": R,
+            "tile": [plan.points, plan.rays], "long_rays": plan.long_rays,
+            "launches": {"row_7": n7, "row_8": n8},
+            "row_7_max_rel": max(v["max_rel"] for v in rep7.values()),
+            "row_7_err_maps_max_abs": out7,
+            "row_8_max_rel": max(v["max_rel"] for v in rep8.values()),
+            "row_8_outputs_max_abs": out8, "nonfinite_masks_equal": nonfinite}
+        if plan.long_rays != (S > plan.points) or (n7, n8) != (1, 1):
+            fail.append(f"{label}: plan {plan}, launches {n7}, {n8}")
+        if not (max(v["max_rel"] for v in rep7.values()) <= GRAD_TOL["bf16"]
+                and out7 <= TRAIN_OUT_TOL):
+            fail.append(f"{label}: row 7 against its plain version: {rep7}, outputs {out7}")
+        if not (max(v["max_rel"] for v in rep8.values()) <= FULL_GRAD_TOL["bf16"]
+                and out8 <= FULL_OUT_TOL):
+            fail.append(f"{label}: row 8 against its plain version: {rep8}, outputs {out8}")
+    # the long-ray path's time at the flagship's fine points
+    S, Rt = 128, LONG_RAY_TIMED_RAYS // (16 if quick else 1)
+    prm, c = engines["bf16"]._fused_params(detach=True), engines["bf16"].ngp_config.cp
+    xt, vd = random_points(Rt * S, gen, dev)
+    dists = torch.full((1, Rt * S), 0.03, device=dev)
+    dists.view(Rt, S)[:, -1] = 1e10
+    tgt = torch.rand((3, Rt), generator=gen, device=dev)
+    o, d, vr, tg, uc, uf = full_step_inputs(Rt, S, Sc, gen, dev)
+    it = 1.0 / (3.0 * Rt)
+    # the bounds as rows 7 and 8's at the flagship's shape count them
+    n, LC = Rt * S, c.out_dim
+    Ws, pbytes = prm["dW"] + prm["cW"], param_bytes(prm, True)
+    fine = 3 * mlp_flops(Ws) + LC * 12 + LC * 30 + 120
+    b7 = bound_ms(n * 28 + Rt * (12 + 20) + 2 * pbytes, n * fine, "bf16")
+    b8 = bound_ms(Rt * (4 * 12 + 4 * (S + Sc) + 24) + proj2.numel() * 4 + 2 * pbytes,
+                  Rt * Sc * (mlp_flops(prm["dW"]) + LC * 12) + n * fine, "bf16")
+    report["timed"] = {
+        "samples_a_ray": S, "rays": Rt, "fine_points": n,
+        "row_7_bound_ms": b7[0], "row_8_bound_ms": b8[0], "bound_by": [b7[1], b8[1]],
+        "row_7_ms": time_ms(lambda: ngp_fused_train_cf(prm, xt, vd, dists, tgt, c, S,
+                                                       True, it), reps, 2, flush),
+        "row_8_ms": time_ms(lambda: ngp_fused_train_full_cf(
+            prm, o, d, vr, tg, uc, uf, proj2, c, S, Sc, NB, True, it, near, far, 1.0,
+            ngp.occ_floor), reps, 2, flush),
+        "row_7_plain_ms": time_ms(lambda: ngp_fused_train_cf_ref(
+            prm, xt, vd, dists, tgt, c, S, True, it), 2, 1, flush),
+    }
+    if fail:
+        emit({"phase": "grad_kernels", "failed_long_rays": report})
+        raise AssertionError(f"grad_kernels, long rays: {fail}")
+    return report
 
 
 # Row 8 against its plain version. Stages A-B (proposal, coarse depths) are
@@ -2108,6 +2261,65 @@ SCENE_VAL_FLOOR_DB = 32.0
 SCENE_ROUTE_TOL = {"f32": ROUTE_TOL["f32"], "bf16": 5e-2}
 
 
+# One step from the trained state through the kernels and through row 8's
+# plain version, as Adam takes it (chip_smoke.py::adam_compare), beside the
+# kernel's step from the same state nudged by one ulp (seeds 1..): each
+# leaf's update distance must stay within SCENE_ADAM_FACTOR times the
+# controls' largest reading of that leaf or of the whole buffer, whichever
+# is larger. scripts/torch_scene_witness.py read the kernel's distance from
+# the plain version's at 0 to 0.017 of that reading at step 1024 of the
+# plain route and 0 to 0.46 at step 2048, leaf by leaf (five controls;
+# PERF.md section 6).
+SCENE_ADAM_CONTROLS = 5
+SCENE_ADAM_FACTOR = 2.0
+
+
+def route_distance(full, other) -> dict:
+    """One step of the whole-step route (``full``) against another route
+    from the same state and draws: (loss, loss_c, grads, launches) each ->
+    the losses' relative distances and the gradients' largest per leaf,
+    over the other route's largest entry."""
+    rel, bad = {}, {}
+    for k, g in other[2].items():
+        scale = g.abs().max().item()
+        if scale > 0.0 and math.isfinite(scale) and torch.isfinite(full[2][k]).all():
+            rel[k] = (full[2][k] - g).abs().max().item() / scale
+        else:  # reported, then refused by the caller
+            bad[k] = {"other_scale": scale,
+                      "full_finite": bool(torch.isfinite(full[2][k]).all())}
+    return {"loss": {"full": full[0], "other": other[0]},
+            "loss_rel": abs(full[0] - other[0]) / abs(other[0]),
+            "loss_coarse_rel": abs(full[1] - other[1]) / abs(other[1]),
+            "grad_max_rel": max(rel.values(), default=math.nan),
+            "bad_leaves": bad,
+            "worst_leaves": sorted(rel.items(), key=lambda kv: -kv[1])[:4]}
+
+
+def scene_adam_check(trainer, state) -> dict:
+    """The step from ``state`` through the kernels against the same step
+    with rows 7 and 8 plain, as Adam takes it, beside SCENE_ADAM_CONTROLS
+    one-ulp controls of the kernel's step (see SCENE_ADAM_FACTOR)."""
+    layout = trainer.engine.layout
+    k = adam_step_of(trainer, state)
+    kvp = adam_compare(layout, k, adam_step_of(trainer, state, plain_fused_train_rows))
+    ctrl = [adam_compare(layout, adam_step_of(trainer, nudged(state, i)), k)
+            for i in range(1, SCENE_ADAM_CONTROLS + 1)]
+    top = {leaf: max(c[leaf]["update_rel"] for c in ctrl) for leaf in kvp}
+    limit = {leaf: SCENE_ADAM_FACTOR * max(top[leaf], top["all"]) for leaf in kvp}
+    return {
+        "kernel_vs_plain": kvp,
+        "controls_update_rel": {leaf: [min(c[leaf]["update_rel"] for c in ctrl), top[leaf]]
+                                for leaf in kvp},
+        "controls_sign_disagree_max": {leaf: max(c[leaf]["sign_disagree"] for c in ctrl)
+                                       for leaf in kvp},
+        "controls_zero_mismatch_max": {leaf: max(c[leaf]["zero_mismatch"] for c in ctrl)
+                                       for leaf in kvp},
+        "limit": limit,
+        "over_limit": {leaf: v["update_rel"] for leaf, v in kvp.items()
+                       if not v["update_rel"] <= limit[leaf]},
+    }
+
+
 def scene_config(fx, basedir: str, logdir: str, steps: int, quick: bool,
                  fused_train: str = "full"):
     """configs/machina_ngp.yml (the fixture's configuration; the card has no
@@ -2238,42 +2450,39 @@ def phase_scene(fx, dev, quick: bool, profile: bool, basedir: str):
                  trainer.ray_buf["target"][sl])
         u_c = torch.rand((n_rays, t.num_coarse), generator=gen, device=dev)
         u_f = torch.rand((n_rays, t.num_fine), generator=gen, device=dev)
+        # the whole step against the two-call route and, outside the tile
+        # kernel that both run, against row 8's plain version
         routes = {}
         for mode in ("f32", "bf16"):
-            for name, fused_train in (("full", "full"), ("two_call", "on")):
+            for name, fused_train in (("full", "full"), ("two_call", "on"),
+                                      ("plain", "full")):
                 c = scene_config(fx, basedir, root, steps, quick, fused_train=fused_train)
                 c = c.replace(ngp=_replace_cp(c.ngp, use_bf16=mode == "bf16"))
                 e = NGPEngine(c, 1.0)
                 e.layout.bind(e.model, init_params)
                 cuda_lib.reset_launch_counts()
-                (loss, (loss_c, _)), grads = build_objective(e, ds.near, ds.far)(
-                    batch, res.state.aux, None, u_coarse=u_c, u_fine=u_f)
+                with plain_fused_train_rows() if name == "plain" else \
+                        contextlib.nullcontext():
+                    (loss, (loss_c, _)), grads = build_objective(e, ds.near, ds.far)(
+                        batch, res.state.aux, None, u_coarse=u_c, u_fine=u_f)
                 torch.cuda.synchronize()
                 routes[mode, name] = (float(loss), float(loss_c), grads,
                                       dict(cuda_lib.LAUNCHES))
+        # ---- one step from the trained state as Adam takes it: the kernel's
+        # update against the plain version's, beside one-ulp controls
+        adam = scene_adam_check(trainer, res.state)
         trainer.close()
 
     route_rep = {}
     for mode in ("f32", "bf16"):
-        full, two = routes[mode, "full"], routes[mode, "two_call"]
-        rel, bad = {}, {}
-        for k, g in two[2].items():
-            scale = g.abs().max().item()
-            if scale > 0.0 and math.isfinite(scale) and torch.isfinite(full[2][k]).all():
-                rel[k] = (full[2][k] - g).abs().max().item() / scale
-            else:  # reported, then refused below
-                bad[k] = {"two_call_scale": scale,
-                          "full_finite": bool(torch.isfinite(full[2][k]).all())}
-        route_rep[mode] = {
-            "loss": {"full": full[0], "two_call": two[0]},
-            "loss_rel": abs(full[0] - two[0]) / abs(two[0]),
-            "loss_coarse_rel": abs(full[1] - two[1]) / abs(two[1]),
-            "grad_max_rel": max(rel.values(), default=math.nan),
-            "bad_leaves": bad,
-            "worst_leaves": sorted(rel.items(), key=lambda kv: -kv[1])[:4],
-            "launches": {"full": full[3]["ngp_fused_train_full_cf"],
-                         "two_call": two[3]["ngp_fused_train_cf"]},
-        }
+        full = routes[mode, "full"]
+        route_rep[mode] = {other: route_distance(full, routes[mode, other])
+                           for other in ("two_call", "plain")}
+        route_rep[mode]["launches"] = {
+            "full": full[3]["ngp_fused_train_full_cf"],
+            "two_call": routes[mode, "two_call"][3]["ngp_fused_train_cf"],
+            "plain": sum(routes[mode, "plain"][3][k] for k in (
+                "ngp_fused_train_full_cf", "ngp_fused_train_cf"))}
     losses = np.asarray(res.losses)
     ms_per_step = statistics.median(s / k * 1e3 for k, s in res.chunk_seconds)
     floor = None if quick else SCENE_VAL_FLOOR_DB
@@ -2287,7 +2496,7 @@ def phase_scene(fx, dev, quick: bool, profile: bool, basedir: str):
         "occupancy_refreshes": [[i, k, s * 1e3] for i, k, s in res.occupancy_refreshes],
         "launches": counts, "peak_memory_gib": peak_gb,
         "routes": route_rep, "routes_tolerance": {"grad": SCENE_ROUTE_TOL, "loss": 1e-3},
-        "step_twice_bit_identical": step_same,
+        "adam_update": adam, "step_twice_bit_identical": step_same,
     })
     if prof is not None:
         report["profile"] = prof
@@ -2304,14 +2513,21 @@ def phase_scene(fx, dev, quick: bool, profile: bool, basedir: str):
     if got != want or evals <= 0:
         raise AssertionError(f"scene: launches {got}, expected {want}")
     for mode, r in route_rep.items():
-        if r["bad_leaves"]:
-            raise AssertionError(f"scene ({mode}): zero or non-finite gradients "
-                                 f"{r['bad_leaves']}")
-        if r["launches"] != {"full": 1, "two_call": 1}:
+        if r["launches"] != {"full": 1, "two_call": 1, "plain": 0}:
             raise AssertionError(f"scene: the routes took other paths: {r}")
-        if not (r["grad_max_rel"] <= SCENE_ROUTE_TOL[mode] and r["loss_rel"] <= 1e-3
-                and r["loss_coarse_rel"] <= 1e-3):
-            raise AssertionError(f"scene ({mode}): routes differ: {r}")
+        for other in ("two_call", "plain"):
+            d = r[other]
+            if d["bad_leaves"]:
+                raise AssertionError(f"scene ({mode}, {other}): zero or non-finite "
+                                     f"gradients {d['bad_leaves']}")
+            if not (d["grad_max_rel"] <= SCENE_ROUTE_TOL[mode] and d["loss_rel"] <= 1e-3
+                    and d["loss_coarse_rel"] <= 1e-3):
+                raise AssertionError(f"scene ({mode}): the whole step and {other} "
+                                     f"differ: {d}")
+    if adam["over_limit"]:
+        raise AssertionError(f"scene: the kernel's Adam update lies beyond "
+                             f"{SCENE_ADAM_FACTOR} x the one-ulp controls' from the "
+                             f"plain version's: {adam['over_limit']}")
     if not (step_same and changed):
         raise AssertionError(f"scene: two steps from one state differ ({step_same}) "
                              f"or moved nothing ({not changed})")
@@ -2456,6 +2672,88 @@ def plain_fused_rows():
         yield
     finally:
         nf._fused_forward, nf.ngp_fused_apply_cf_bwd = saved
+
+
+@contextlib.contextmanager
+def plain_fused_train_rows():
+    """The fused objectives with rows 7 and 8 through their plain versions
+    on the card (``ngp_fused_train_cf_ref``, ``ngp_fused_train_full_cf_ref``:
+    rows 1, 2 and 5 inside them plain too); restored on exit. Nothing is
+    launched or counted in between."""
+    from nerf_kinematics_tpu_torch.ops import ngp_fused_cuda as nf
+    from nerf_kinematics_tpu_torch.train import ngp_engine
+
+    names = ("ngp_fused_train_cf", "ngp_fused_train_full_cf")
+    saved = [getattr(ngp_engine, k) for k in names]
+    for k in names:
+        setattr(ngp_engine, k, getattr(nf, k + "_ref"))
+    try:
+        yield
+    finally:
+        for k, fn in zip(names, saved):
+            setattr(ngp_engine, k, fn)
+
+
+def nudged(state, seed: int):
+    """A clone of ``state`` with one ulp added to or taken from a random half
+    of its weights (numpy seed ``seed``), as :func:`mesh_controls` nudges."""
+    st = state.clone()
+    rng = np.random.default_rng(seed)
+    n = st.params.numel()
+    pick = torch.as_tensor(rng.random(n) < 0.5, device=st.params.device)
+    toward = torch.as_tensor(np.where(rng.random(n) < 0.5, np.inf, -np.inf),
+                             dtype=torch.float32, device=st.params.device)
+    st.params.copy_(torch.where(pick, torch.nextafter(st.params, toward), st.params))
+    return st
+
+
+def adam_step_of(trainer, state, route=contextlib.nullcontext):
+    """One train step from a clone of ``state`` (its batch and draws: the
+    state's generator) under the context manager ``route``: -> (the flat
+    gradient as Adam takes it, before the decay term, and the step's change
+    of the parameters)."""
+    from nerf_kinematics_tpu_torch.train import loop
+
+    seen = {}
+    real = loop.adam_update
+
+    def spy(params, grads, *args, **kw):
+        seen["g"] = grads.clone()
+        before = params.clone()
+        real(params, grads, *args, **kw)
+        seen["delta"] = params - before
+
+    s = state.clone()
+    loop.adam_update = spy
+    try:
+        with route():
+            trainer._train_step(s, trainer.images, trainer.poses, trainer.ray_buf)
+    finally:
+        loop.adam_update = real
+    return seen["g"], seen["delta"]
+
+
+def adam_compare(layout, a, b) -> dict:
+    """Two (gradient, parameter change) pairs of one step from one state, as
+    Adam saw them, leaf by leaf: entries exactly 0 in one gradient and not in
+    the other, entries whose signs disagree (both non-zero), and the
+    relative distance |delta_a - delta_b| / |delta_b| of the two updates
+    under the state's own moments; ``all``: over the whole buffer."""
+    ga, da = a
+    gb, db = b
+    out = {}
+    for name, _shape, off, numel in (*layout.entries, ("all", None, 0, ga.numel())):
+        sl = slice(off, off + numel)
+        x, y = ga[sl], gb[sl]
+        nb = torch.linalg.vector_norm(db[sl]).item()
+        out[name] = {
+            "n": numel,
+            "zero_mismatch": int(((x == 0) != (y == 0)).sum()),
+            "sign_disagree": int((torch.sign(x) * torch.sign(y) < 0).sum()),
+            "update_rel": (torch.linalg.vector_norm(da[sl] - db[sl]).item() / nb
+                           if nb > 0 else 0.0 if torch.equal(da[sl], db[sl]) else math.inf),
+        }
+    return out
 
 
 def halo_lockstep(trainer, state0, steps: int, routes=None) -> tuple:
@@ -4669,14 +4967,7 @@ def mesh_controls(trainer, start: dict) -> np.ndarray:
     weights (seeds 1..) -> their losses, one row each."""
     rows = []
     for seed in range(1, MESH_CONTROLS + 1):
-        st = state_from(trainer, start)
-        rng = np.random.default_rng(seed)
-        n = st.params.numel()
-        pick = torch.as_tensor(rng.random(n) < 0.5, device=st.params.device)
-        toward = torch.as_tensor(np.where(rng.random(n) < 0.5, np.inf, -np.inf),
-                                 dtype=torch.float32, device=st.params.device)
-        st.params.copy_(torch.where(pick, torch.nextafter(st.params, toward), st.params))
-        rows.append(trainer.fit(state=st).losses)
+        rows.append(trainer.fit(state=nudged(state_from(trainer, start), seed)).losses)
     return np.asarray(rows)
 
 

@@ -106,7 +106,8 @@ struct BwdArgs {
   const float* tgt;    // (3, R) target pixels (train)
   float* err;          // (1, R) squared error per ray (train)
   float* maps;         // (4, R) rgb map and acc (train)
-  float* gbuf;         // f32 mode: (4, n) cotangent of the ray kernel (train)
+  float* gbuf;         // (4, n) cotangent of the ray kernel (train: f32 mode,
+                       // and bf16 mode where a ray is longer than a tile)
   int S;               // samples per ray (train)
   int white_bg;
   float inv_denom;     // dL/d(rgb_map) = 2 * inv_denom * diff

@@ -47,6 +47,15 @@
 // Then row 5's kernel (csrc/cp_encode.cu) takes denc to the line tables'
 // gradient and nkt_reduce_partials_kernel adds the partial rows in block
 // order.
+// A fine ray longer than a tile (S > P) cannot be composited inside a block:
+// the train objective then runs as three launches on the caller's stream,
+// (i) the tile kernel's forward alone (tiles of P points) to the (4, n)
+// rgb logits and sigma, (ii) nkt_train_rays_kernel (one thread a ray, the
+// same arithmetic as step 2 below) to err, maps and the (4, n) cotangent,
+// (iii) the tile kernel as the VJP of that cotangent; then row 5 and the
+// partial sums as above. (i) and (iii) run the same forward code on the
+// same tiles, so the cotangent belongs to the forward the VJP recomputes,
+// bit for bit.
 //
 // Bound on this card: operations, about 190 kFLOP of products a point
 // (three times the forward's), 75 GFLOP at 8192 x 48 points, 0.08 ms at the
@@ -582,7 +591,8 @@ __global__ void __launch_bounds__(NKT_THREADS, 2)
 // the bytes a point before it.
 struct BwdPlan {
   int P;           // points a tile holds, a multiple of 16
-  int rays;        // train: whole rays a tile (P / S); VJP: 0
+  int rays;        // train: whole rays a tile (P / S); VJP and rays
+                   // longer than a tile: 0
   int tile_pts;    // points of a full tile: rays * S, or P
   int mt0;         // m-tiles of layer 0's dW a warp holds in registers,
                    // K0 / 16 rounded up
@@ -608,7 +618,8 @@ __host__ __device__ __forceinline__ int nkb_J(const FusedArgs& a, int L) {
   return L < a.nd ? a.d_out[L] : a.c_out[L - a.nd];
 }
 
-// S = 0: the VJP. False where the layers do not fit.
+// S = 0: the VJP; S > P: the VJP's tiles (a ray longer than a tile). False
+// where the layers do not fit.
 static bool make_plan(const FusedArgs& a, int S, BwdPlan& p) {
   const int nl = a.nd + a.nc;
   const int C = a.cp.n_comp, K0 = a.cp.n_levels * C;
@@ -654,14 +665,9 @@ static bool make_plan(const FusedArgs& a, int S, BwdPlan& p) {
   if (P < 16) return false;
   p.P = P;
   p.total = p.tile_off + P * x;
-  if (S > 0) {
-    p.rays = P / S;
-    if (p.rays < 1) return false;
-    p.tile_pts = p.rays * S;
-  } else {
-    p.rays = 0;
-    p.tile_pts = P;
-  }
+  // a ray longer than a tile: the VJP's tiles (run_backward_tile)
+  p.rays = S > 0 ? P / S : 0;
+  p.tile_pts = p.rays > 0 ? p.rays * S : P;
   return true;
 }
 
@@ -879,10 +885,20 @@ __device__ __forceinline__ void nkb_ray(const BwdArgs& b, const float* o,
   }
 }
 
+// What a launch of the tile kernel does.
+enum NkbMode {
+  NKB_VJP = 0,      // the (4, n) cotangent b.g to the gradients
+  NKB_TRAIN = 1,    // whole rays a tile: compositing, loss and gradients
+  NKB_FORWARD = 2,  // the forward alone: (rgb logits, sigma) to b.f.out
+};
+
 // MT0: m-tiles of 16 rows of layer 0's dW a warp holds (its n-tile of
 // every input row of the encoding), at least the plan's mt0; MPM: m-tiles
 // of 16 points of a tile, at least P / 16.
-template <int MT0, int MPM>
+// FWD: the forward alone (an instance of its own: a mode read at run time
+// cost the gradient instances 8-14 % on the card); train: whole rays a
+// tile, else the VJP.
+template <int MT0, int MPM, bool FWD>
 __global__ void __launch_bounds__(NKB_THREADS, 1)
     nkt_fused_tile_kernel(BwdArgs b, BwdPlan pl, SaveRows rows, int train) {
   extern __shared__ __align__(16) unsigned char sm[];
@@ -1114,6 +1130,15 @@ __global__ void __launch_bounds__(NKB_THREADS, 1)
     }
     __syncthreads();
 
+    if (FWD) {  // (rgb logits, sigma), as row 3 writes them
+      for (int e = tid; e < np * 4; e += NKB_THREADS) {
+        const int c = e / np, p = e - c * np;
+        a.out[c * n + p0 + p] = OUT[p * 4 + c];
+      }
+      __syncthreads();  // OUT serves the next tile
+      continue;
+    }
+
     // ======== the cotangent of (rgb logits, sigma) ========
     if (train) {
       for (int p = tid; p < npad; p += NKB_THREADS) {
@@ -1287,6 +1312,8 @@ __global__ void __launch_bounds__(NKB_THREADS, 1)
     __syncthreads();  // the tile's buffers and the slot serve the next tile
   }
 
+  if (FWD) return;
+
   // ---- the block's partial sums: its row of `partial` --------------------
   float* mine = b.partial + (long long)blockIdx.x * rows.total;
   if (warp < NT0) {
@@ -1427,13 +1454,14 @@ static int launch_wgrad(const float* A, const float* G, int K, int J,
 
 template <int MT0, int MPM>
 static int launch_tile(const BwdArgs& b, const BwdPlan& pl,
-                       const SaveRows& rows, bool train, long long grid,
+                       const SaveRows& rows, int mode, long long grid,
                        cudaStream_t st) {
-  NKT_CHECK(cudaFuncSetAttribute(nkt_fused_tile_kernel<MT0, MPM>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+  void (*kernel)(BwdArgs, BwdPlan, SaveRows, int) = nkt_fused_tile_kernel<MT0, MPM, false>;
+  if (mode == NKB_FORWARD) kernel = nkt_fused_tile_kernel<MT0, MPM, true>;
+  NKT_CHECK(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  pl.total));
-  nkt_fused_tile_kernel<MT0, MPM><<<(unsigned)grid, NKB_THREADS, pl.total, st>>>(
-      b, pl, rows, train ? 1 : 0);
+  kernel<<<(unsigned)grid, NKB_THREADS, pl.total, st>>>(b, pl, rows,
+                                                        mode == NKB_TRAIN ? 1 : 0);
   return (int)cudaGetLastError();
 }
 
@@ -1444,17 +1472,19 @@ static int launch_tile(const BwdArgs& b, const BwdPlan& pl,
 // size, machina_ngp.yml's tile (16 m-tiles, 96 points) and fox_ngp.yml's
 // (30, 64), which are 8 % and 5 % faster so on the card (PERF.md section 6).
 static int launch_tile_for(const BwdArgs& b, const BwdPlan& pl,
-                           const SaveRows& rows, bool train, long long grid,
+                           const SaveRows& rows, int mode, long long grid,
                            cudaStream_t st) {
   const int mp = pl.P / 16;
-  if (pl.mt0 == 16 && mp == 6) return launch_tile<16, 6>(b, pl, rows, train, grid, st);
-  if (pl.mt0 == 30 && mp == 4) return launch_tile<30, 4>(b, pl, rows, train, grid, st);
-  if (pl.mt0 <= 16) return launch_tile<16, NKB_MAX_MT>(b, pl, rows, train, grid, st);
-  return launch_tile<32, NKB_WIDE_MT>(b, pl, rows, train, grid, st);
+  if (pl.mt0 == 16 && mp == 6) return launch_tile<16, 6>(b, pl, rows, mode, grid, st);
+  if (pl.mt0 == 30 && mp == 4) return launch_tile<30, 4>(b, pl, rows, mode, grid, st);
+  if (pl.mt0 <= 16) return launch_tile<16, NKB_MAX_MT>(b, pl, rows, mode, grid, st);
+  return launch_tile<32, NKB_WIDE_MT>(b, pl, rows, mode, grid, st);
 }
 
 // bf16 mode: the tile kernel, row 5's kernel on denc, the sum of the
-// blocks' partial rows.
+// blocks' partial rows. A train objective whose rays are longer than a tile
+// (the plan's rays 0) first runs the forward alone and the rays' kernel,
+// then the tile kernel as the VJP of their cotangent (b.gbuf, 4 x n).
 static int run_backward_tile(const BwdArgs& b, bool train, int n_sm,
                              cudaStream_t st) {
   const FusedArgs& a = b.f;
@@ -1462,12 +1492,26 @@ static int run_backward_tile(const BwdArgs& b, bool train, int n_sm,
   if (!mma_dims_ok(a, true) || !make_plan(a, train ? b.S : 0, pl))
     return (int)cudaErrorInvalidValue;
   const SaveRows rows = make_rows(a);
+  const bool rays_in_tile = train && pl.rays > 0;
   const long long tiles =
-      train ? (a.n / b.S + pl.rays - 1) / pl.rays : (a.n + pl.P - 1) / pl.P;
+      rays_in_tile ? (a.n / b.S + pl.rays - 1) / pl.rays : (a.n + pl.P - 1) / pl.P;
   long long grid = tiles < n_sm ? tiles : n_sm;
   if (grid > b.n_part) grid = b.n_part;
   if (grid < 1 || grid * (pl.P / 16) > a.enc_slots) return (int)cudaErrorInvalidValue;
-  int rc = launch_tile_for(b, pl, rows, train, grid, st);
+  int rc;
+  if (train && !rays_in_tile) {
+    if (!b.gbuf) return (int)cudaErrorInvalidValue;
+    rc = launch_tile_for(b, pl, rows, NKB_FORWARD, grid, st);
+    if (rc) return rc;
+    const long long n_rays = a.n / b.S;
+    nkt_train_rays_kernel<<<(unsigned)((n_rays + 127) / 128), 128, 0, st>>>(b, n_rays);
+    NKT_CHECK(cudaGetLastError());
+    BwdArgs bb = b;
+    bb.g = b.gbuf;
+    rc = launch_tile_for(bb, pl, rows, NKB_VJP, grid, st);
+  } else {
+    rc = launch_tile_for(b, pl, rows, train ? NKB_TRAIN : NKB_VJP, grid, st);
+  }
   if (rc) return rc;
   rc = launch_dlines(b, st);
   if (rc) return rc;
@@ -1572,7 +1616,8 @@ extern "C" void nkt_fused_bwd_sizes(const FusedArgs* args, long long* out) {
 }
 
 // The tile kernel's plan for S samples a ray (0: the VJP): out[0] = points
-// a tile, out[1] = rays a tile, out[2] = points of a full tile, out[3] =
+// a tile, out[1] = rays a tile (0: the VJP's tiles, also for a ray longer
+// than a tile), out[2] = points of a full tile, out[3] =
 // bytes of shared memory, out[4] = of them the weights' and biases', out[5]
 // = the sums', out[6] = the tile's bytes a point, out[7] = of them the
 // layers' inputs', out[8] = accumulator registers a thread (layer 0's dW).

@@ -742,10 +742,13 @@ class BwdPlan:
     (rows ``x_ld`` elements, layer 1's last; two level tiles of the encoder
     overlay the others), the bf16 cotangent (``BWD_GLD`` a row; the
     forward's taps overlay it) and ``BWD_F32`` f32 values a point. The train
-    objective's tile holds ``rays`` whole rays of S samples."""
+    objective's tile holds ``rays`` whole rays of S samples; a ray longer
+    than a tile (``long_rays``) takes the VJP's tiles of P points, after the
+    tile kernel's forward alone and the rays' kernel
+    (``csrc/ngp_fused_bwd.cu::run_backward_tile``)."""
 
     points: int          # P, a multiple of 16
-    rays: int            # train: whole rays a tile; the VJP: 0
+    rays: int            # train: whole rays a tile; the VJP and long rays: 0
     tile_points: int     # points of a full tile
     smem: int            # bytes of shared memory
     weight_bytes: int    # the forward blocks and the biases
@@ -755,6 +758,7 @@ class BwdPlan:
     acc0_regs: int       # registers a thread of layer 0's dW (its mt0 x 4)
     x_ld: tuple          # per layer (0 for layer 0): elements a row of its input
     level_ld: int        # elements a row of a level tile
+    long_rays: bool      # train: a ray of S samples is longer than a tile
 
     def as_tuple(self):
         """What ``nkt_fused_bwd_plan`` writes, in its order."""
@@ -766,8 +770,8 @@ class BwdPlan:
 def bwd_plan(shapes, nd: int, n_comp: int, n_levels: int, S: int = 0) -> BwdPlan:
     """The plan for layers ``shapes`` ((in, out) each, ``nd`` density layers
     first), the encoder's ``n_levels`` x ``n_comp`` and ``S`` samples a ray
-    (0: the VJP). Raises ValueError where the layers do not fit one block
-    or a ray does not fit one tile."""
+    (0: the VJP). Raises ValueError where the layers do not fit one block;
+    a ray longer than a tile takes the long-ray path (``long_rays``)."""
     plan = _plan_or_why(shapes, nd, n_comp, n_levels, S)
     if isinstance(plan, str):
         raise ValueError(f"bf16 gradient kernel: {plan}")
@@ -797,33 +801,15 @@ def _plan_or_why(shapes, nd: int, n_comp: int, n_levels: int, S: int):
     if P < 16:
         return (f"the layers {shapes} leave no room for 16 points in "
                 f"{cuda_lib.SMEM_LIMIT} B of shared memory")
-    rays, tile = 0, P
-    if S > 0:
-        rays = P // S
-        if rays < 1:
-            return (f"a tile holds {P} points at these widths, fewer than a "
-                    f"ray's {S} samples")
-        tile = rays * S
+    rays = P // S if S > 0 else 0
+    tile = rays * S if rays else P
     return BwdPlan(P, rays, tile, weight + acc + P * point, weight, acc, point, x,
-                   4 * mt0, x_ld, level_ld)
+                   4 * mt0, x_ld, level_ld, S > P)
 
 
 def bwd_plan_of(params: dict, cfg: CPGridConfig, S: int = 0) -> BwdPlan:
     shapes = [tuple(w.shape) for w in (*params["dW"], *params["cW"])]
     return bwd_plan(shapes, len(params["dW"]), cfg.n_components, cfg.n_levels, S)
-
-
-def fine_rays_fit(params: dict, cfg: CPGridConfig, S: int) -> bool:
-    """Whether the fused train objective takes rays of ``S`` samples: in
-    bf16 mode a ray is one tile's at most (the VJP's tile of points at these
-    widths); f32 mode takes any. Layers that the tile kernel does not take
-    at all are the call's to refuse (on the card; the plain versions on the
-    CPU take them)."""
-    if not cfg.use_bf16:
-        return True
-    shapes = [tuple(w.shape) for w in (*params["dW"], *params["cW"])]
-    plan = _plan_or_why(shapes, len(params["dW"]), cfg.n_components, cfg.n_levels, 0)
-    return isinstance(plan, str) or plan.points >= S
 
 
 def grad_bytes(params: dict, cfg: CPGridConfig, n: int, S: int = 0,
@@ -836,21 +822,27 @@ def grad_bytes(params: dict, cfg: CPGridConfig, n: int, S: int = 0,
     L2-resident, bounded by the grid), denc (written once in f32, read once
     by row 5's kernel), the partial rows (written, then read by the sum) and
     the flat gradient. Row 5's own reads of the line tables and its chunk
-    sums are in row 5's count, not here."""
+    sums are in row 5's count, not here. A ray longer than a tile runs the
+    tile kernel twice (points, directions, weights and slots twice) and
+    moves the (4, n) rgb logits and sigma and the rays' (4, n) cotangent
+    through device memory, each written once and read once
+    (``ray_kernel``)."""
     plan = bwd_plan_of(params, cfg, S)
     LC = cfg.out_dim
     tiles = -(-n // plan.tile_points)
     grid = min(tiles, n_sm)
     total = grad_scratch(params, cfg, n).total
     rays = n // S if S else 0
+    twice = 2 if plan.long_rays else 1
     return {
-        "inputs": n * 24 + (n * 4 + rays * 12 if S else n * 16),
+        "inputs": twice * n * 24 + (n * 4 + rays * 12 if S else n * 16),
         "line_tables": cfg.n_levels * 3 * cfg.table_size * cfg.n_components * 2,
         "outputs": rays * 16 + rays * 4,
-        "weights": grid * plan.weight_bytes,
-        "encoding_slots": 2 * n * LC * 2,
+        "weights": twice * grid * plan.weight_bytes,
+        "encoding_slots": twice * 2 * n * LC * 2,
         "denc": 2 * n * LC * 4,
         "partials": 2 * grid * total * 4 + total * 4,
+        "ray_kernel": 2 * 2 * n * 16 if plan.long_rays else 0,
     }
 
 
@@ -866,7 +858,7 @@ def _launch_grad(params, xt, vdt, cfg: CPGridConfig, g=None, train=None,
     f32 = dict(dtype=torch.float32, device=dev)
     out4 = torch.empty((4, n), **f32)
     S = train[2] if train is not None else 0
-    if cfg.use_bf16:  # raises where the layers or a ray do not fit a block
+    if cfg.use_bf16:  # raises where the layers do not fit a block
         plan = bwd_plan_of(params, cfg, S)
     b = cuda_lib.BwdArgs()
     b.f, keep = _fused_args(params, xt, vdt, out4, cfg, True)
@@ -925,7 +917,8 @@ def _launch_grad(params, xt, vdt, cfg: CPGridConfig, g=None, train=None,
         cuda_lib.check_tensor(tgt, "tgt_cf", (3, R), dev)
         err = torch.empty((1, R), **f32)
         maps = torch.empty((4, R), **f32)
-        gbuf = torch.empty((0 if cfg.use_bf16 else 4, n), **f32)  # f32 mode's
+        # the rays' kernel's cotangent: f32 mode's, and bf16 mode's long rays
+        gbuf = torch.empty((0 if cfg.use_bf16 and not plan.long_rays else 4, n), **f32)
         b.dists, b.tgt = dists.data_ptr(), tgt.data_ptr()
         b.err, b.maps, b.gbuf = err.data_ptr(), maps.data_ptr(), gbuf.data_ptr()
         b.S, b.white_bg, b.inv_denom = S, int(white_bg), float(inv_denom)

@@ -36,7 +36,6 @@ from ..cameras.rays import get_rays, ndc_rays
 from ..models.ngp import NGPConfig, NGPModel
 from ..ops.contraction import contract_to_unit, unit_to_world
 from ..ops.ngp_fused_cuda import (
-    fine_rays_fit,
     ngp_fused_apply,
     ngp_fused_apply_cf,
     ngp_fused_sigma_cf,
@@ -339,10 +338,8 @@ class NGPEngine:
         coarse pass (coarse_loss_weight 0), importance fine samples,
         viewdirs on, no density noise, a ray count divisible by 128
         (under a mesh, each rank's count too: an eligible step whose
-        per-rank count is not raises, rather than take another route), and
-        in bf16 mode a fine ray no longer than the gradient kernel's tile
-        (``fine_rays_fit``; a longer ray takes autograd through the fused
-        forward's gradient kernel, and "on" raises).
+        per-rank count is not raises, rather than take another route). A
+        fine ray of any length is taken, as the reference takes it.
         ``ngp.fused_train: full`` takes the whole step in one call instead
         (:meth:`_full_objective`), and needs the hull proposal on a linear
         scene with static near / far. ``loss_c`` is the MSE of the
@@ -367,14 +364,6 @@ class NGPEngine:
                     "coarse_loss_weight 0, num_fine > 0, use_viewdirs, "
                     "noise_std 0, and num_random_rays % 128 == 0"
                 )
-            return None
-        if not fine_rays_fit(self._fused_params(detach=True), self.ngp_config.cp,
-                             settings.num_fine):
-            if mode == "on":
-                raise ValueError(
-                    f"ngp.fused_train: on: a fine ray of {settings.num_fine} "
-                    "samples is longer than the bf16 gradient kernel's tile "
-                    "at these widths")
             return None
         n_global = self.cfg.nerf.num_random_rays
         if self.mesh is not None and (n_global // self.mesh.world) % RAYS_PER_BLOCK:

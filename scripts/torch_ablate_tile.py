@@ -76,8 +76,8 @@ SLOT = [("        if (p < np)\n          *reinterpret_cast<uint4*>(slot + p * LC
          "                       slot, 0);")]
 # machina_ngp.yml's and fox_ngp.yml's tiles in the generic instances
 # (<16, 8> and <32, 4>), not in instances of their own size
-GENERIC = [("  if (pl.mt0 == 16 && mp == 6) return launch_tile<16, 6>(b, pl, rows, train, grid, st);\n"
-            "  if (pl.mt0 == 30 && mp == 4) return launch_tile<30, 4>(b, pl, rows, train, grid, st);\n", "")]
+GENERIC = [("  if (pl.mt0 == 16 && mp == 6) return launch_tile<16, 6>(b, pl, rows, mode, grid, st);\n"
+            "  if (pl.mt0 == 30 && mp == 4) return launch_tile<30, 4>(b, pl, rows, mode, grid, st);\n", "")]
 # Candidate changes (not switched-off parts): more independent work in
 # flight for a warp.
 UNROLL_KS = [("  for (int ks = 0; ks < KT; ++ks) {\n    uint32_t bq[2];",

@@ -89,10 +89,25 @@ def test_the_flagship_tile():
 
 
 def test_a_ray_longer_than_a_tile_is_refused():
-    with pytest.raises(ValueError, match="fewer than a ray"):
-        _plan("fox", 65)
+    """No longer: a ray longer than a tile takes the VJP's tiles (the
+    long-ray path). Layers the tile kernel does not take still are."""
+    p = _plan("fox", 65)
+    assert p.long_rays and (p.rays, p.tile_points) == (0, p.points) == (0, 64)
     with pytest.raises(ValueError, match="not taken"):
         nf.bwd_plan([(256, 64), (64, 64), (64, 16)] + COLOR[:-1] + [(64, 4)], 3, 64, 4)
+
+
+@pytest.mark.parametrize("longer", [1, 32, 160])
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_a_ray_longer_than_a_tile_takes_the_vjp_tiles(name, longer):
+    """S > P: the VJP's plan (tiles of P points, no rays), marked as the
+    long-ray path; a ray of exactly P samples still fits one tile."""
+    vjp = _plan(name)
+    p = _plan(name, vjp.points + longer)
+    assert p.long_rays and not vjp.long_rays
+    assert p.as_tuple() == vjp.as_tuple()
+    fits = _plan(name, vjp.points)
+    assert not fits.long_rays and (fits.rays, fits.tile_points) == (1, vjp.points)
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
@@ -150,32 +165,37 @@ def test_the_source_reads_the_same_constants():
     assert run.index("return run_backward_tile(") < run.index("nkt_fused_apply_save_kernel<<<")
 
 
-@pytest.mark.parametrize("S", [0, 48])
+@pytest.mark.parametrize("S", [0, 48, 128])
 def test_grad_bytes_of_the_flagship(S):
-    """The bytes a call moves by the kernel's own count at 8192 x 48
-    points: the inputs, the weights each block stages, the encoding's slots
-    (written and read back once), denc (written, and read by row 5's
-    kernel) and the partial rows; no activations or cotangents."""
+    """The bytes a call moves by the kernel's own count at 393 216 points
+    (8192 x 48, or 3072 x 128): the inputs, the weights each block stages,
+    the encoding's slots (written and read back once), denc (written, and
+    read by row 5's kernel) and the partial rows; no activations or
+    cotangents. A ray longer than a tile (S = 128) runs the tile kernel
+    twice and moves the forward's outputs and the rays' cotangent."""
     params, _, shapes = _params("machina")
     cfg = CPGridConfig(n_levels=4, n_components=64)
     n = 393216
     parts = nf.grad_bytes(params, cfg, n, S, n_sm=132)
     assert set(parts) == {"inputs", "line_tables", "outputs", "weights",
-                          "encoding_slots", "denc", "partials"}
-    assert parts["denc"] == 2 * n * 256 * 4 and parts["encoding_slots"] == 2 * n * 256 * 2
-    assert parts["inputs"] == n * 24 + (n * 4 + n // S * 12 if S else n * 16)
+                          "encoding_slots", "denc", "partials", "ray_kernel"}
+    twice = 2 if S > 96 else 1
+    assert parts["denc"] == 2 * n * 256 * 4
+    assert parts["encoding_slots"] == twice * 2 * n * 256 * 2
+    assert parts["inputs"] == twice * n * 24 + (n * 4 + n // S * 12 if S else n * 16)
+    assert parts["ray_kernel"] == (4 * n * 16 if S > 96 else 0)
     total = sum(k * j + j for k, j in shapes)
     assert parts["partials"] == 2 * 132 * total * 4 + total * 4
-    assert parts["weights"] == 132 * _plan("machina", S).weight_bytes
+    assert parts["weights"] == twice * 132 * _plan("machina", S).weight_bytes
 
 
 @pytest.mark.parametrize("bf16", [True, False])
 @pytest.mark.parametrize("mode", ["auto", "on", "full"])
-def test_a_fine_ray_longer_than_a_tile_takes_autograd(mode, bf16):
-    """The fused objective is chosen only where the gradient kernel takes a
-    whole fine ray in one tile (bf16 mode): a longer ray takes autograd
-    through the fused forward's gradient kernel (rows 3 and 6), and only
-    ``fused_train: on`` raises. f32 mode takes any ray."""
+def test_a_fine_ray_longer_than_a_tile_takes_the_fused_objective(mode, bf16):
+    """As the reference, the engine takes a fine ray of any length into the
+    fused objective: the two-call one for ``auto`` and ``on``, the whole
+    step for ``full``, in both modes; a ray longer than the gradient
+    kernel's tile takes its long-ray path there, and nothing raises."""
     from nerf_kinematics_tpu_torch.train import config as tcfg
     from nerf_kinematics_tpu_torch.train.ngp_engine import NGPEngine
 
@@ -195,25 +215,9 @@ def test_a_fine_ray_longer_than_a_tile_takes_autograd(mode, bf16):
         eng = NGPEngine(tcfg.config_from_dict(raw), scene_bound=1.0, device="cpu")
         return eng.fused_objective_fn(2.0, 6.0, eng.cfg.nerf.train)
 
-    tile = nf.bwd_plan([(48, 32), (32, 32), (32, 16), (32, 32), (32, 32), (32, 3)],
-                       3, 16, 3).points
-    assert objective(tile) is not None
-    if not bf16:
-        assert objective(tile + 1) is not None
-    elif mode == "on":
-        with pytest.raises(ValueError, match="longer than the bf16 gradient kernel's tile"):
-            objective(tile + 1)
-    else:
-        assert objective(tile + 1) is None
-
-
-def test_fine_rays_fit():
-    """A ray fits where the tile holds it (bf16), always in f32 mode, and
-    layers the tile kernel does not take are left to the call to refuse."""
-    params, cfg, _ = _params("machina")
-    bf16 = CPGridConfig(n_levels=4, n_components=64, use_bf16=True)
-    assert nf.fine_rays_fit(params, bf16, 96) and not nf.fine_rays_fit(params, bf16, 97)
-    f32 = CPGridConfig(n_levels=4, n_components=64, use_bf16=False)
-    assert nf.fine_rays_fit(params, f32, 10_000)
-    odd = dict(params, dW=[torch.zeros((256, 24))] + params["dW"][1:])
-    assert nf.fine_rays_fit(odd, bf16, 10_000)
+    shapes = [(48, 32), (32, 32), (32, 16), (32, 32), (32, 32), (32, 3)]
+    tile = nf.bwd_plan(shapes, 3, 16, 3).points
+    assert nf.bwd_plan(shapes, 3, 16, 3, tile + 1).long_rays
+    want = "objective_full" if mode == "full" else "objective"
+    for S in (tile, tile + 1, 2 * tile + 7):
+        assert objective(S).__name__ == want
