@@ -1,0 +1,10 @@
+"""Host milliseconds a frame of the kernels' wrappers in the traced window:
+the program's spans ``launch.<kernel>`` (``ops/*_cuda.py``, from a
+wrapper's entry to the return of its launch) summed over the window's
+frames. Moves ``frames_per_s``."""
+
+from benchmark.harness import readers, spans
+
+
+def read(ctx):
+    return spans.launch_ms(readers.per_unit(ctx))

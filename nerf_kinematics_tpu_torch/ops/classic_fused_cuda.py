@@ -39,6 +39,7 @@ import ctypes
 
 import torch
 
+from ..utils import profiling
 from . import cuda_lib
 from .positional_encoding import encoding_rows, frequencies
 
@@ -388,47 +389,62 @@ def _smem_check(lay: _Layout, cfg) -> None:
 def _launch_forward(params, xt, vdt, cfg, tc: bool = True):
     dev = xt.device
     n = xt.shape[1]
-    out = torch.empty((4, n), dtype=torch.float32, device=dev)
     if n == 0:
-        return out
+        return torch.empty((4, 0), dtype=torch.float32, device=dev)
+    span = profiling.begin("launch.classic_fused_apply_cf")
+    sp = profiling.begin("launch.plan")
     lay = _Layout(params, cfg)
     _smem_check(lay, cfg)
+    profiling.end(sp)
+    sp = profiling.begin("launch.scratch")
+    out = torch.empty((4, n), dtype=torch.float32, device=dev)
     scratch = _scratch(lay, dev, cfg, tc)
+    profiling.end(sp)
     a = _args(params, xt, vdt, out, cfg, lay, scratch)
     lib = cuda_lib.load_library()
+    sp = profiling.begin("launch.call")
     code = lib.nkt_classic_forward(ctypes.byref(a), cuda_lib.current_stream(dev))
-    cuda_lib.LAUNCHES["classic_fused_apply_cf"] += 1
+    profiling.end(sp)
     body = "bf16" if _bf16(cfg) else "3xtf32" if "tf" in scratch else "fma"
-    cuda_lib.POINTS["classic_fused_apply_cf", body] += n
+    cuda_lib.launched(span, "classic_fused_apply_cf", body, n)
     cuda_lib.raise_on_error(code, "classic_fused_apply_cf")
     return out
 
 
 def _launch_grad(params, xt, vdt, g, cfg):
     """One launch sequence of the gradient kernels over all of ``xt``."""
+    span = profiling.begin("launch.classic_fused_apply_cf_bwd")
     dev = xt.device
     n = xt.shape[1]
     f32 = dict(dtype=torch.float32, device=dev)
+    sp = profiling.begin("launch.plan")
     lay = _Layout(params, cfg)
     _smem_check(lay, cfg)
+    profiling.end(sp)
     cuda_lib.check_tensor(g, "g", (4, n), dev)
+    sp = profiling.begin("launch.scratch")
     scratch = _scratch(lay, dev, cfg)
     out4 = torch.empty((4, n), **f32)
+    profiling.end(sp)
     a = _args(params, xt, vdt, out4, cfg, lay, scratch)
     n_part = 2 * cuda_lib.sm_count(dev)
+    sp = profiling.begin("launch.scratch")
     act = torch.empty((lay.act_rows, n), **f32)
     gs = torch.empty((lay.gs_rows, n), **f32)
     partial = torch.empty((n_part, lay.grad_total), **f32)
     flat = torch.empty((lay.grad_total,), **f32)
+    profiling.end(sp)
     a.g, a.act, a.gs = g.data_ptr(), act.data_ptr(), gs.data_ptr()
     a.partial, a.flat, a.n_part = partial.data_ptr(), flat.data_ptr(), n_part
     lib = cuda_lib.load_library()
     # The kernels run after this returns. Their scratch tensors may be freed
     # then: the caching allocator hands a block out again only to work that
     # is queued behind them on the same stream.
+    sp = profiling.begin("launch.call")
     code = lib.nkt_classic_backward(ctypes.byref(a), cuda_lib.current_stream(dev))
-    cuda_lib.LAUNCHES["classic_fused_apply_cf_bwd"] += 1
-    cuda_lib.POINTS["classic_fused_apply_cf_bwd", "bf16" if _bf16(cfg) else "3xtf32"] += n
+    profiling.end(sp)
+    cuda_lib.launched(span, "classic_fused_apply_cf_bwd",
+                      "bf16" if _bf16(cfg) else "3xtf32", n)
     cuda_lib.raise_on_error(code, "classic_fused_apply_cf_bwd")
     d = {"W": [], "b": []}
     for L, (i, o) in enumerate(zip(lay.ins, lay.outs)):

@@ -19,6 +19,7 @@ import ctypes
 
 import torch
 
+from ..utils import profiling
 from . import cuda_lib
 from .cp_grid import (CPGridConfig, _round_bf16, contraction, cp_encode_stacked,
                       level_taps, nonfinite_dlines, poison_features)
@@ -58,25 +59,33 @@ def cp_encode_cuda_ref(lines: torch.Tensor, x: torch.Tensor,
 def _encode(lines, x, cfg: CPGridConfig) -> torch.Tensor:
     if not x.is_cuda:
         return cp_encode_cuda_ref(lines, x, cfg)
+    sp = profiling.begin("launch.cp_encode")
     _check_lines(lines, cfg)
     orig = x.shape[:-1]
     flat = x.reshape(-1, 3).contiguous()
     cuda_lib.check_tensor(flat, "x", (None, 3))
     cuda_lib.check_tensor(lines, "lines", tuple(lines.shape), flat.device)
     n = flat.shape[0]
+    sc = profiling.begin("launch.scratch")
     out = torch.empty((n, cfg.out_dim), dtype=torch.float32, device=flat.device)
-    if n:
-        lib = cuda_lib.load_library()
-        cp = cuda_lib.cp_levels(cfg)
-        scratch = cuda_lib.nonfinite_scratch(cp, flat.device)
-        code = lib.nkt_cp_encode(
-            flat.data_ptr(), lines.data_ptr(), out.data_ptr(), n,
-            ctypes.byref(cp), cuda_lib.sm_count(flat.device),
-            cuda_lib.current_stream(flat.device),
-        )
-        cuda_lib.LAUNCHES["cp_encode"] += 1
-        cuda_lib.POINTS["cp_encode", "bf16" if cfg.use_bf16 else "f32"] += n
-        cuda_lib.raise_on_error(code, "cp_encode", ENCODE_REFUSED)
+    profiling.end(sc)
+    if not n:
+        profiling.end(sp)
+        return out.reshape(*orig, cfg.out_dim)
+    lib = cuda_lib.load_library()
+    cp = cuda_lib.cp_levels(cfg)
+    sc = profiling.begin("launch.scratch")
+    scratch = cuda_lib.nonfinite_scratch(cp, flat.device)
+    profiling.end(sc)
+    call = profiling.begin("launch.call")
+    code = lib.nkt_cp_encode(
+        flat.data_ptr(), lines.data_ptr(), out.data_ptr(), n,
+        ctypes.byref(cp), cuda_lib.sm_count(flat.device),
+        cuda_lib.current_stream(flat.device),
+    )
+    profiling.end(call)
+    cuda_lib.launched(sp, "cp_encode", "bf16" if cfg.use_bf16 else "f32", n)
+    cuda_lib.raise_on_error(code, "cp_encode", ENCODE_REFUSED)
     return out.reshape(*orig, cfg.out_dim)
 
 
@@ -156,6 +165,7 @@ def cp_encode_cuda_bwd(lines: torch.Tensor, x: torch.Tensor, g: torch.Tensor,
     two calls give the same bits); a CPU tensor through the plain version."""
     if not x.is_cuda:
         return cp_encode_cuda_bwd_ref(lines, x, g, cfg)
+    sp = profiling.begin("launch.cp_encode_bwd")
     _check_lines(lines, cfg)
     flat = x.reshape(-1, 3).contiguous()
     n = flat.shape[0]
@@ -164,19 +174,23 @@ def cp_encode_cuda_bwd(lines: torch.Tensor, x: torch.Tensor, g: torch.Tensor,
     cuda_lib.check_tensor(gf, "g", (n, cfg.out_dim), flat.device)
     cuda_lib.check_tensor(lines, "lines", tuple(lines.shape), flat.device)
     if not n:
+        profiling.end(sp)
         return torch.zeros_like(lines)
-    dl = torch.empty_like(lines)
-    partial, chunks = dlines_scratch(n, cfg, flat.device)
     lib = cuda_lib.load_library()
     cp = cuda_lib.cp_levels(cfg)
+    sc = profiling.begin("launch.scratch")
+    dl = torch.empty_like(lines)
+    partial, chunks = dlines_scratch(n, cfg, flat.device)
     scratch = cuda_lib.nonfinite_scratch(cp, flat.device)
+    profiling.end(sc)
+    call = profiling.begin("launch.call")
     code = lib.nkt_cp_encode_bwd(
         flat.data_ptr(), lines.data_ptr(), gf.data_ptr(), partial.data_ptr(),
         dl.data_ptr(), n, ctypes.byref(cp), chunks,
         cuda_lib.current_stream(flat.device),
     )
-    cuda_lib.LAUNCHES["cp_encode_bwd"] += 1
-    cuda_lib.POINTS["cp_encode_bwd", "bf16" if cfg.use_bf16 else "f32"] += n
+    profiling.end(call)
+    cuda_lib.launched(sp, "cp_encode_bwd", "bf16" if cfg.use_bf16 else "f32", n)
     cuda_lib.raise_on_error(code, "cp_encode_bwd", DLINES_REFUSED)
     return dl
 

@@ -6,9 +6,15 @@ header, so ``nvcc`` builds them in seconds. They are compiled at first use
 shared library under ``build/`` beside the package and loaded with ``ctypes``.
 Nothing here runs at import time: CPU-only machines import every module.
 
-Each kernel's wrapper adds one to ``LAUNCHES[name]`` where it launches its
-kernel and nowhere else, so a run can show which kernels it went through,
-and the launch's points to ``POINTS[name, body]``.
+Each kernel's wrapper counts its launch through :func:`launched` and nowhere
+else: one to ``LAUNCHES[name]``, so a run can show which kernels it went
+through, and the launch's points to ``POINTS[name, body]``. The same call
+closes the wrapper's span ``launch.<name>`` (``utils/profiling.py``), which
+runs from the wrapper's entry to the return of its ``ctypes`` call; inside
+it ``launch.operands`` (bf16 mode's line copy and weight pack),
+``launch.plan`` (layouts, block plans and the library's size and plan
+queries), ``launch.scratch`` (the launch's ``torch.empty`` scratch) and
+``launch.call`` (the ``ctypes`` call).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import time
 
 import torch
 
+from ..utils import profiling
 from .cp_grid import CPGridConfig, fold_salt, level_clip_max
 
 MAX_LEVELS = 8
@@ -64,6 +71,20 @@ LAUNCHES = {
 # kernels' launches. A kernel's time on a path is its points times its body's
 # time a point.
 POINTS: collections.Counter = collections.Counter()
+
+# The wrappers' spans, by the same names.
+LAUNCH_SPAN = {name: "launch." + name for name in LAUNCHES}
+
+
+def launched(span: int, name: str, body: str, points: int, in_fused: int = 0) -> None:
+    """Count one launch of ``name``'s kernel over ``points`` points on
+    ``body`` (``in_fused``: the points row 5's kernel walks inside it), and
+    close the wrapper's span ``span`` (``launch.<name>``)."""
+    LAUNCHES[name] += 1
+    POINTS[name, body] += points
+    if in_fused:
+        POINTS["cp_encode_bwd_in_fused", body] += in_fused
+    profiling.end(span)
 
 
 def reset_launch_counts() -> None:

@@ -37,6 +37,7 @@ import dataclasses
 
 import torch
 
+from ..utils import profiling
 from . import cuda_lib
 from .cp_grid import CPGridConfig, _round_bf16, cp_encode_stacked
 from .cp_grid_cuda import cp_encode_cuda_bwd_ref, dlines_scratch
@@ -271,7 +272,9 @@ def _fused_args(params: dict, xt, vdt, out, cfg: CPGridConfig, color: bool):
     args.out = out.data_ptr()
     args.n = n
     args.cp = cuda_lib.cp_levels(cfg)
+    sc = profiling.begin("launch.scratch")
     scratch = cuda_lib.nonfinite_scratch(args.cp, dev)
+    profiling.end(sc)
     if color:
         cuda_lib.check_tensor(vdt, "vdt", (3, n), dev)
         args.vdt = vdt.data_ptr()
@@ -306,7 +309,9 @@ def _fused_args(params: dict, xt, vdt, out, cfg: CPGridConfig, color: bool):
                     args.cW, args.cb, args.c_in, args.c_out)
         if last != 3:
             raise ValueError(f"the color MLP must end in 3 channels, got {last}")
+    sp = profiling.begin("launch.operands")
     ops = mma_operands(params, cfg, color)
+    profiling.end(sp)
     keep = (scratch,)
     if ops is not None:
         lines16, wpk, lay = ops
@@ -319,7 +324,9 @@ def _fused_args(params: dict, xt, vdt, out, cfg: CPGridConfig, color: bool):
             # row 3's slots: one a warp the card holds at once, 16 points'
             # encodings, read back by layer 0's re-sums
             slots = APPLY_SLOTS_PER_SM * cuda_lib.sm_count(dev)
+            sc = profiling.begin("launch.scratch")
             enc = torch.empty(slots * 16 * cfg.out_dim, dtype=torch.bfloat16, device=dev)
+            profiling.end(sc)
             args.enc, args.enc_slots = enc.data_ptr(), slots
             keep = (*keep, enc)
     return args, keep
@@ -327,23 +334,29 @@ def _fused_args(params: dict, xt, vdt, out, cfg: CPGridConfig, color: bool):
 
 def _launch(params, xt, vdt, cfg: CPGridConfig, color: bool, name: str):
     n = xt.shape[1]
-    out = torch.empty((4, n), dtype=torch.float32, device=xt.device)
     if n == 0:
-        return out
+        return torch.empty((4, 0), dtype=torch.float32, device=xt.device)
+    span = profiling.begin(cuda_lib.LAUNCH_SPAN[name])
+    sp = profiling.begin("launch.scratch")
+    out = torch.empty((4, n), dtype=torch.float32, device=xt.device)
+    profiling.end(sp)
     args, keep = _fused_args(params, xt, vdt, out, cfg, color)
     lib = cuda_lib.load_library()
+    sp = profiling.begin("launch.plan")
     need = lib.nkt_fused_smem_bytes(ctypes.byref(args), int(color))
+    profiling.end(sp)
     if need > cuda_lib.SMEM_LIMIT:
         raise ValueError(
             f"{name}: the layers need {need} B of shared memory, above the "
             f"{cuda_lib.SMEM_LIMIT} B one block may use"
         )
+    sp = profiling.begin("launch.call")
     code = lib.nkt_fused_forward(
         ctypes.byref(args), int(color), cuda_lib.sm_count(xt.device),
         cuda_lib.current_stream(xt.device),
     )
-    cuda_lib.LAUNCHES[name] += 1
-    cuda_lib.POINTS[name, "bf16" if cfg.use_bf16 else "f32"] += n
+    profiling.end(sp)
+    cuda_lib.launched(span, name, "bf16" if cfg.use_bf16 else "f32", n)
     cuda_lib.raise_on_error(code, name)
     return out
 
@@ -847,29 +860,40 @@ def grad_bytes(params: dict, cfg: CPGridConfig, n: int, S: int = 0,
 
 
 def _launch_grad(params, xt, vdt, cfg: CPGridConfig, g=None, train=None,
-                 full=None):
+                 full=None, span: int = -1):
     """One launch sequence of the gradient kernels over all of ``xt``.
     ``g``: (4, n) cotangent (the VJP); ``train``: (dists, tgt, S, white_bg,
     inv_denom) for the fused train objective; ``full``: a filled
     ``cuda_lib.FullArgs`` whose call first writes ``xt``, ``vdt`` and
-    ``dists`` (the whole train step). Returns (d_params, err, maps)."""
+    ``dists`` (the whole train step), with ``span`` the span its wrapper
+    opened. Returns (d_params, err, maps)."""
+    if full is None:
+        span = profiling.begin(cuda_lib.LAUNCH_SPAN[
+            "ngp_fused_apply_cf_bwd" if train is None else "ngp_fused_train_cf"])
     dev = xt.device
     n = xt.shape[1]
     f32 = dict(dtype=torch.float32, device=dev)
+    sp = profiling.begin("launch.scratch")
     out4 = torch.empty((4, n), **f32)
+    profiling.end(sp)
     S = train[2] if train is not None else 0
     if cfg.use_bf16:  # raises where the layers do not fit a block
+        sp = profiling.begin("launch.plan")
         plan = bwd_plan_of(params, cfg, S)
+        profiling.end(sp)
     b = cuda_lib.BwdArgs()
     b.f, keep = _fused_args(params, xt, vdt, out4, cfg, True)
     if cfg.use_bf16:
         # the tile kernel's slots: a block's tile of encodings (P / 16 slots
         # of 16 points) for each block of a grid of at most one block an SM
         slots = cuda_lib.sm_count(dev) * (plan.points // 16)
+        sp = profiling.begin("launch.scratch")
         enc = torch.empty(slots * 16 * cfg.out_dim, dtype=torch.bfloat16, device=dev)
+        profiling.end(sp)
         b.f.enc, b.f.enc_slots = enc.data_ptr(), slots
         keep = (*keep, enc)
     lib = cuda_lib.load_library()
+    sp = profiling.begin("launch.plan")
     sizes = (ctypes.c_longlong * 6)()
     lib.nkt_fused_bwd_sizes(ctypes.byref(b.f), sizes)
     act_rows, gs_rows, total, smem, ld, act_bytes = (int(v) for v in sizes)
@@ -885,12 +909,14 @@ def _launch_grad(params, xt, vdt, cfg: CPGridConfig, g=None, train=None,
                 tuple(int(v) for v in got) != plan.as_tuple():
             raise RuntimeError(
                 f"block plan: the library says {tuple(got)}, the host {plan.as_tuple()}")
+    profiling.end(sp)
     if smem > cuda_lib.SMEM_LIMIT:
         raise ValueError(
             f"the layers need {smem} B of shared memory, above the "
             f"{cuda_lib.SMEM_LIMIT} B one block may use")
     n_sm = cuda_lib.sm_count(dev)
     n_part = 2 * n_sm
+    sp = profiling.begin("launch.scratch")
     act = torch.empty((act_rows, ld), dtype=scratch.act_dtype, device=dev)
     z0 = torch.empty((ld,), **f32)
     gs = torch.empty((gs_rows, ld), **f32)
@@ -901,6 +927,7 @@ def _launch_grad(params, xt, vdt, cfg: CPGridConfig, g=None, train=None,
     dlines = torch.empty_like(params["lines"])
     denc = torch.empty((n, cfg.out_dim), **f32)
     lpart, l_chunks = dlines_scratch(n, cfg, dev)
+    profiling.end(sp)
     b.act, b.z0, b.gs, b.ld = act.data_ptr(), z0.data_ptr(), gs.data_ptr(), ld
     b.partial, b.flat = partial.data_ptr(), flat.data_ptr()
     b.dlines, b.n_part = dlines.data_ptr(), n_part
@@ -915,10 +942,12 @@ def _launch_grad(params, xt, vdt, cfg: CPGridConfig, g=None, train=None,
         R = n // S
         cuda_lib.check_tensor(dists, "dists", (1, n), dev)
         cuda_lib.check_tensor(tgt, "tgt_cf", (3, R), dev)
+        sp = profiling.begin("launch.scratch")
         err = torch.empty((1, R), **f32)
         maps = torch.empty((4, R), **f32)
         # the rays' kernel's cotangent: f32 mode's, and bf16 mode's long rays
         gbuf = torch.empty((0 if cfg.use_bf16 and not plan.long_rays else 4, n), **f32)
+        profiling.end(sp)
         b.dists, b.tgt = dists.data_ptr(), tgt.data_ptr()
         b.err, b.maps, b.gbuf = err.data_ptr(), maps.data_ptr(), gbuf.data_ptr()
         b.S, b.white_bg, b.inv_denom = S, int(white_bg), float(inv_denom)
@@ -926,6 +955,7 @@ def _launch_grad(params, xt, vdt, cfg: CPGridConfig, g=None, train=None,
     # The kernels run after this returns. Their scratch tensors may be freed
     # then: the caching allocator hands a block out again only to work that
     # is queued behind them on the same stream.
+    sp = profiling.begin("launch.call")
     if full is not None:
         full.b = b
         name = "ngp_fused_train_full_cf"
@@ -933,10 +963,9 @@ def _launch_grad(params, xt, vdt, cfg: CPGridConfig, g=None, train=None,
                                         cuda_lib.current_stream(dev))
     else:
         code = fn(ctypes.byref(b), n_sm, cuda_lib.current_stream(dev))
-    cuda_lib.LAUNCHES[name] += 1
-    cuda_lib.POINTS[name, "bf16" if cfg.use_bf16 else "f32"] += n + (
-        full.R * full.Sc if full is not None else 0)
-    cuda_lib.POINTS["cp_encode_bwd_in_fused", "bf16" if cfg.use_bf16 else "f32"] += n
+    profiling.end(sp)
+    cuda_lib.launched(span, name, "bf16" if cfg.use_bf16 else "f32",
+                      n + (full.R * full.Sc if full is not None else 0), in_fused=n)
     cuda_lib.raise_on_error(code, name)
     d = {"lines": dlines, "dW": [], "db": [], "cW": [], "cb": []}
     off = 0
@@ -1026,6 +1055,7 @@ def _launch_full(params, o_cf, d_cf, vd_cf, tgt_cf, u_coarse, u_fine, proj2,
                  cfg: CPGridConfig, S, Sc, num_bins, white_bg, inv_denom, near,
                  far, bound, occ_floor):
     """One call of ``nkt_fused_train_full`` over all the rays given."""
+    span = profiling.begin("launch.ngp_fused_train_full_cf")
     dev = o_cf.device
     R = o_cf.shape[1]
     for t, name, shape in ((o_cf, "o_cf", (3, R)), (d_cf, "d_cf", (3, R)),
@@ -1041,12 +1071,14 @@ def _launch_full(params, o_cf, d_cf, vd_cf, tgt_cf, u_coarse, u_fine, proj2,
     f32 = dict(dtype=torch.float32, device=dev)
     n = R * S
     # the fine stage's operands, written by the call itself
+    sp = profiling.begin("launch.scratch")
     xt, vdt, dists = (torch.empty((3, n), **f32), torch.empty((3, n), **f32),
                       torch.empty((1, n), **f32))
     z_c = torch.empty((R, Sc), **f32)
     xt_c = torch.empty((3, R * Sc), **f32)
     sigma_c = torch.empty((4, R * Sc), **f32)
     err_c = torch.empty((1, R), **f32)
+    profiling.end(sp)
     a = cuda_lib.FullArgs()
     a.o, a.d, a.vd = o_cf.data_ptr(), d_cf.data_ptr(), vd_cf.data_ptr()
     a.uc, a.uf, a.proj2 = u_coarse.data_ptr(), u_fine.data_ptr(), proj2.data_ptr()
@@ -1057,7 +1089,7 @@ def _launch_full(params, o_cf, d_cf, vd_cf, tgt_cf, u_coarse, u_fine, proj2,
     a.inv_bound2, a.occ_floor = 1.0 / (2.0 * float(bound)), float(occ_floor)
     d, err, maps = _launch_grad(params, xt, vdt, cfg,
                                 train=(dists, tgt_cf, S, white_bg, inv_denom),
-                                full=a)
+                                full=a, span=span)
     return err, maps, err_c, d
 
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from . import cuda_lib
 
 
@@ -40,21 +41,27 @@ def occupancy_at_hull_cuda(proj2: torch.Tensor, xt: torch.Tensor) -> torch.Tenso
     CPU tensor through the plain version."""
     if not xt.is_cuda:
         return occupancy_at_hull_cuda_ref(proj2, xt)
+    sp = profiling.begin("launch.occupancy_at_hull")
     R = proj2.shape[-1]
     cuda_lib.check_tensor(xt, "xt", (3, None))
     cuda_lib.check_tensor(proj2, "proj2", (3, R, R), xt.device)
     n = xt.shape[1]
+    sc = profiling.begin("launch.scratch")
     out = torch.empty((n,), dtype=torch.float32, device=xt.device)
-    if n:
-        lib = cuda_lib.load_library()
-        code = lib.nkt_occupancy_at_hull(
-            xt.data_ptr(), proj2.data_ptr(), out.data_ptr(), n, R,
-            cuda_lib.sm_count(xt.device), cuda_lib.current_stream(xt.device),
-        )
-        cuda_lib.raise_on_error(
-            code, "occupancy_at_hull",
-            f"R = {R}: the kernel holds the three projections in bf16 in a "
-            "block's shared memory, which takes R <= 196")
-        cuda_lib.LAUNCHES["occupancy_at_hull"] += 1
-        cuda_lib.POINTS["occupancy_at_hull", "kernel"] += n
+    profiling.end(sc)
+    if not n:
+        profiling.end(sp)
+        return out
+    lib = cuda_lib.load_library()
+    call = profiling.begin("launch.call")
+    code = lib.nkt_occupancy_at_hull(
+        xt.data_ptr(), proj2.data_ptr(), out.data_ptr(), n, R,
+        cuda_lib.sm_count(xt.device), cuda_lib.current_stream(xt.device),
+    )
+    profiling.end(call)
+    cuda_lib.launched(sp, "occupancy_at_hull", "kernel", n)
+    cuda_lib.raise_on_error(
+        code, "occupancy_at_hull",
+        f"R = {R}: the kernel holds the three projections in bf16 in a "
+        "block's shared memory, which takes R <= 196")
     return out

@@ -17,6 +17,11 @@ Every shape stays static and the work per pixel is cut four ways:
 
 The fine pass still evaluates the full per-pixel budget at per-pixel ray
 directions; only sample placement is block-shared.
+
+Spans (``utils/profiling.py``), children of the caller's ``frame``:
+``frame.rays`` (view directions, block layout), ``frame.proposal``,
+``frame.coarse``, ``frame.pdf`` (fine placement), ``frame.select`` (block
+scores and top-K), ``frame.fine`` and ``frame.paste`` (the image's layout).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch.nn.functional as F
 
 from ..ops.sampling import sample_pdf
 from ..ops.volume_render import raw2outputs_cf
+from ..utils import profiling
 
 
 @dataclass(frozen=True)
@@ -87,6 +93,7 @@ def render_image_fast(
     if H % s or W % s:
         raise ValueError("stride must divide the image")
     Hq, Wq = H // s, W // s
+    sp = profiling.begin("frame.rays")
     if viewdirs is None:
         viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
 
@@ -111,22 +118,29 @@ def render_image_fast(
     with torch.no_grad():
         ob, db, vb = blockify(rays_o), blockify(rays_d), blockify(viewdirs)
         oq, dq = ob[:, 0, :], db[:, 0, :]
+        profiling.end(sp)
 
         # ---- shared coarse pass (per block) ----------------------------
+        sp = profiling.begin("frame.proposal")
         z_q = proposal_fn(oq, dq)                           # (Nq, Sc)
+        profiling.end(sp)
+        sp = profiling.begin("frame.coarse")
         pts_q = oq[:, None, :] + dq[:, None, :] * z_q[..., None]
         vd_q = vb[:, 0:1, :].expand(pts_q.shape)
         raw_q = apply_cf(pts_q, vd_q)                       # (4, Nq*Sc)
         out_q = raw2outputs_cf(
             raw_q, z_q, dq, white_background=settings.white_background
         )
+        profiling.end(sp)
 
         # ---- per-pixel fine placement from the shared PDF --------------
+        sp = profiling.begin("frame.pdf")
         w = _blur_floor_pdf(out_q.weights, settings.pdf_blur, settings.pdf_floor)
         mids = 0.5 * (z_q[..., 1:] + z_q[..., :-1])
         z_fine = sample_pdf(
             mids, w[..., 1:-1], settings.num_fine, deterministic=True
         )                                                   # (Nq, Sf) sorted
+        profiling.end(sp)
 
         Nq = Hq * Wq
         Sf = settings.num_fine
@@ -140,8 +154,11 @@ def render_image_fast(
             # structure. Opacity is no usable score: a trained model fills
             # free space with background-colored fog (acc ~ 1 everywhere).
             K = max(1, int(round(settings.fg_fraction * Nq)))
+            sp = profiling.begin("frame.select")
             score = _window_range(out_q.rgb.reshape(Hq, Wq, 3)).reshape(Nq)
             idx = torch.topk(score, K).indices
+            profiling.end(sp)
+            sp = profiling.begin("frame.fine")
             n_pk = K * s * s
             z_k = z_fine[idx][:, None, :].expand(K, s * s, Sf).reshape(n_pk, Sf)
             of = ob[idx].reshape(n_pk, 3)
@@ -153,6 +170,7 @@ def render_image_fast(
             out = raw2outputs_cf(
                 raw, z_k, df, white_background=settings.white_background
             )
+            profiling.end(sp)
 
             def paste(coarse_field, fine_field):
                 """Coarse per-block value broadcast to pixels, fine results
@@ -162,13 +180,17 @@ def render_image_fast(
                 base[idx] = fine_field.reshape(K, s * s, *tail)
                 return base.reshape(Nq * s * s, *tail)
 
-            return {
+            sp = profiling.begin("frame.paste")
+            maps = {
                 "rgb": unblock(paste(out_q.rgb, out.rgb)),
                 "disp": unblock(paste(out_q.disp, out.disp)),
                 "acc": unblock(paste(out_q.acc, out.acc)),
                 "depth": unblock(paste(out_q.depth, out.depth)),
             }
+            profiling.end(sp)
+            return maps
 
+        sp = profiling.begin("frame.fine")
         n_pix = Nq * s * s
         z_all = z_fine[:, None, :].expand(Nq, s * s, Sf).reshape(n_pix, Sf)
 
@@ -182,10 +204,14 @@ def render_image_fast(
         out = raw2outputs_cf(
             raw, z_all, df, white_background=settings.white_background
         )
+        profiling.end(sp)
 
-        return {
+        sp = profiling.begin("frame.paste")
+        maps = {
             "rgb": unblock(out.rgb),
             "disp": unblock(out.disp),
             "acc": unblock(out.acc),
             "depth": unblock(out.depth),
         }
+        profiling.end(sp)
+        return maps

@@ -54,6 +54,7 @@ from .._device import resolve_device
 from ..cameras.rays import get_rays, ndc_rays, pixel_dirs
 from ..parallel.mesh import all_reduce_mean, shard_batch
 from ..rendering.renderer import render_image, render_rays
+from ..utils import profiling
 from ..utils.logging import get_logger
 
 log = get_logger("train")
@@ -282,6 +283,7 @@ def build_objective(engine, near, far):
     def autodiff_objective(batch, aux, gen, u_coarse=None, u_fine=None,
                            noise_coarse=None, noise_fine=None):
         rays_o, rays_d, viewdirs, target = batch
+        sp = profiling.begin("obj.forward")
         leaves = dict(engine.model.named_parameters())
         with torch.enable_grad():
             coarse, fine = render_rays(
@@ -303,10 +305,13 @@ def build_objective(engine, near, far):
             else:
                 loss_f = torch.mean((fine.rgb - target) ** 2)
                 loss = loss_f if cw == 0.0 else cw * loss_c + loss_f
+            profiling.end(sp)
+            sp = profiling.begin("obj.backward")
             gs = torch.autograd.grad(loss, list(leaves.values()),
                                      allow_unused=True)
         grads = {k: (torch.zeros_like(p) if g is None else g)
                  for (k, p), g in zip(leaves.items(), gs)}
+        profiling.end(sp)
         return (loss.detach(), (loss_c.detach(), loss_f.detach())), grads
 
     return autodiff_objective
@@ -320,7 +325,9 @@ def build_train_step(engine, intrinsics, near, far, use_ndc: bool = False):
     device tensors; the ``shuffled`` sampler reads ``ray_buf`` instead.
     ``use_ndc`` warps the batch into NDC space after the view directions are
     taken from the unwarped rays. The state is updated in place; the metrics
-    are device tensors."""
+    are device tensors. ``step_id``: the step's number, the request id of its
+    span ``step`` (children ``step.batch``, ``step.draws``,
+    ``step.objective``, ``step.update``; ``utils/profiling.py``)."""
     cfg = engine.cfg
     settings = cfg.nerf.train
     n_rays = cfg.nerf.num_random_rays
@@ -416,7 +423,9 @@ def build_train_step(engine, intrinsics, near, far, use_ndc: bool = False):
 
     def train_step(state: TrainState, images, poses, ray_buf=None, *,
                    offset=None, pixels=None, u_coarse=None, u_fine=None,
-                   noise_coarse=None, noise_fine=None):
+                   noise_coarse=None, noise_fine=None, step_id: int = -1):
+        span = profiling.begin("step", step_id)
+        sp = profiling.begin("step.batch")
         gen = state.generator
         layout.bind(engine.model, state.params)
         with torch.no_grad():
@@ -429,11 +438,17 @@ def build_train_step(engine, intrinsics, near, far, use_ndc: bool = False):
             else:
                 batch = sample_batch(gen, images, poses, pixels)
             batch = tuple(shard_batch(t, mesh) for t in batch)
+            profiling.end(sp)
+            sp = profiling.begin("step.draws")
             u_coarse, u_fine, noise_coarse, noise_fine = step_draws(
                 gen, u_coarse, u_fine, noise_coarse, noise_fine)
+            profiling.end(sp)
+        sp = profiling.begin("step.objective")
         (loss, (loss_c, loss_f)), grads = objective(
             batch, state.aux, gen, u_coarse=u_coarse, u_fine=u_fine,
             noise_coarse=noise_coarse, noise_fine=noise_fine)
+        profiling.end(sp)
+        sp = profiling.begin("step.update")
         with torch.no_grad():
             dev = state.params.device
             if adam.weight_decay and dev not in decay_masks:
@@ -455,6 +470,8 @@ def build_train_step(engine, intrinsics, near, far, use_ndc: bool = False):
                 "loss_fine": loss_f,
                 "psnr": -10.0 * torch.log10(torch.clamp(loss_f, min=1e-12)),
             }
+        profiling.end(sp)
+        profiling.end(span)
         return state, metrics
 
     return train_step
@@ -464,15 +481,18 @@ def build_train_many(engine, intrinsics, near, far, use_ndc: bool = False,
                      steps_per_call: int = 20):
     """``steps_per_call`` train steps per call, enqueued back to back with no
     host synchronisation in between: ``many(state, images, poses,
-    ray_buf=None) -> (state, metrics)``, the metrics of the last step plus
-    ``"losses"``, the (steps_per_call,) device tensor of every step's loss."""
+    ray_buf=None, first_step=-1) -> (state, metrics)``, the metrics of the
+    last step plus ``"losses"``, the (steps_per_call,) device tensor of every
+    step's loss. ``first_step``: the first step's number (its span's request
+    id), the others following it."""
     step = build_train_step(engine, intrinsics, near, far, use_ndc)
 
-    def many(state: TrainState, images, poses, ray_buf=None):
+    def many(state: TrainState, images, poses, ray_buf=None, first_step: int = -1):
         losses: List[torch.Tensor] = []
         metrics = {}
-        for _ in range(steps_per_call):
-            state, metrics = step(state, images, poses, ray_buf)
+        for j in range(steps_per_call):
+            state, metrics = step(state, images, poses, ray_buf,
+                                  step_id=first_step + j if first_step >= 0 else -1)
             losses.append(metrics["loss"])
         return state, {**metrics, "losses": torch.stack(losses)}
 

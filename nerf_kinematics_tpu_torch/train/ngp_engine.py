@@ -55,6 +55,7 @@ from ..ops.volume_render import raw2outputs_cf
 from ..parallel.mesh import all_gather_rows, shard_batch
 from ..rendering.fast_render import FastRenderSettings, render_image_fast
 from ..rendering.renderer import render_image
+from ..utils import profiling
 from .config import Config
 from .loop import (
     NGP_ADAM,
@@ -401,6 +402,7 @@ class NGPEngine:
                       noise_coarse=None, noise_fine=None):
             rays_o, rays_d, viewdirs, target = batch
             n_rays = rays_o.shape[0]
+            sp = profiling.begin("obj.proposal")
             prop = self.proposal_for(aux, near, far, settings, generator)
             if prop is not None:
                 z_coarse = prop(rays_o, rays_d, u_coarse)
@@ -410,6 +412,8 @@ class NGPEngine:
                     perturb=settings.perturb, lindisp=settings.lindisp,
                     generator=generator, u=u_coarse, device=rays_o.device,
                 )
+            profiling.end(sp)
+            sp = profiling.begin("obj.coarse")
             params = self._fused_params(detach=True)
             o_cf, d_cf = rays_o.T[:, :, None], rays_d.T[:, :, None]
             xt_c = self._to_unit_cf((o_cf + d_cf * z_coarse[None]).reshape(3, -1))
@@ -417,6 +421,8 @@ class NGPEngine:
             coarse = raw2outputs_cf(raw4c, z_coarse, rays_d, noise_std=0.0,
                                     white_background=white_bg)
             loss_c = torch.mean((coarse.rgb - target) ** 2)
+            profiling.end(sp)
+            sp = profiling.begin("obj.fine_inputs")
             z_fine = hierarchical_sample(
                 z_coarse, coarse.weights, S, deterministic=not settings.perturb,
                 merge=False, generator=generator, u=u_fine,
@@ -428,13 +434,17 @@ class NGPEngine:
             dists = (dd * torch.linalg.norm(rays_d, dim=-1, keepdim=True))
             xt = self._to_unit_cf((o_cf + d_cf * z_fine[None]).reshape(3, -1))
             vdt = viewdirs.T[:, :, None].expand(3, n_rays, S).reshape(3, -1)
+            profiling.end(sp)
+            sp = profiling.begin("obj.fine")
             err, _maps, d_fused = ngp_fused_train_cf(
                 params, xt.contiguous(), vdt.contiguous(),
                 dists.reshape(1, -1).contiguous(), target.T.contiguous(), cp,
                 S, white_bg, inv_denom=1.0 / (3.0 * n_rays),
             )
             loss_f = torch.sum(err) / (3.0 * n_rays)
-            return (loss_f, (loss_c, loss_f)), self._fused_grads_to_tree(d_fused)
+            grads = self._fused_grads_to_tree(d_fused)
+            profiling.end(sp)
+            return (loss_f, (loss_c, loss_f)), grads
 
         return objective
 
@@ -461,19 +471,26 @@ class NGPEngine:
             rays_o, rays_d, viewdirs, target = batch
             n_rays = rays_o.shape[0]
             dev = rays_o.device
+            sp = profiling.begin("obj.proposal")
             u_c = sample_u(u_coarse, generator, n_rays, Sc, dev)
+            proj2 = pair_projections(aux).contiguous()
+            profiling.end(sp)
+            sp = profiling.begin("obj.fine_inputs")
             u_f = sample_u(u_fine, generator, n_rays, S, dev)
             cf = lambda t: t.T.contiguous()
+            operands = (cf(rays_o), cf(rays_d), cf(viewdirs), cf(target), cf(u_c), cf(u_f))
+            profiling.end(sp)
+            sp = profiling.begin("obj.fine")
             err, _maps, err_c, d_fused = ngp_fused_train_full_cf(
-                self._fused_params(detach=True), cf(rays_o), cf(rays_d),
-                cf(viewdirs), cf(target), cf(u_c), cf(u_f),
-                pair_projections(aux).contiguous(), ngp.cp, S, Sc, ngp.occ_bins,
-                white_bg, inv_denom=1.0 / (3.0 * n_rays), near=near, far=far,
-                bound=self.scene_bound, occ_floor=ngp.occ_floor,
+                self._fused_params(detach=True), *operands, proj2, ngp.cp, S, Sc,
+                ngp.occ_bins, white_bg, inv_denom=1.0 / (3.0 * n_rays), near=near,
+                far=far, bound=self.scene_bound, occ_floor=ngp.occ_floor,
             )
             loss_f = torch.sum(err) / (3.0 * n_rays)
             loss_c = torch.sum(err_c) / (3.0 * n_rays)
-            return (loss_f, (loss_c, loss_f)), self._fused_grads_to_tree(d_fused)
+            grads = self._fused_grads_to_tree(d_fused)
+            profiling.end(sp)
+            return (loss_f, (loss_c, loss_f)), grads
 
         return objective_full
 
@@ -551,7 +568,9 @@ class NGPEngine:
         """Serving-rate renderer (rendering/fast_render.py): shared
         stride^2-block coarse pass + one fused full-image fine pass. Needs
         the fused kernel and the occupancy proposal; raises otherwise.
-        (c2w, aux) -> maps dict."""
+        (c2w, aux) -> maps dict. Each call is a span ``frame`` (request id:
+        the call's number from 0) whose first child ``frame.rays`` makes
+        the view's rays; ``render_image_fast`` opens the others."""
         if not self.fused:
             raise ValueError("fast render needs the fused kernel (ngp.fused)")
         if not self.ngp_config.use_occupancy:
@@ -566,14 +585,22 @@ class NGPEngine:
         prop_settings = val.__class__(
             num_coarse=settings.num_coarse, perturb=False
         )
+        calls = 0
 
         def render_view(c2w, aux):
+            nonlocal calls
+            span = profiling.begin("frame", calls)
+            calls += 1
+            sp = profiling.begin("frame.rays")
             rays_o, rays_d, viewdirs = self._view_rays(intrinsics, c2w, use_ndc)
-            return render_image_fast(
+            profiling.end(sp)
+            out = render_image_fast(
                 self.apply_cf, rays_o, rays_d, near, far, settings,
                 proposal_fn=self.proposal_for(aux, near, far, prop_settings),
                 viewdirs=viewdirs,
             )
+            profiling.end(span)
+            return out
 
         return render_view
 

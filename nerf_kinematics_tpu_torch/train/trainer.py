@@ -7,6 +7,12 @@ train/val x loss/psnr plus rays per second in ``metrics.jsonl``.
 
 Steps are enqueued in chunks sized to the smallest event cadence; the host
 reads the device (metrics, validation, checkpoints) on those cadences only.
+Each chunk is a span ``fit.chunk`` (``utils/profiling.py``; request id: its
+first step) with the children ``fit.enqueue`` (the steps' calls, each step
+a span ``step``), ``fit.read`` (the one read of the losses, where the host
+waits for the device), ``fit.refresh`` (an occupancy refresh and its
+synchronisation) and ``fit.events`` (print, validation, checkpoint, where a
+cadence fires).
 
 With ``use_mesh`` and a process group of two or more ranks
 (``parallel/``), every rank trains the replicated state on its share of
@@ -31,6 +37,7 @@ from ..io.checkpoint import CheckpointManager
 from ..metrics.psnr import psnr
 from ..metrics.writer import ScalarWriter
 from ..parallel.mesh import barrier, make_mesh
+from ..utils import profiling
 from ..utils.logging import get_logger
 from .config import Config
 from .loop import ClassicNerf, TrainState, build_shuffled_ray_buffer, eval_params
@@ -46,10 +53,12 @@ class TrainResult:
     rays_per_sec: Optional[float] = None
     # every step's train loss, in order (read from the device per chunk)
     losses: list = field(default_factory=list)
-    # (iteration, "full" | "incremental", seconds) of every occupancy refresh
+    # (iteration, "full" | "incremental", seconds) of every occupancy refresh:
+    # the span fit.refresh's two clock reads
     occupancy_refreshes: list = field(default_factory=list)
-    # (steps, seconds) of every chunk of steps, host clock around the one
-    # read of the device that ends it
+    # (steps, seconds) of every chunk of steps, from the start of its enqueue
+    # to the end of the one read of the device that ends it (the spans
+    # fit.enqueue's start and fit.read's end)
     chunk_seconds: list = field(default_factory=list)
 
 
@@ -215,22 +224,30 @@ class Trainer:
                     self._build_ray_buf(
                         seed=exp.randomseed + 1000 * (1 + epoch_now))
             k = min(chunk, total - it)
-            t_chunk = time.perf_counter()
+            first = it + 1
+            t_chunk = time.time_ns()
+            span = profiling.begin("fit.chunk", first, t_chunk)
+            sp = profiling.begin("fit.enqueue", first, t_chunk)
             if k == chunk and chunk > 1:
                 state, metrics = self._train_many(
-                    state, self.images, self.poses, self.ray_buf)
+                    state, self.images, self.poses, self.ray_buf, first_step=first)
                 step_losses = metrics.pop("losses")
             else:
                 each = []
-                for _ in range(k):
+                for j in range(k):
                     state, metrics = self._train_step(
-                        state, self.images, self.poses, self.ray_buf)
+                        state, self.images, self.poses, self.ray_buf,
+                        step_id=first + j)
                     each.append(metrics["loss"])
                 step_losses = torch.stack(each)
+            profiling.end(sp)
             it += k
             # one read of the device per chunk
+            sp = profiling.begin("fit.read", first)
             result.losses.extend(step_losses.tolist())
-            result.chunk_seconds.append((k, time.perf_counter() - t_chunk))
+            t_read = time.time_ns()
+            profiling.end(sp, t_read)
+            result.chunk_seconds.append((k, (t_read - t_chunk) * 1e-9))
 
             if occ_every and (it % occ_every) < k and it >= occ_every:
                 # Full sweep on the first refresh and every occ_full_every
@@ -238,15 +255,18 @@ class Trainer:
                 full_every = ngp.occ_full_every
                 full = it < occ_every + k or not full_every or (
                     (it % full_every) < k)
-                t_occ = time.perf_counter()
+                t_occ = time.time_ns()
+                sp = profiling.begin("fit.refresh", first, t_occ)
                 state = self.engine.update_occupancy(state, full=full)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
+                t_done = time.time_ns()
+                profiling.end(sp, t_done)
                 result.occupancy_refreshes.append(
-                    (it, "full" if full else "incremental",
-                     time.perf_counter() - t_occ))
+                    (it, "full" if full else "incremental", (t_done - t_occ) * 1e-9))
 
             if exp.print_every > 0 and ((it % exp.print_every) < k or it == total):
+                sp = profiling.begin("fit.events", first)
                 result.last_metrics = {key: float(v) for key, v in metrics.items()}
                 dt = time.perf_counter() - t0
                 result.rays_per_sec = (it - start_step) * n_rays / max(dt, 1e-9)
@@ -259,19 +279,25 @@ class Trainer:
                 self.writer.scalar("perf/rays_per_sec", result.rays_per_sec, it)
                 # metrics.jsonl doubles as the run's liveness heartbeat
                 self.writer.flush()
+                profiling.end(sp)
 
             if (self.is_main and exp.validate_every > 0
                     and ((it % exp.validate_every) < k or it == total)):
+                sp = profiling.begin("fit.events", first)
                 v = self.validate(state)
                 if v:
                     result.val_psnr = v["val_psnr"]
                     self.writer.scalar("val/loss", v["val_loss"], it)
                     self.writer.scalar("val/psnr", v["val_psnr"], it)
                     log.info("iter %d validation psnr %.2f dB", it, result.val_psnr)
+                profiling.end(sp)
 
             if exp.save_every > 0 and ((it % exp.save_every) < k or it == total):
+                sp = profiling.begin("fit.events", first)
                 self.save_checkpoint(state, it, result.last_metrics,
                                      result.val_psnr)
+                profiling.end(sp)
+            profiling.end(span)
 
         # Final mean over the whole validation split: the per-step val/psnr
         # scalar is view 0 only.

@@ -1,8 +1,8 @@
 """The port's utilities against the JAX package's: the YAML reader of
 ``configs/*.yml`` (against PyYAML's ``safe_load``) and ``load_config``
-(against the JAX package's), ``utils/flops.py``, the throughput meter and the
-numerical guards (as ``tests/test_utils.py``), the logger, the profiler
-trace, and ``write_video``'s GIF (read back by Pillow)."""
+(against the JAX package's), ``utils/flops.py`` and the numerical guards
+(as ``tests/test_utils.py``), the logger, the profiler trace, and
+``write_video``'s GIF (read back by Pillow)."""
 
 import dataclasses
 import glob
@@ -23,7 +23,7 @@ from nerf_kinematics_tpu_torch.train import config as tcfg
 from nerf_kinematics_tpu_torch.train.config import parse_yaml
 from nerf_kinematics_tpu_torch.utils import flops as tflops
 from nerf_kinematics_tpu_torch.utils.guards import assert_finite_tree, checked_step
-from nerf_kinematics_tpu_torch.utils.profiling import ThroughputMeter, device_trace
+from nerf_kinematics_tpu_torch.utils.profiling import device_trace
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "*.yml")))
@@ -165,21 +165,7 @@ def test_flops_equal_the_jax_package(path):
     assert tflops.PEAK_FLOPS["bf16"] == 989e12
 
 
-# ------------------------------------------------- meter, guards, logging
-
-def test_throughput_meter():
-    import time
-
-    m = ThroughputMeter(window=10)
-    assert m.rays_per_sec is None and m.steps_per_sec is None
-    m.tick(100)
-    time.sleep(0.01)
-    m.tick(100)
-    assert m.rays_per_sec > 0 and m.steps_per_sec > 0
-    for _ in range(20):
-        m.tick(100)
-    assert len(m._times) == 11
-
+# ------------------------------------------------------- guards, logging
 
 def test_assert_finite_tree():
     from nerf_kinematics_tpu_torch.train.loop import AdamState, TrainState
